@@ -1,0 +1,141 @@
+"""The port's package boundary: it imports no jax, its kernel module imports
+and builds nothing without a CUDA toolkit, and a kernel entry given a CPU
+tensor takes the plain version and launches nothing."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from climsim_tpu_torch.ops import kernels as PK
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SLICE_MODULES = (
+    "climsim_tpu_torch", "climsim_tpu_torch.physics",
+    "climsim_tpu_torch.data.synthetic", "climsim_tpu_torch.data.transforms",
+    "climsim_tpu_torch.ops.kernels", "climsim_tpu_torch.ops._build",
+    "climsim_tpu_torch.models", "climsim_tpu_torch.models.common",
+    "climsim_tpu_torch.models.mlp", "climsim_tpu_torch.utils.migrate",
+    "climsim_tpu_torch.online.wrapper", "climsim_tpu_torch.online.server",
+    "climsim_tpu_torch.serve",
+)
+
+
+def _run(code: str, **env) -> str:
+    """Run ``code`` in a fresh interpreter (this one has jax loaded)."""
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120, env={**os.environ, **env})
+    assert res.returncode == 0, res.stderr
+    return res.stdout
+
+
+def test_port_imports_no_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
+            "import climsim_tpu_torch as p\n"
+            "p.get_varspec('v2_rh'); p.load_asset_norms('v2_rh')\n"
+            "p.load_default_grid()\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+            "print(bad)\n")
+    assert _run(code).strip() == "[]"
+
+
+def test_kernels_import_without_toolkit(tmp_path):
+    """No nvcc on PATH, no CUDA_HOME: the kernel module still imports,
+    importing loads no library, and a build is refused with a clear
+    error rather than half-done."""
+    code = ("from climsim_tpu_torch.ops import _build, kernels\n"
+            "assert _build._lib is None\n"
+            "from torch.utils.cpp_extension import CUDA_HOME\n"
+            "if CUDA_HOME is not None:\n"
+            "    print('toolkit present')\n"
+            "else:\n"
+            "    try:\n"
+            "        _build.build()\n"
+            "    except RuntimeError as e:\n"
+            "        print('refused:', e)\n")
+    env = {"PATH": str(tmp_path), "CUDA_HOME": "", "CUDA_PATH": ""}
+    out = _run(code, **env).strip()
+    assert out.startswith(("refused: no CUDA toolkit", "toolkit present"))
+
+
+def _mlp(wdtype):
+    rng = np.random.default_rng(0)
+    ws = [rng.standard_normal((12, 16)).astype(np.float32),
+          rng.standard_normal((16, 6)).astype(np.float32)]
+    bs = [np.zeros(16, np.float32), np.zeros(6, np.float32)]
+    return PK.pack_mlp(ws, bs, wdtype)
+
+
+def _consts(d):
+    z, o = np.zeros(d), np.ones(d)
+    return PK.transform_consts(sub=z, divinv=o, mask=o, lo=-np.inf * o,
+                               hi=np.inf * o, lbd=z, is_cloud=z,
+                               device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["fused_input_transform",
+                                   "fused_mlp_forward",
+                                   "fused_mlp_forward_int8"])
+def test_cpu_tensor_takes_plain_path(entry):
+    PK.reset_launches()
+    x = torch.randn(5, 12, generator=torch.Generator().manual_seed(0))
+    if entry == "fused_input_transform":
+        c = _consts(12)
+        got, want = PK.fused_input_transform(x, c), \
+            PK.fused_input_transform_plain(x, c)
+    elif entry == "fused_mlp_forward":
+        m = _mlp(torch.bfloat16)
+        got, want = PK.fused_mlp_forward(x, m, 2), \
+            PK.fused_mlp_forward_plain(x, m, 2)
+    else:
+        m = _mlp("int8")
+        got, want = PK.fused_mlp_forward_int8(x, m, 2), \
+            PK.fused_mlp_forward_int8_plain(x, m, 2)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert PK.LAUNCHES == dict.fromkeys(PK.LAUNCHES, 0)
+
+
+def test_kernel_entries_reject_bad_inputs():
+    x = torch.zeros(4, 12)
+    with pytest.raises(TypeError):
+        PK.fused_input_transform(x.double(), _consts(12))
+    with pytest.raises(ValueError):
+        PK.fused_input_transform(torch.zeros(4, 11), _consts(12))
+    with pytest.raises(ValueError):
+        PK.fused_input_transform(torch.zeros(12, 4).t(), _consts(4))
+    with pytest.raises(TypeError):
+        PK.fused_mlp_forward(x, _mlp("int8"))          # int8 needs its entry
+    with pytest.raises(TypeError):
+        PK.fused_mlp_forward_int8(x, _mlp(torch.bfloat16))
+    with pytest.raises(ValueError):
+        PK.fused_mlp_forward(torch.zeros(4, 13), _mlp(torch.float32))
+    with pytest.raises(ValueError):
+        PK.fused_mlp_forward(x, _mlp(torch.float32), relu_tail=7)
+    with pytest.raises(ValueError):
+        PK.pack_mlp([np.zeros((12, 16))], [np.zeros(15)])
+    with pytest.raises(ValueError):
+        PK.pack_mlp([np.zeros((12, 16))], [np.zeros(16)], torch.float16)
+    with pytest.raises(ValueError):
+        PK.PackedMLP((12, 16), torch.zeros(12 * 15), torch.zeros(16))
+
+
+def test_packed_layout_is_row_major_concatenation():
+    rng = np.random.default_rng(1)
+    ws = [rng.standard_normal((3, 4)).astype(np.float32),
+          rng.standard_normal((4, 2)).astype(np.float32)]
+    bs = [np.arange(4, dtype=np.float32), np.arange(2, dtype=np.float32)]
+    m = PK.pack_mlp(ws, bs, torch.float32)
+    assert m.widths == (3, 4, 2)
+    np.testing.assert_array_equal(
+        m.w.numpy(), np.concatenate([w.reshape(-1) for w in ws]))
+    np.testing.assert_array_equal(m.b.numpy(), np.concatenate(bs))
+    q = PK.pack_mlp(ws, bs, "int8")
+    assert q.w.dtype == torch.int8 and q.scale.shape == (6,)
+    assert PK.pack_mlp(ws, bs).w.dtype == torch.bfloat16
