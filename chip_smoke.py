@@ -18,10 +18,23 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    Every reply must equal the direct wrapper call on the card, match the
    plain path (the same wrapper on the CPU) within tolerance, and the
    launch counts of all three kernels must have risen in that run.
-5. With --profile, times the fused MLPs at both tile heights and traces
-   the served path with torch.profiler (device time per kernel and copy,
-   the card's busy share, the costliest host ops).
-6. Prints one JSON line of the kernels' results, then, last,
+5. Checks the U-Net kernels against their plain versions on the card:
+   fused_gn_silu_conv3 at the 13 (L, C, Cout) shapes of the unet_v5
+   forward at B = 1, 7, 384, an offset-1e3 case and a control that must
+   fail; fused_constraint_head at B = 1, 7, 384, 6144; times both.
+6. Serves the full-width U-Net v5 (the unet_v5 preset, 21,231,125
+   parameters, random flax-layout weights from --seed with every conv at
+   full xavier scale, moved across by the porter) through the v5 coupling
+   wrapper on raw v4 columns over CouplingServer: the same traffic as 4.
+   Every reply must be finite, (B, 368), equal to the direct wrapper call
+   (or within SERVED_TOL where a plain op is not batch-invariant; the ops
+   are probed and printed), and within 2e-2 * max|y| of the all-plain
+   path on the card; the launch counts of kernels 1, 4 and 5 must have
+   risen in that run.
+7. With --profile, times the fused MLPs at both tile heights and traces
+   both served paths with torch.profiler (device time per kernel and
+   copy, the card's busy share, the costliest host ops).
+8. Prints one JSON line of the kernels' results, then, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Nothing is caught: any failure exits non-zero and prints no result.
@@ -36,6 +49,7 @@ import subprocess
 import sys
 import threading
 import time
+from functools import partial
 
 import numpy as np
 
@@ -71,6 +85,43 @@ SOURCES = {
         "climsim_tpu_torch/ops/csrc/fused_mlp_forward_int8.cu",
         "climsim_tpu/ops/kernels.py:331"),
 }
+
+
+# The U-Net path's kernels (the served MLP path's are SOURCES above).
+UNET_SOURCES = {
+    "fused_gn_silu_conv3": (
+        "climsim_tpu_torch/ops/csrc/fused_gn_silu_conv3.cu",
+        "climsim_tpu/ops/unet_fused.py:100"),
+    "fused_constraint_head": (
+        "climsim_tpu_torch/ops/csrc/fused_constraint_head.cu",
+        "climsim_tpu/ops/kernels.py:144"),
+}
+# (L, C, Cout) -> calls: the 82 fused chains of one unet_v5 forward
+UNET_CHAINS = {
+    (64, 128, 128): 13, (64, 256, 128): 4, (64, 256, 256): 1,
+    (64, 384, 128): 1, (32, 128, 128): 1, (32, 128, 256): 1,
+    (32, 256, 256): 13, (32, 384, 256): 1, (32, 512, 256): 4,
+    (16, 256, 256): 15, (16, 512, 256): 5, (8, 256, 256): 18,
+    (8, 512, 256): 5}
+GN_ROWS = (1, 7, 384)
+# fused_gn_silu_conv3 against its plain version: max |kernel - plain| <=
+# GN_TOL * max|plain|.  Both round the normalized activations to bf16;
+# their float32 group statistics differ in the last bits, so a rounding
+# flips now and then (2**-8 of one term of a 3C-term sum).  On an H100
+# that left at most 2.92e-4 * max|y| over the 13 shapes at B = 1, 7, 384;
+# float32 activations in place of the rounding (the control, which must
+# fail) left 1.42e-3 to 1.89e-3.  With an offset of 1e3 on x, float32
+# resolves the centred values to ~6e-5 only, the two sides' statistics
+# differ more, flips are many (7.7e-4 * max|y|), and the case is held at
+# the JAX test's 2e-2 * max|y| (tests/test_pallas_kernels.py:156-173),
+# which a one-pass variance, E[x^2] - mean^2, fails there.
+GN_TOL = 5e-4
+GN_OFFSET_TOL = 2e-2
+HEAD_TOL = (2e-4, 1e-9)   # tests/test_pallas_kernels.py:69
+NET_TOL = 2e-2            # * max|y|, tests/test_unet_infer.py:44-46
+# served reply against the direct call where a plain op's result depends
+# on the batch it runs in (normalized units, * max|y|)
+SERVED_TOL = 2e-3
 
 
 def require(cond: bool, msg: str) -> None:
@@ -318,15 +369,172 @@ def kernel_checks(torch, K, T, spec, stats, spec5, stats5, model, columns):
     return res
 
 
+def unet_flax_tree(model, seed):
+    """A flax-layout ClimSimUNet tree of numpy arrays at ``model``'s widths:
+    every conv kernel (K, Cin, Cout) xavier-uniform at full scale (the
+    init scales conv1, the attention proj and out_conv by 1e-5, which would
+    hide half of the fused chains), conv biases 0.1 N(0, 1), GroupNorm
+    scale 1 + 0.2 N and bias 0.1 N, emb_loc N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    state = model.state_dict()
+    tree = {"emb_loc": rng.standard_normal(
+        tuple(state["emb_loc"].shape)).astype(np.float32)}
+    for key, v in state.items():
+        if key == "emb_loc":
+            continue
+        *path, leaf = key.split(".")
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        if state[".".join(path + ["weight"])].dim() == 3:    # a conv
+            node = node.setdefault("Conv_0", {})
+            if leaf == "weight":
+                cout, cin, k = v.shape
+                lim = np.sqrt(6.0 / ((cin + cout) * k))
+                a = rng.uniform(-lim, lim, (k, cin, cout))
+            else:
+                a = 0.1 * rng.standard_normal(v.shape[0])
+            leaf = {"weight": "kernel", "bias": "bias"}[leaf]
+        elif leaf == "weight":                                # a GroupNorm
+            a, leaf = 1.0 + 0.2 * rng.standard_normal(v.shape[0]), "scale"
+        else:
+            a = 0.1 * rng.standard_normal(v.shape[0])
+        node[leaf] = a.astype(np.float32)
+    return tree
+
+
+def gn_args(torch, g, b, l, c, cout, offset=0.0):
+    """Inputs of one fused chain on the card: x ~ N(offset, 1), gamma ~
+    1 + 0.2 N, beta ~ 0.1 N, w xavier-uniform in bf16, bias ~ 0.1 N."""
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+    lim = (6.0 / (3 * (c + cout))) ** 0.5
+    w = (torch.rand(3, c, cout, device="cuda", generator=g) * 2 - 1) * lim
+    return (randn(b, l, c) + offset, 1.0 + 0.2 * randn(c), 0.1 * randn(c),
+            w.to(torch.bfloat16).contiguous(), 0.1 * randn(cout))
+
+
+def gn_checks(torch, PU, seed):
+    """fused_gn_silu_conv3 against its plain version at every chain shape
+    of the unet_v5 forward and B in GN_ROWS, with the float32-activation
+    control, the offset-1e3 case, and times at B = 384 (the per-forward
+    sum weighted by each shape's call count)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    res = {"max_abs_err": 0.0, "max_err_rel": 0.0, "control_min_rel": 1e9,
+           "per_shape": {}}
+
+    def reading(label, a, tol=GN_TOL, control=True):
+        got = PU.fused_gn_silu_conv3(*a)
+        want = PU.fused_gn_silu_conv3_plain(*a)
+        require(got.shape == want.shape, f"{label}: shape {got.shape}")
+        require(bool(torch.isfinite(got).all()), f"{label}: non-finite")
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        ctl = float((PU.fused_gn_silu_conv3_plain(
+            *a[:3], a[3].float(), a[4]) - want).abs().max())
+        print(f"  fused_gn_silu_conv3 {label:28s} max_abs_err={err:.3e} "
+              f"({err / scale:.3e} of max|y|); control {ctl / scale:.3e}",
+              flush=True)
+        require(err <= tol * scale, f"{label}: {err / scale:.3e} of "
+                f"max|y| > {tol}")
+        if control:
+            require(ctl > tol * scale,
+                    f"{label}: the float32-activation control passes")
+            res["control_min_rel"] = min(res["control_min_rel"], ctl / scale)
+        if control:
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            res["max_err_rel"] = max(res["max_err_rel"], err / scale)
+        else:
+            res["offset_err_rel"] = err / scale
+
+    for (l, c, cout) in UNET_CHAINS:
+        for b in GN_ROWS:
+            reading(f"L={l} C={c} Cout={cout} B={b}",
+                    gn_args(torch, g, b, l, c, cout))
+    reading("L=64 C=128 Cout=128 B=7 +1e3", gn_args(
+        torch, g, 7, 64, 128, 128, offset=1e3), GN_OFFSET_TOL, False)
+    ms = plain_ms = 0.0
+    for (l, c, cout), calls in UNET_CHAINS.items():
+        a = gn_args(torch, g, 384, l, c, cout)
+        k, p = compare_timed(torch, lambda: PU.fused_gn_silu_conv3(*a),
+                             lambda: PU.fused_gn_silu_conv3_plain(*a), 20)
+        res["per_shape"][f"{l}x{c}x{cout}"] = (k, p)
+        ms, plain_ms = ms + calls * k, plain_ms + calls * p
+        print(f"  fused_gn_silu_conv3 L={l:2d} C={c:3d} Cout={cout} B=384 "
+              f"x{calls:2d}: kernel {k:.4f} ms  plain {p:.4f} ms",
+              flush=True)
+    res["ms"], res["plain_ms"] = ms, plain_ms
+    print(f"  fused_gn_silu_conv3 per forward (82 chains, B=384): kernel "
+          f"{ms:.3f} ms  plain {plain_ms:.3f} ms", flush=True)
+    return res
+
+
+def head_checks(torch, K, stats5, seed):
+    """fused_constraint_head against its plain version at B in KERNEL_ROWS,
+    timed at TIMED_ROWS."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    consts = K.constraint_head_consts(stats5.out_scale, 15, device="cuda")
+    res = {"max_abs_err": 0.0, "ms": {}, "plain_ms": {}}
+
+    def head_args(b):
+        def u(*shape):
+            return torch.rand(*shape, device="cuda", generator=g)
+        return (torch.randn(b, 308, device="cuda", generator=g),
+                250.0 + 40.0 * u(b, 60), 1e-5 * u(b, 60), 1e-5 * u(b, 60),
+                consts, 1200.0)
+
+    for b in KERNEL_ROWS:
+        a = head_args(b)
+        err = check_close(torch, "fused_constraint_head",
+                          K.fused_constraint_head(*a),
+                          K.fused_constraint_head_plain(*a), *HEAD_TOL)
+        res["max_abs_err"] = max(res["max_abs_err"], err[0])
+        print(f"  fused_constraint_head    B={b:5d} max_abs_err={err[0]:.3e}"
+              f" max_rel_err={err[1]:.3e}", flush=True)
+    for b in TIMED_ROWS:
+        a = head_args(b)
+        k, p = compare_timed(torch, lambda: K.fused_constraint_head(*a),
+                             lambda: K.fused_constraint_head_plain(*a), 200)
+        res["ms"][b], res["plain_ms"][b] = k, p
+        print(f"  fused_constraint_head    B={b:5d} kernel {k:.4f} ms  "
+              f"plain {p:.4f} ms", flush=True)
+    return res
+
+
+def batch_invariance(torch, F, PU, unet_apply_fused, unet, xn):
+    """Print which ops give the first 50 rows the same bits alone as inside
+    the 384-row batch (the server pads a 50-row request to 384)."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def same(fn, x):
+        return bool(torch.equal(fn(x[:50]), fn(x)[:50]))
+
+    h = unet.assemble(xn)
+    w3 = unet.enc64_conv.weight.detach()
+    w1 = torch.randn(256, 512, device="cuda", generator=g)
+    q = torch.randn(384, 8, 4, 64, device="cuda", generator=g)
+    a = gn_args(torch, g, 384, 64, 128, 128)
+    probes = {
+        "conv3, F.conv1d (cuDNN)": same(lambda x: F.conv1d(
+            x.transpose(1, 2), w3, padding=1), h),
+        "1x1 conv, matmul (cuBLAS)": same(
+            lambda x: x @ w1.t(), torch.randn(384, 8, 512, device="cuda",
+                                              generator=g)),
+        "attention scores, einsum (cuBLAS)": same(
+            lambda x: torch.einsum("blhd,bmhd->bhlm", x, x), q),
+        "fused_gn_silu_conv3 kernel": same(
+            lambda x: PU.fused_gn_silu_conv3(x.contiguous(), *a[1:]), a[0]),
+        "whole engine": same(lambda x: unet_apply_fused(unet, x), xn),
+    }
+    for name, ok in probes.items():
+        print(f"  batch-invariant at B=50 vs 384: {name}: {ok}", flush=True)
+    return probes
+
+
 def profile(torch, K, T, model, stats, spec, cols, chunk):
     """--profile: each fused MLP at every tile height (the choice in
-    kernels._tile_rows), then a torch.profiler trace of N_TRACE sequential
-    served 384-column requests a weight type: device time per kernel and
-    copy, the card's busy share of the traced wall time, and the host ops
-    that take longest."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as trace
-
+    kernels._tile_rows), then a trace_served of 384-column requests a
+    weight type."""
     from climsim_tpu_torch.online.server import (CouplingClient,
                                                  CouplingServer)
     from climsim_tpu_torch.online.wrapper import make_fast_mlp_wrapper
@@ -354,31 +562,70 @@ def profile(torch, K, T, model, stats, spec, cols, chunk):
         srv = CouplingServer(wrap, spec.input_len, base_chunk=384,
                              max_batch=6144, device="cuda").start()
         try:
-            cl = CouplingClient("127.0.0.1", srv.port)
-            for _ in range(20):
-                cl.step(chunk)
-            with trace(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(N_TRACE):
-                    cl.step(chunk)
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            cl.close()
+            trace_served(torch, CouplingClient, srv, chunk, f"served {w}")
         finally:
             srv.stop()
-        ops = prof.key_averages()
-        dev_ops = [e for e in ops if e.self_device_time_total > 0]
-        busy_ms = sum(e.self_device_time_total for e in dev_ops) / 1e3
-        print(f"profile: served {w}, {N_TRACE} requests in {wall_ms:.1f} ms; "
-              f"card busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%})",
-              flush=True)
-        for e in sorted(dev_ops, key=lambda e: -e.self_device_time_total)[:6]:
+
+
+def trace_served(torch, CouplingClient, srv, chunk, label):
+    """torch.profiler trace of N_TRACE sequential requests of ``chunk`` to
+    ``srv``: device time per kernel and copy, the card's busy share of the
+    traced wall time, and the host ops that take longest."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    cl = CouplingClient("127.0.0.1", srv.port)
+    for _ in range(20):
+        cl.step(chunk)
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(N_TRACE):
+            cl.step(chunk)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cl.close()
+    ops = prof.key_averages()
+    dev_ops = [e for e in ops if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in dev_ops) / 1e3
+    print(f"profile: {label}, {N_TRACE} requests in {wall_ms:.1f} ms; "
+          f"card busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%})",
+          flush=True)
+    # the ten costliest, then every copy and every kernel of the port
+    ours = ("Memcpy", "transform_kernel", "mlp_forward_kernel",
+            "constraint_head_kernel", "gn_silu_conv3_kernel")
+    ranked = sorted(dev_ops, key=lambda e: -e.self_device_time_total)
+    for i, e in enumerate(ranked):
+        if i < 10 or any(k in e.key for k in ours):
             print(f"  device {e.self_device_time_total / N_TRACE:9.2f} "
-                  f"us/request {e.count:5d} x {e.key[:80]}")
-        for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:6]:
-            print(f"  host   {e.self_cpu_time_total / N_TRACE:9.2f} "
-                  f"us/request {e.count:5d} x {e.key[:80]}")
+                  f"us/request {e.count:6d} x {e.key[:80]}")
+    for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:6]:
+        print(f"  host   {e.self_cpu_time_total / N_TRACE:9.2f} "
+              f"us/request {e.count:6d} x {e.key[:80]}")
+
+
+def v5_transform(T):
+    """The v5 wrapper's input transform (climsim_tpu/online/wrapper.py:84)."""
+    return T.TransformConfig(qn_transform=True, qinput_prune=True,
+                             strato_lev=15, input_clip=True,
+                             input_clip_rhonly=True)
+
+
+def plain_v5_path(torch, K, T, PW, physics, unet_apply_fused, unet, spec5,
+                  stats5):
+    """The served U-Net path with every kernel's plain version, on the
+    card: raw v4 (B, 1525) -> (B, 368)."""
+    consts = T.input_transform_consts(spec5, stats5, v5_transform(T), "cuda")
+    head = K.constraint_head_consts(stats5.out_scale, 15, device="cuda")
+
+    def run(x):
+        xn = K.fused_input_transform_plain(PW.convert_v4_to_v5(x), consts)
+        y = unet_apply_fused(unet, xn, fused=False)
+        return K.fused_constraint_head_plain(
+            y, x[:, 0:60], x[:, 120:180], x[:, 180:240], head,
+            physics.DT_TIMESTEP)
+
+    return run
 
 
 def drive(CouplingClient, srv, chunks, ragged, n_loop):
@@ -414,10 +661,11 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="then time the fused MLPs at both tile heights and "
-                    "trace the served path with torch.profiler")
+                    "trace both served paths with torch.profiler")
     args = ap.parse_args(argv)
 
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the GPU",
@@ -428,13 +676,19 @@ def main(argv=None) -> int:
                                    load_default_grid)
     from climsim_tpu_torch.data import transforms as T
     from climsim_tpu_torch.data.synthetic import synthetic_inputs
-    from climsim_tpu_torch.models import OnlineMLP
+    from climsim_tpu_torch import physics
+    from climsim_tpu_torch.models import OnlineMLP, build_model
+    from climsim_tpu_torch.online import wrapper as PW
     from climsim_tpu_torch.online.server import (CouplingClient,
                                                  CouplingServer)
     from climsim_tpu_torch.online.wrapper import make_fast_mlp_wrapper
     from climsim_tpu_torch.ops import _build
     from climsim_tpu_torch.ops import kernels as K
-    from climsim_tpu_torch.utils.migrate import port_flax_online_mlp
+    from climsim_tpu_torch.ops import unet_fused as PU
+    from climsim_tpu_torch.ops.unet_infer import unet_apply_fused
+    from climsim_tpu_torch.serve import UNET_V5
+    from climsim_tpu_torch.utils.migrate import (port_flax_online_mlp,
+                                                 port_flax_unet)
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -443,6 +697,8 @@ def main(argv=None) -> int:
           f"python {sys.version.split()[0]}", flush=True)
     require(not torch.backends.cuda.matmul.allow_tf32,
             "float32 products must not run in TF32")
+    require(not torch.backends.cudnn.allow_tf32,
+            "float32 convolutions must not run in TF32")
 
     t0 = time.perf_counter()
     _build.load()
@@ -493,8 +749,9 @@ def main(argv=None) -> int:
         for _, srv in servers.values():
             srv.stop()
     print(f"launches in the served run: {launches}", flush=True)
-    for name, n in launches.items():
-        require(n > 0, f"{name} was not launched by the served path")
+    for name in SOURCES:
+        require(launches[name] > 0,
+                f"{name} was not launched by the served path")
 
     # Replies are compared in normalized units (times out_scale): raw
     # tendencies span 1e-8 (water) to 1e2 (fluxes), beyond any one atol.
@@ -539,6 +796,89 @@ def main(argv=None) -> int:
               f"plain path: {served_outside:.4%} of the elements outside",
               flush=True)
 
+    # -- the U-Net v5 coupling path ----------------------------------------
+    print("U-Net kernels vs plain on the card:", flush=True)
+    gn = gn_checks(torch, PU, args.seed)
+    head = head_checks(torch, K, stats5, args.seed)
+    spec4 = get_varspec("v4")
+    unet = build_model("unet", spec5, **UNET_V5)
+    unet.load_state_dict(port_flax_unet(unet_flax_tree(unet, args.seed),
+                                        unet))
+    unet = unet.to("cuda").eval()
+    print(f"U-Net v5 (unet_v5 preset): "
+          f"{sum(p.numel() for p in unet.parameters())} parameters",
+          flush=True)
+    wrap5 = PW.make_wrapper(partial(unet_apply_fused, unet), stats5,
+                            PW.WrapperConfig(input_version="v4"),
+                            device="cuda")
+    plain5 = plain_v5_path(torch, K, T, PW, physics, unet_apply_fused,
+                           unet, spec5, stats5)
+    chunks5 = [synthetic_inputs(spec4, 384, grid, seed=args.seed + 30 + i)
+               for i in range(3)]
+    ragged5 = synthetic_inputs(spec4, 50, grid, seed=args.seed + 40)
+    srv5 = CouplingServer(wrap5, spec4.input_len, base_chunk=384,
+                          max_batch=6144, device="cuda").start()
+    try:
+        K.reset_launches()
+        replies5, lat5 = drive(CouplingClient, srv5, chunks5, ragged5,
+                               N_LOOP)
+        torch.cuda.synchronize()
+        launches5 = dict(K.LAUNCHES)
+        summary5 = srv5.stats.summary()
+        if args.profile:
+            trace_served(torch, CouplingClient, srv5, chunks5[0],
+                         "served U-Net v5")
+    finally:
+        srv5.stop()
+    print(f"launches in the served U-Net run: {launches5}", flush=True)
+    for name in ("fused_input_transform", "fused_gn_silu_conv3",
+                 "fused_constraint_head"):
+        require(launches5[name] > 0,
+                f"{name} was not launched by the served U-Net path")
+
+    # replies in normalized units: qc and qi take qn's out_scale
+    s5 = stats5.out_scale.astype(np.float64)
+    scale368 = torch.as_tensor(np.concatenate(
+        [s5[:120], s5[120:180], s5[120:180], s5[180:]]), dtype=torch.float32)
+    n_equal, direct_err, net_err, net_outside = 0, 0.0, 0.0, 0.0
+    for x, y in zip(chunks5 + [ragged5], replies5):
+        require(y.shape == (x.shape[0], 368), f"reply shape {y.shape}")
+        require(bool(np.isfinite(y).all()), "non-finite U-Net reply")
+        with torch.inference_mode():
+            xc = torch.from_numpy(x).cuda()
+            direct = wrap5(xc).cpu() * scale368
+            ref = plain5(xc).cpu() * scale368
+        got = torch.from_numpy(y.copy()) * scale368
+        if torch.equal(got, direct):
+            n_equal += 1
+        else:
+            d = float((got - direct).abs().max() / direct.abs().max())
+            direct_err = max(direct_err, d)
+            require(d <= SERVED_TOL, f"served U-Net reply {d:.3e} of max|y| "
+                    f"from the direct call (> SERVED_TOL {SERVED_TOL})")
+        e = float((got - ref).abs().max() / ref.abs().max())
+        net_err = max(net_err, e)
+        require(e <= NET_TOL, f"served U-Net reply {e:.3e} of max|y| from "
+                f"the plain path (> {NET_TOL})")
+        net_outside = max(net_outside, outside(got, ref, 2e-4, 1e-4))
+    lat5 = np.asarray(lat5)
+    print(f"served U-Net v5: {summary5['requests']} requests, "
+          f"{summary5['batches']} device calls, device call p50 "
+          f"{summary5['latency_ms_p50']:.3f} ms p99 "
+          f"{summary5['latency_ms_p99']:.3f} ms; 384-column round trip p50 "
+          f"{np.percentile(lat5, 50):.3f} ms p99 "
+          f"{np.percentile(lat5, 99):.3f} ms", flush=True)
+    print(f"  replies: {n_equal} of {len(replies5)} bit-equal to the direct "
+          f"call (largest gap {direct_err:.3e} of max|y|); against the "
+          f"all-plain path {net_err:.3e} of max|y| (tolerance {NET_TOL}), "
+          f"{net_outside:.4%} of the elements outside rtol 2e-4 / atol 1e-4",
+          flush=True)
+    with torch.inference_mode():
+        xn = K.fused_input_transform_plain(
+            PW.convert_v4_to_v5(torch.from_numpy(chunks5[0]).cuda()),
+            T.input_transform_consts(spec5, stats5, v5_transform(T), "cuda"))
+        batch_invariance(torch, F, PU, unet_apply_fused, unet, xn)
+
     if args.profile:
         profile(torch, K, T, model, stats, spec, columns["v2_rh"], chunks[0])
     require("jax" not in sys.modules, "the port must not load jax")
@@ -547,12 +887,32 @@ def main(argv=None) -> int:
         r = res[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": launches[name] + launches5[name],
             "max_abs_err": r["max_abs_err"],
             **{k: r[k] for k in ("whole_network_max_abs_err",) if k in r},
             "ms": r["ms"][384], "plain_ms": r["plain_ms"][384],
             "ms_b6144": r["ms"][6144], "plain_ms_b6144": r["plain_ms"][6144],
         })
+    kernels.append({
+        "name": "fused_gn_silu_conv3", "route": "cuda",
+        "source": UNET_SOURCES["fused_gn_silu_conv3"][0],
+        "replaces": UNET_SOURCES["fused_gn_silu_conv3"][1],
+        "launches": launches5["fused_gn_silu_conv3"],
+        "max_abs_err": gn["max_abs_err"], "max_err_of_max_y": gn["max_err_rel"],
+        "control_min_err_of_max_y": gn["control_min_rel"],
+        "offset_1e3_err_of_max_y": gn["offset_err_rel"],
+        "ms": gn["ms"], "plain_ms": gn["plain_ms"],
+        "ms_is": "sum over the 82 chains of one B=384 forward"})
+    kernels.append({
+        "name": "fused_constraint_head", "route": "cuda",
+        "source": UNET_SOURCES["fused_constraint_head"][0],
+        "replaces": UNET_SOURCES["fused_constraint_head"][1],
+        "launches": launches5["fused_constraint_head"],
+        "max_abs_err": head["max_abs_err"],
+        "ms": head["ms"][384], "plain_ms": head["plain_ms"][384],
+        "ms_b6144": head["ms"][6144],
+        "plain_ms_b6144": head["plain_ms"][6144]})
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

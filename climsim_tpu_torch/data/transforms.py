@@ -131,7 +131,7 @@ def _clip_bounds(spec: VarSpec, cfg: TransformConfig):
 
 def input_transform_consts(spec: VarSpec, stats: NormStats,
                            cfg: TransformConfig | None = None,
-                           device="cpu") -> torch.Tensor:
+                           device="cpu", dtype=torch.float32) -> torch.Tensor:
     """Resolve ``cfg`` into the fused input transform's (7, D) constants.
 
     ``qn_transform`` covers BOTH cloud layouts: the combined-qn rate on v5
@@ -167,7 +167,7 @@ def input_transform_consts(spec: VarSpec, stats: NormStats,
     return K.transform_consts(
         sub=stats.inp_sub, divinv=1.0 / stats.inp_div,
         mask=_zero_mask(spec, cfg), lo=lo, hi=hi, lbd=lbd, is_cloud=is_cloud,
-        device=device)
+        device=device, dtype=dtype)
 
 
 def make_input_transform(spec: VarSpec, stats: NormStats,

@@ -9,9 +9,11 @@ the bias is added, so the casts are written out: the rounded operands are
 widened back to float32, where their products are exact and the sum is
 float32.  ``compute_dtype=torch.float32`` gives the exact-parity path.
 
-Importing this module sets ``torch.backends.cuda.matmul.allow_tf32 =
-False``: a float32 product on the card then runs in full float32, as the
-reference's does, instead of TF32 with about three decimal digits.
+Importing this module sets ``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32`` to False: a float32 product or
+convolution on the card then runs in full float32, as the reference's
+does, instead of TF32 with about three decimal digits (cuDNN's default
+for convolutions is TF32).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 
 
 def out_dtype(compute_dtype: torch.dtype) -> torch.dtype:

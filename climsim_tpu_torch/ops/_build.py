@@ -1,6 +1,7 @@
 """Build the CUDA kernels of ``ops/csrc`` and load them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one
+process a source, all started together, and links the objects into one
 shared library with a plain C interface: no PyTorch headers, so the build
 takes seconds.  It runs at first use, into ``ops/_build/<key>/`` (listed in
 ``.gitignore``), where the key hashes the sources and the flags, so a
@@ -25,9 +26,9 @@ LIB_NAME = "libclimsim_kernels.so"
 # No --use_fast_math: it lets the compiler fold isfinite away and swaps
 # expf for __expf, which breaks fused_input_transform's contract.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "cst_error_string": ([_I], ctypes.c_char_p),
     # x, consts, out, rows, d, stream
@@ -41,6 +42,12 @@ _SIGNATURES = {
     # stream
     "cst_fused_mlp_forward_int8": (
         [_P, _P, _P, _P, _P, ctypes.POINTER(_I), _I, _I, _I, _I, _P], _I),
+    # y, t, qc, qi, consts, out, rows, dt, stream
+    "cst_fused_constraint_head": (
+        [_P, _P, _P, _P, _P, _P, _I, _F, _P], _I),
+    # x, gamma, beta, w, bias, out, batch, L, C, Cout, G, eps, stream
+    "cst_fused_gn_silu_conv3": (
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
 }
 
 _lock = threading.Lock()
@@ -77,14 +84,31 @@ def build() -> Path:
     if path.exists():
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (path.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    tag = f"{os.getpid()}.tmp"
+    srcs = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [path.with_name(f"{s.stem}.{tag}.o") for s in srcs]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+            for s, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = [" ".join(c) + "\n" + o for c, o in zip(cmds, outs)]
+    failed = [c[-1] for c, p in zip(cmds, procs) if p.returncode != 0]
+    tmp = path.with_name(f"{LIB_NAME}.{tag}")
+    if not failed:
+        link = [_nvcc(), "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+                *map(str, objs)]
+        res = subprocess.run(link, capture_output=True, text=True,
+                             check=False)
+        log.append(" ".join(link) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append("link")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    (path.parent / "build.log").write_text("".join(log))
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "".join(log))
     os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
     return path
 

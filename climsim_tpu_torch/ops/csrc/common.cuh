@@ -10,6 +10,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace cst {
 
 // Most layers one fused-MLP launch takes (the coupling MLP has 5).
@@ -20,5 +22,32 @@ struct Widths {
   int n_layers;
   int w[kMaxLayers + 1];
 };
+
+constexpr int kMaxDevices = 64;
+
+// Above 48 KB of dynamic shared memory a launch is refused unless the
+// kernel opts in.  The opt-in is a host call of a few microseconds, so it
+// is made once per kernel and device, to the card's whole limit; each
+// launch still asks only for what it needs.
+template <typename Kernel>
+int opt_in_shared_memory(Kernel kernel, bool (&done)[kMaxDevices],
+                         std::mutex& mu) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  std::lock_guard<std::mutex> lock(mu);
+  if (done[dev]) return 0;
+  int limit = 0;
+  e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  done[dev] = true;
+  return 0;
+}
 
 }  // namespace cst

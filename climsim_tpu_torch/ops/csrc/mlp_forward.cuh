@@ -31,14 +31,11 @@
 // variant to bf16 too, which changes its numerics; that waits.
 #pragma once
 
-#include <mutex>
-
 #include "common.cuh"
 
 namespace cst {
 
 constexpr int kMlpThreads = 256;
-constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float widen(float w) { return w; }
 __device__ __forceinline__ float widen(__nv_bfloat16 w) {
@@ -209,31 +206,6 @@ __global__ void __launch_bounds__(kMlpThreads)
     woff += static_cast<long long>(din) * dout;
     boff += dout;
   }
-}
-
-// Above 48 KB of dynamic shared memory a launch is refused unless the
-// kernel opts in.  The opt-in is a host call of a few microseconds, so it
-// is made once per kernel and device, to the card's whole limit; each
-// launch still asks only for what it needs.
-template <typename Kernel>
-int opt_in_shared_memory(Kernel kernel, bool (&done)[kMaxDevices],
-                         std::mutex& mu) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  std::lock_guard<std::mutex> lock(mu);
-  if (done[dev]) return 0;
-  int limit = 0;
-  e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev);
-  if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
-  }
-  if (e != cudaSuccess) return static_cast<int>(e);
-  done[dev] = true;
-  return 0;
 }
 
 template <typename WT, int TB, bool kInt8>

@@ -1,6 +1,6 @@
 """The serving path's kernels, each beside its plain PyTorch version.
 
-Three hand-written CUDA kernels (sources in ``ops/csrc``, built by
+Four hand-written CUDA kernels (sources in ``ops/csrc``, built by
 ``ops/_build.py``) replace the Pallas kernels of ``climsim_tpu.ops.kernels``
 that the coupling sidecar runs:
 
@@ -10,6 +10,12 @@ that the coupling sidecar runs:
     bf16 weights, float32 activations
   * ``fused_mlp_forward_int8`` -- the same with weight-only int8 weights,
     bf16-rounded activations
+  * ``fused_constraint_head``  -- the U-Net v5 wrapper's postprocess:
+    stratosphere zeroing, un-scaling, cloud repartition, the 368 contract
+
+The U-Net's GroupNorm -> silu -> conv3 kernel is in ``ops/unet_fused.py``,
+the counterpart module of ``climsim_tpu.ops.unet_fused``; it counts its
+launches here too.
 
 Each public function checks its arguments, then takes the plain version
 for a tensor on the CPU and launches its kernel for a tensor on a CUDA
@@ -30,10 +36,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from climsim_tpu.varspec import NUM_LEVELS
+
+from .. import physics
 from . import _build
 
 LAUNCHES = {"fused_input_transform": 0, "fused_mlp_forward": 0,
-            "fused_mlp_forward_int8": 0}
+            "fused_mlp_forward_int8": 0, "fused_constraint_head": 0,
+            "fused_gn_silu_conv3": 0}
 
 
 def reset_launches() -> None:
@@ -79,12 +89,13 @@ TRANSFORM_ROWS = ("sub", "divinv", "mask", "lo", "hi", "lbd", "is_cloud")
 
 
 def transform_consts(*, sub, divinv, mask, lo, hi, lbd, is_cloud,
-                     device) -> torch.Tensor:
+                     device, dtype=torch.float32) -> torch.Tensor:
     """Stack the seven (D,) constant vectors in the kernel's row order into
-    one (7, D) float32 tensor on ``device``."""
-    rows = [np.asarray(v, np.float32)
+    one (7, D) tensor on ``device``: float32 for the kernel, float64 for
+    the plain version's oracle-parity path."""
+    rows = [np.asarray(v, np.float64)
             for v in (sub, divinv, mask, lo, hi, lbd, is_cloud)]
-    return torch.as_tensor(np.stack(rows), device=device)
+    return torch.as_tensor(np.stack(rows), dtype=dtype, device=device)
 
 
 def fused_input_transform_plain(x: torch.Tensor,
@@ -116,6 +127,67 @@ def fused_input_transform(x: torch.Tensor,
             x.shape[1], _stream(x.device))
     _build.check(code, "fused_input_transform")
     LAUNCHES["fused_input_transform"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# fused constraint head (the U-Net v5 wrapper's postprocess)
+# --------------------------------------------------------------------------
+V5_OUT = 308        # t, q1, qn, u, v (60 each), 8 scalars
+CONTRACT_OUT = 368  # t, q1, qc, qi, u, v (60 each), 8 scalars
+
+
+def constraint_head_consts(out_scale, strato_lev_out: int,
+                           dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """The (2, 308) rows of the head: the stratosphere mask (the top
+    ``strato_lev_out`` levels of q1, qn, u and v zeroed) and 1 / out_scale
+    (divided in float64, then rounded, as the reference wrapper does)."""
+    mask = np.ones(V5_OUT)
+    for start in (60, 120, 180, 240):   # q1, qn, u, v
+        mask[start:start + strato_lev_out] = 0.0
+    rows = np.stack([mask, 1.0 / np.asarray(out_scale, np.float64)])
+    return torch.as_tensor(rows, dtype=dtype, device=device)
+
+
+def fused_constraint_head_plain(y_norm, t, qc, qi, consts,
+                                dt: float) -> torch.Tensor:
+    """The XLA chain of climsim_tpu/online/wrapper.py:112-125."""
+    mask, scaleinv = consts
+    y = y_norm * mask * scaleinv
+    dqc, dqi = physics.repartition_clouds(
+        t, qc, qi, y[:, 0:NUM_LEVELS], y[:, 2 * NUM_LEVELS:3 * NUM_LEVELS],
+        dt)
+    return torch.cat([y[:, :2 * NUM_LEVELS], dqc, dqi, y[:, 3 * NUM_LEVELS:]],
+                     dim=1)
+
+
+def fused_constraint_head(y_norm: torch.Tensor, t: torch.Tensor,
+                          qc: torch.Tensor, qi: torch.Tensor,
+                          consts: torch.Tensor, dt: float) -> torch.Tensor:
+    """Normalized v5 output (B, 308) and t, qc, qi before the step (B, 60),
+    all float32 -> the raw (B, 368) coupling contract; ``consts`` from
+    ``constraint_head_consts``, ``dt`` the coupling step in seconds."""
+    _check(consts, "consts", torch.float32, (2, V5_OUT), consts.device)
+    _check(y_norm, "y_norm", torch.float32, (None, V5_OUT), consts.device)
+    for name, a in (("t", t), ("qc", qc), ("qi", qi)):
+        _check(a, name, torch.float32, (y_norm.shape[0], NUM_LEVELS),
+               consts.device)
+    if not dt > 0:
+        raise ValueError(f"dt {dt}: want a positive step")
+    if not _on_cuda(y_norm, "fused_constraint_head"):
+        return fused_constraint_head_plain(y_norm, t, qc, qi, consts, dt)
+    out = torch.empty((y_norm.shape[0], CONTRACT_OUT), dtype=torch.float32,
+                      device=y_norm.device)
+    if y_norm.shape[0] == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(y_norm.device):
+        code = lib.cst_fused_constraint_head(
+            y_norm.data_ptr(), t.data_ptr(), qc.data_ptr(), qi.data_ptr(),
+            consts.data_ptr(), out.data_ptr(), y_norm.shape[0], dt,
+            _stream(y_norm.device))
+    _build.check(code, "fused_constraint_head")
+    LAUNCHES["fused_constraint_head"] += 1
     return out
 
 

@@ -1,9 +1,10 @@
 """Column physics constants and the numpy saturation/humidity mirrors.
 
-The counterpart of ``climsim_tpu.physics``: the E3SM constants and the
-float64 numpy functions the synthetic data needs.  The tensor half
-(``repartition_clouds``, the conservation residuals) belongs to the U-Net
-coupling and is not here yet.
+The counterpart of ``climsim_tpu.physics``: the E3SM constants, the
+float64 numpy functions the synthetic data needs, and the tensor functions
+the U-Net v5 coupling wrapper needs (``liquid_fraction``,
+``repartition_clouds``, ``qn_exponential_transform``).  The pressure
+functions and the conservation residuals come with evaluation.
 
 Semantics match the reference implementation:
   * constants      -> climsim_utils/data_utils.py:159-170 (E3SM shr_const_mod)
@@ -14,6 +15,7 @@ Semantics match the reference implementation:
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # --- E3SM physical constants (shr_const_mod.F90 values) ----------------------
 GRAV = 9.80616        # gravity [m/s^2]
@@ -44,6 +46,39 @@ _A_ICE = (
 )
 # eice piecewise-domain constants: T breakpoints and low-T quadratic.
 _C_ICE = (273.15, 185.0, -100.0, 0.00763685, 0.000151069, 7.48215e-07)
+
+
+def liquid_fraction(t: torch.Tensor) -> torch.Tensor:
+    """Linear liquid/ice partition ramp: 0 below 253.16K, 1 above 273.16K."""
+    return torch.clamp((t - T_ICE) / (T_FREEZE - T_ICE), 0.0, 1.0)
+
+
+def repartition_clouds(t_before, qc_before, qi_before, dt_tend, dqn_tend,
+                       dt_seconds=DT_TIMESTEP):
+    """Split a combined cloud-water tendency dqn into (dqc, dqi).
+
+    Advances T and qn over one coupling step, re-partitions the new qn by the
+    liquid fraction of the *new* temperature, and emits separate liquid/ice
+    tendencies.  Mirrors v5_nn_wrapper.ipynb `forward` post-processing.
+    """
+    qn_before = qc_before + qi_before
+    t_new = t_before + dt_tend * dt_seconds
+    qn_new = qn_before + dqn_tend * dt_seconds
+    liq_frac = liquid_fraction(t_new)
+    qc_new = liq_frac * qn_new
+    qi_new = (1.0 - liq_frac) * qn_new
+    dqc = (qc_new - qc_before) / dt_seconds
+    dqi = (qi_new - qi_before) / dt_seconds
+    return dqc, dqi
+
+
+def qn_exponential_transform(qn: torch.Tensor, lbd) -> torch.Tensor:
+    """Cloud-water exponential transform x -> 1 - exp(-lbd * x).
+
+    lbd is the per-level rate 1/mean(q | q>1e-7) (online_testing/
+    data_preparation/normalization/cloud_exponential_transformation.ipynb).
+    """
+    return 1.0 - torch.exp(-qn * lbd)
 
 
 # Numpy mirrors (float64) for host-side data generation and golden tests.

@@ -3,11 +3,18 @@
 ``--demo v2rh`` builds an untrained MLP_v2rh at the ``mlp_v2rh`` preset's
 full width (557 -> 1024 x 4 -> 368) from ``--seed`` and serves it through
 the fast wrapper: the input-transform kernel, then the fused-MLP kernel
-with bf16, int8 or float32 weights.  For wire and latency testing of the
+with bf16, int8 or float32 weights.
+
+``--demo v5`` builds an untrained U-Net at the ``unet_v5`` preset's full
+width (21,231,125 parameters) from ``--seed`` and serves it through the
+v5 coupling wrapper on raw v4 columns (1525 wide): the input-transform
+kernel, the fused engine with its GroupNorm -> silu -> conv3 kernel, then
+the constraint-head kernel.  Both are for wire and latency testing of the
 bridge itself.
 
 Example:
   python -m climsim_tpu_torch.serve --demo v2rh --weights bf16 --port 9999
+  python -m climsim_tpu_torch.serve --demo v5
   # host side: send <III magic,rows,features> + f32 payload; read reply
 """
 
@@ -16,15 +23,20 @@ from __future__ import annotations
 import argparse
 import signal
 import threading
+from functools import partial
+
+# The unet_v5 preset's model (climsim_tpu/config.py:156-160).
+UNET_V5 = dict(model_channels=128, channel_mult=(1, 2, 2, 2), num_blocks=4,
+               attn_resolutions=(8,), output_prune=True, strato_lev_out=15)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--demo", choices=["v2rh"], required=True)
+    ap.add_argument("--demo", choices=["v2rh", "v5"], required=True)
     ap.add_argument("--hidden", default="1024,1024,1024,1024",
-                    help="comma-separated hidden widths")
+                    help="v2rh: comma-separated hidden widths")
     ap.add_argument("--weights", choices=["f32", "bf16", "int8"],
-                    default="bf16")
+                    default="bf16", help="v2rh: weight type")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=384,
@@ -41,17 +53,29 @@ def main(argv=None):
 
     from .models import build_model
     from .online.server import CouplingServer
-    from .online.wrapper import make_fast_mlp_wrapper
+    from .online.wrapper import (WrapperConfig, make_fast_mlp_wrapper,
+                                 make_wrapper)
+    from .ops.unet_infer import unet_apply_fused
 
-    spec = get_varspec("v2_rh")
-    hidden = tuple(int(h) for h in args.hidden.split(","))
     gen = torch.Generator().manual_seed(args.seed)
-    model = build_model("mlp_online", spec, hidden=hidden, generator=gen)
-    weights_dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
-                     "int8": "int8"}[args.weights]
-    wrap = make_fast_mlp_wrapper(model, load_asset_norms("v2_rh"), spec,
-                                 weights_dtype, device=args.device)
-    srv = CouplingServer(wrap, spec.input_len, base_chunk=args.batch,
+    if args.demo == "v2rh":
+        spec = get_varspec("v2_rh")
+        hidden = tuple(int(h) for h in args.hidden.split(","))
+        model = build_model("mlp_online", spec, hidden=hidden, generator=gen)
+        weights_dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
+                         "int8": "int8"}[args.weights]
+        wrap = make_fast_mlp_wrapper(model, load_asset_norms("v2_rh"), spec,
+                                     weights_dtype, device=args.device)
+        n_features, what = spec.input_len, f"weights={args.weights}"
+    else:
+        model = build_model("unet", get_varspec("v5"), **UNET_V5,
+                            generator=gen).to(args.device).eval()
+        wrap = make_wrapper(partial(unet_apply_fused, model),
+                            load_asset_norms("v5"),
+                            WrapperConfig(input_version="v4"),
+                            device=args.device)
+        n_features, what = get_varspec("v4").input_len, "unet_v5"
+    srv = CouplingServer(wrap, n_features, base_chunk=args.batch,
                          max_batch=args.max_batch, host=args.host,
                          port=args.port, device=args.device)
 
@@ -62,7 +86,7 @@ def main(argv=None):
     srv.start()
     print(f"serving on {args.host}:{srv.port} "
           f"(features={srv.n_features}, buckets={srv.buckets}, "
-          f"weights={args.weights}, device={args.device})", flush=True)
+          f"{what}, device={args.device})", flush=True)
     try:
         while not stop.wait(10.0):
             s = srv.stats.summary()

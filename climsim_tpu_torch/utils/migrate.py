@@ -2,7 +2,8 @@
 
 The inverse of ``climsim_tpu.utils.migrate.port_online_mlp``: a flax Dense
 kernel is (in, out), a torch Linear weight (out, in), so kernels are
-transposed.  Inputs are plain numpy mappings (extract a flax tree with
+transposed; a flax conv kernel is (K, Cin, Cout), a torch one (Cout, Cin,
+K).  Inputs are plain numpy mappings (extract a flax tree with
 ``jax.tree.map(np.asarray, params["params"])``); dtypes are preserved.
 """
 
@@ -41,4 +42,69 @@ def port_flax_online_mlp(params: dict) -> dict:
     for i in range(len(index)):
         state.update(_linear(f"trunk.layers.{i}.", trunk[index[i]]))
     state.update(_linear("out.", params["out"]))
+    return state
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _n_leaves(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_n_leaves(v) for v in tree.values())
+    return 1
+
+
+def _unet_leaves(tree: dict, prefix: str, state: dict) -> None:
+    """Map one flax subtree onto ``state``: a Conv1d / IdentityConv (its
+    nn.Conv nested as ``Conv_0``), a GroupNorm (``scale``, ``bias``), the
+    ``emb_loc`` table, or a module holding more of them."""
+    for name, sub in tree.items():
+        key = prefix + name
+        if not isinstance(sub, dict):
+            if key != "emb_loc":
+                raise KeyError(f"unexpected leaf {key!r}")
+            state[key] = _tensor(sub)
+        elif set(sub) == {"Conv_0"}:
+            conv = sub["Conv_0"]
+            if set(conv) != {"kernel", "bias"} or np.ndim(conv["kernel"]) != 3:
+                raise KeyError(f"{key}.Conv_0: want a (K, Cin, Cout) kernel "
+                               f"and a bias, got {sorted(conv)}")
+            state[key + ".weight"] = _tensor(
+                np.transpose(np.asarray(conv["kernel"]), (2, 1, 0)))
+            state[key + ".bias"] = _tensor(conv["bias"])
+        elif set(sub) == {"scale", "bias"}:
+            state[key + ".weight"] = _tensor(sub["scale"])
+            state[key + ".bias"] = _tensor(sub["bias"])
+        else:
+            _unet_leaves(sub, key + ".", state)
+
+
+def port_flax_unet(params: dict, model: torch.nn.Module) -> dict:
+    """A ``climsim_tpu.models.unet.ClimSimUNet`` parameter tree (numpy
+    leaves; a ``{"params": ...}`` wrapper is unwrapped) -> a
+    ``models.unet.ClimSimUNet`` state_dict.
+
+    Module names carry over as they are; conv kernels are transposed to
+    torch's (Cout, Cin, K), GroupNorm ``scale`` becomes ``weight``.  Raises
+    unless every flax leaf lands in exactly one tensor and the result
+    fills every tensor of ``model``'s state_dict, each at its shape.
+    """
+    if set(params) == {"params"}:
+        params = params["params"]
+    state: dict = {}
+    _unet_leaves(params, "", state)
+    if len(state) != _n_leaves(params):
+        raise KeyError(f"{_n_leaves(params)} flax leaves mapped onto "
+                       f"{len(state)} tensors")
+    want = model.state_dict()
+    missing, extra = sorted(set(want) - set(state)), sorted(
+        set(state) - set(want))
+    if missing or extra:
+        raise KeyError(f"tree and model differ: missing {missing[:5]}, "
+                       f"unexpected {extra[:5]}")
+    for k, v in want.items():
+        if tuple(state[k].shape) != tuple(v.shape):
+            raise ValueError(f"{k}: flax {tuple(state[k].shape)}, model "
+                             f"{tuple(v.shape)}")
     return state

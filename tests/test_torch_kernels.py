@@ -3,7 +3,7 @@ where they take their plain PyTorch versions, against the Pallas kernels
 they replace (interpret mode) and the XLA chains those kernels fuse.
 
 Tolerances are the JAX package's own for the same functions
-(tests/test_pallas_kernels.py:28, :88, :138)."""
+(tests/test_pallas_kernels.py:28, :69, :88, :138, :172)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -179,3 +179,96 @@ def test_int8_fused_mlp_accuracy():
     qs, scales = PK.quantize_weights_int8(ws)
     wdq = qs[0].float().numpy() * scales[0].numpy()[None, :]
     assert np.abs(wdq - ws[0]).max() <= (np.abs(ws[0]).max() / 127) + 1e-6
+
+
+# (C, Cout, groups), offset: the cases of tests/test_pallas_kernels.py:156-159;
+# offset 1e3 puts |mean| >> std, where a one-pass variance cancels
+GN_CASES = {"c128": ((128, 128, 32), 0.0), "c256_to_128": ((256, 128, 32), 0.0),
+            "c64": ((64, 64, 16), 0.0), "offset_1e3": ((128, 128, 32), 1e3)}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(GN_CASES))
+def test_fused_gn_silu_conv3_matches_pallas_and_xla(case, dtype):
+    """Kernel 5's plain version against the Pallas kernel (interpret mode)
+    and the XLA chain: rtol 1e-5 / atol 1e-5 * max|y| at float32 compute,
+    atol 2e-2 * max|y| at bf16 (test_pallas_kernels.py:172)."""
+    from climsim_tpu.ops.unet_fused import (fused_gn_silu_conv3,
+                                            xla_gn_silu_conv3)
+    from climsim_tpu_torch.models.unet import _num_groups
+    from climsim_tpu_torch.ops import unet_fused as PU
+
+    (c, cout, groups), offset = GN_CASES[case]
+    assert _num_groups(c) == groups
+    rng = np.random.default_rng(3)
+    b, l = 16, 64
+    x = (rng.standard_normal((b, l, c)) + offset).astype(np.float32)
+    gamma = rng.standard_normal(c).astype(np.float32)
+    beta = rng.standard_normal(c).astype(np.float32)
+    w = (rng.standard_normal((3, c, cout)) / np.sqrt(3 * c)).astype(np.float32)
+    bias = rng.standard_normal(cout).astype(np.float32)
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    args = [jnp.asarray(a) for a in (x, gamma, beta, w, bias)]
+    xla = np.asarray(xla_gn_silu_conv3(*args, groups=groups,
+                                       compute_dtype=jdt), np.float64)
+    pallas = np.asarray(fused_gn_silu_conv3(
+        *args, groups=groups, batch_tile=8, compute_dtype=jdt), np.float64)
+    PK.reset_launches()
+    got = PU.fused_gn_silu_conv3(
+        torch.from_numpy(x), torch.from_numpy(gamma), torch.from_numpy(beta),
+        torch.from_numpy(w).to(tdt), torch.from_numpy(bias)).double().numpy()
+    assert PK.LAUNCHES["fused_gn_silu_conv3"] == 0   # CPU: plain version
+    assert got.shape == (b, l, cout)
+    if dtype == "f32" and offset:
+        # at |x| ~ 1e3 float32 resolves 6e-5 of a unit std, so no two
+        # float32 orders of summation agree to 1e-5 (the Pallas kernel and
+        # the XLA chain differ by 7e-5 * max|y|): hold all three to the
+        # float64 chain at 1.5e-4 * max|y| instead
+        exact = PU.fused_gn_silu_conv3_plain(*[
+            torch.from_numpy(a).double() for a in (x, gamma, beta, w, bias)
+        ]).numpy()
+        scale = np.abs(exact).max()
+        for a in (got, xla, pallas):
+            np.testing.assert_allclose(a, exact, rtol=0, atol=1.5e-4 * scale)
+        return
+    for want in (xla, pallas):
+        scale = np.abs(want).max()
+        if dtype == "f32":
+            np.testing.assert_allclose(got, want, rtol=1e-5,
+                                       atol=1e-5 * scale)
+        else:
+            np.testing.assert_allclose(got, want, rtol=0, atol=2e-2 * scale)
+
+
+@pytest.mark.parametrize("b", [1, 7, 24])
+def test_fused_constraint_head_matches_pallas_and_wrapper_math(b):
+    """Kernel 4's plain version against the Pallas kernel (interpret mode)
+    and the wrapper's XLA chain, at rtol 2e-4 / atol 1e-9
+    (test_pallas_kernels.py:69)."""
+    from climsim_tpu import physics
+
+    stats = load_asset_norms("v5")
+    rng = np.random.default_rng(2)
+    y = rng.normal(size=(b, 308)).astype(np.float32)
+    t = (260 + 30 * rng.random((b, 60))).astype(np.float32)
+    qc = np.abs(rng.normal(size=(b, 60))).astype(np.float32) * 1e-5
+    qi = np.abs(rng.normal(size=(b, 60))).astype(np.float32) * 1e-5
+    consts = PK.constraint_head_consts(stats.out_scale, 15)
+    got = PK.fused_constraint_head(*map(torch.from_numpy, (y, t, qc, qi)),
+                                   consts, 1200.0).numpy()
+    assert PK.LAUNCHES["fused_constraint_head"] == 0
+    assert got.shape == (b, 368)
+
+    pallas = np.asarray(K.make_fused_constraint_head(
+        stats, strato_lev_out=15, tile_b=16)(*map(jnp.asarray,
+                                                  (y, t, qc, qi))))
+    np.testing.assert_allclose(got, pallas, rtol=2e-4, atol=1e-9)
+    yu = y * consts[0].numpy() * consts[1].numpy()
+    dqc, dqi = physics.repartition_clouds(
+        jnp.asarray(t), jnp.asarray(qc), jnp.asarray(qi),
+        jnp.asarray(yu[:, 0:60]), jnp.asarray(yu[:, 120:180]))
+    want = np.concatenate([yu[:, :120], np.asarray(dqc), np.asarray(dqi),
+                           yu[:, 180:]], axis=1)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-9)
+    assert (got[:, 60:75] == 0).all() and (got[:, 240:255] == 0).all()

@@ -119,4 +119,4 @@ def test_build_model_and_init():
     assert out_dtype(torch.bfloat16) == torch.float32
     assert out_dtype(torch.float64) == torch.float64
     with pytest.raises(KeyError):
-        build_model("unet", SPEC)
+        build_model("cnn", SPEC)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from climsim_tpu_torch.ops import kernels as PK
+from climsim_tpu_torch.ops import unet_fused as PU
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -19,7 +20,9 @@ SLICE_MODULES = (
     "climsim_tpu_torch.data.synthetic", "climsim_tpu_torch.data.transforms",
     "climsim_tpu_torch.ops.kernels", "climsim_tpu_torch.ops._build",
     "climsim_tpu_torch.models", "climsim_tpu_torch.models.common",
-    "climsim_tpu_torch.models.mlp", "climsim_tpu_torch.utils.migrate",
+    "climsim_tpu_torch.models.mlp", "climsim_tpu_torch.models.unet",
+    "climsim_tpu_torch.ops.unet_fused", "climsim_tpu_torch.ops.unet_infer",
+    "climsim_tpu_torch.utils.migrate",
     "climsim_tpu_torch.online.wrapper", "climsim_tpu_torch.online.server",
     "climsim_tpu_torch.serve",
 )
@@ -80,13 +83,39 @@ def _consts(d):
                                device="cpu")
 
 
+def _gn_args(c=32, cout=16, wdtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(1)
+    return (torch.randn(3, 8, c, generator=g), torch.ones(c), torch.zeros(c),
+            torch.randn(3, c, cout, generator=g).to(wdtype),
+            torch.zeros(cout))
+
+
+def _head_args(b=5):
+    g = torch.Generator().manual_seed(2)
+    return (torch.randn(b, 308, generator=g),
+            260 + 30 * torch.rand(b, 60, generator=g),
+            1e-5 * torch.rand(b, 60, generator=g),
+            1e-5 * torch.rand(b, 60, generator=g),
+            PK.constraint_head_consts(np.ones(308), 15))
+
+
 @pytest.mark.parametrize("entry", ["fused_input_transform",
                                    "fused_mlp_forward",
-                                   "fused_mlp_forward_int8"])
+                                   "fused_mlp_forward_int8",
+                                   "fused_constraint_head",
+                                   "fused_gn_silu_conv3"])
 def test_cpu_tensor_takes_plain_path(entry):
     PK.reset_launches()
     x = torch.randn(5, 12, generator=torch.Generator().manual_seed(0))
-    if entry == "fused_input_transform":
+    if entry == "fused_constraint_head":
+        a = _head_args()
+        got, want = PK.fused_constraint_head(*a, 1200.0), \
+            PK.fused_constraint_head_plain(*a, 1200.0)
+    elif entry == "fused_gn_silu_conv3":
+        a = _gn_args()
+        got, want = PU.fused_gn_silu_conv3(*a), \
+            PU.fused_gn_silu_conv3_plain(*a)
+    elif entry == "fused_input_transform":
         c = _consts(12)
         got, want = PK.fused_input_transform(x, c), \
             PK.fused_input_transform_plain(x, c)
@@ -124,6 +153,40 @@ def test_kernel_entries_reject_bad_inputs():
         PK.pack_mlp([np.zeros((12, 16))], [np.zeros(16)], torch.float16)
     with pytest.raises(ValueError):
         PK.PackedMLP((12, 16), torch.zeros(12 * 15), torch.zeros(16))
+
+
+def test_unet_kernel_entries_reject_bad_inputs():
+    x, gamma, beta, w, b = _gn_args()
+    with pytest.raises(TypeError):
+        PU.fused_gn_silu_conv3(x.double(), gamma, beta, w, b)
+    with pytest.raises(ValueError):
+        PU.fused_gn_silu_conv3(x, gamma[:-1], beta, w, b)
+    with pytest.raises(ValueError):
+        PU.fused_gn_silu_conv3(x, gamma, beta, w[:, :-1], b)
+    with pytest.raises(ValueError):
+        PU.fused_gn_silu_conv3(x.transpose(0, 1), gamma, beta, w, b)
+    with pytest.raises(TypeError):
+        PU.fused_gn_silu_conv3(x, gamma, beta, w.half(), b)
+    y, t, qc, qi, consts = _head_args()
+    with pytest.raises(ValueError):
+        PK.fused_constraint_head(y[:, :300].contiguous(), t, qc, qi, consts,
+                                 1200.0)
+    with pytest.raises(ValueError):
+        PK.fused_constraint_head(y, t[:4], qc, qi, consts, 1200.0)
+    with pytest.raises(TypeError):
+        PK.fused_constraint_head(y, t, qc.double(), qi, consts, 1200.0)
+    with pytest.raises(ValueError):
+        PK.fused_constraint_head(y, t, qc, qi, consts, 0.0)
+
+
+def test_tf32_is_off_for_products_and_convolutions():
+    """Importing the models turns TF32 off for float32 matmuls and cuDNN
+    convolutions alike (cuDNN's default is on)."""
+    out = _run("import torch\n"
+               "import climsim_tpu_torch.models\n"
+               "print(torch.backends.cuda.matmul.allow_tf32,\n"
+               "      torch.backends.cudnn.allow_tf32)\n")
+    assert out.split() == ["False", "False"]
 
 
 def test_packed_layout_is_row_major_concatenation():

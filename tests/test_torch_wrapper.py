@@ -1,6 +1,7 @@
 """The port's coupling wrappers (climsim_tpu_torch.online.wrapper) and
 target transform against climsim_tpu's, on raw synthetic v2_rh columns
-with the packaged v2_rh norms.
+with the packaged v2_rh norms, and the U-Net v5 wrapper on raw v4 and v5
+columns with the packaged v5 norms.
 
 Tolerances: the fast wrappers at rtol 2e-4, atol 1e-5, the reference's own
 for two float32 implementations of this wrapper
@@ -10,6 +11,8 @@ order).  Raw tendencies of water species are ~1e-8, below any such atol,
 so each case also compares the outputs in normalized units (times
 out_scale) at the kernels' tolerance, rtol 2e-4, atol 1e-4
 (tests/test_pallas_kernels.py:88)."""
+
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -135,3 +138,137 @@ def test_target_transform_matches_jax(prune):
         SPEC, STATS, PT.TransformConfig(output_prune=prune))(
         torch.from_numpy(y)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+
+
+# --------------------------------------------------------------------------
+# the U-Net v5 coupling wrapper, end to end
+# --------------------------------------------------------------------------
+SPEC5, SPEC4 = get_varspec("v5"), get_varspec("v4")
+STATS5 = load_asset_norms("v5")
+
+
+def _scale368():
+    """out_scale in the 368 contract's layout: qc and qi take qn's."""
+    s = STATS5.out_scale.astype(np.float64)
+    return np.concatenate([s[:120], s[120:180], s[120:180], s[180:]])
+
+
+def test_convert_v4_to_v5_matches_jax():
+    x = synthetic_inputs(SPEC4, 16, load_default_grid(), seed=3)
+    want = np.asarray(W.convert_v4_to_v5(jnp.asarray(x)))
+    got = PW.convert_v4_to_v5(torch.from_numpy(x)).numpy()
+    assert got.shape == (16, SPEC5.input_len)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("version,dtype", [("v4", "bf16"), ("v5", "bf16"),
+                                           ("v4", "f32")])
+def test_v5_wrapper_matches_jax(version, dtype):
+    """The served slice on the CPU: raw columns -> input transform -> the
+    fused U-Net engine -> constraint head, the port's against the JAX
+    package's, in normalized units (times out_scale) at the engine's
+    tolerance (1e-4 * max|y| float32, 2e-2 * max|y| bf16)."""
+    from climsim_tpu.models.unet import ClimSimUNet as FlaxUNet
+    from climsim_tpu.ops.unet_infer import unet_apply_fused as jax_engine
+    from climsim_tpu_torch.ops import kernels as PK
+    from climsim_tpu_torch.ops.unet_infer import unet_apply_fused
+    from test_torch_unet import DTYPES, close, flax_case, port_model
+
+    jdt, tdt = DTYPES[dtype]
+    kw, tree = flax_case("prune")
+    fm = FlaxUNet(spec=SPEC5, compute_dtype=jdt, **kw)
+    spec = SPEC4 if version == "v4" else SPEC5
+    x = synthetic_inputs(spec, 12, load_default_grid(), seed=6)
+    want = np.asarray(W.make_wrapper(
+        lambda p, xn: jax_engine(fm, p, xn), STATS5,
+        W.WrapperConfig(input_version=version))(tree, jnp.asarray(x)))
+    m = port_model(kw, tree, tdt)
+    PK.reset_launches()
+    with torch.inference_mode():
+        got = PW.make_wrapper(
+            partial(unet_apply_fused, m), STATS5,
+            PW.WrapperConfig(input_version=version))(
+            torch.from_numpy(x)).numpy()
+    assert PK.LAUNCHES == dict.fromkeys(PK.LAUNCHES, 0)
+    assert got.shape == (12, 368) and np.isfinite(got).all()
+    close(got * _scale368(), want * _scale368(), dtype)
+    s = SPEC5.output_slices["ptend_u"].start + 60    # u in the 368 layout
+    assert (got[:, s:s + 15] == 0).all()
+
+
+def test_v5_wrapper_float64_oracle_path():
+    """WrapperConfig(dtype=float64) runs the plain versions in float64 on
+    the CPU and matches the JAX wrapper's float64 path; on a CUDA device
+    it is refused."""
+    x = synthetic_inputs(SPEC4, 6, load_default_grid(), seed=8)
+    # a linear stand-in model of the right widths keeps the comparison on
+    # the wrapper's own float64 math
+    proj = np.random.default_rng(0).standard_normal(
+        (SPEC5.input_len, SPEC5.output_len)) / 40.0
+    want = np.asarray(W.make_wrapper(
+        lambda p, xn: xn @ jnp.asarray(proj), STATS5,
+        W.WrapperConfig(dtype=jnp.float64))(None, jnp.asarray(x, jnp.float64)))
+    got = PW.make_wrapper(lambda xn: xn @ torch.from_numpy(proj), STATS5,
+                          PW.WrapperConfig(dtype=torch.float64))(
+        torch.from_numpy(x))
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy() * _scale368(),
+                               want * _scale368(), rtol=1e-10, atol=1e-9)
+    with pytest.raises(ValueError, match="float64"):
+        PW.make_wrapper(lambda xn: xn, STATS5,
+                        PW.WrapperConfig(dtype=torch.float64), device="cuda")
+    with pytest.raises(ValueError, match="input_version"):
+        PW.make_wrapper(lambda xn: xn, STATS5,
+                        PW.WrapperConfig(input_version="v2_rh"))
+
+
+def test_v5_wrapper_served_over_coupling_server():
+    """Raw v4 columns over the TCP bridge: each reply is the direct
+    wrapper call on the same rows (padded to the bucket on the server)."""
+    from climsim_tpu_torch.online.server import CouplingClient, CouplingServer
+    from climsim_tpu_torch.ops.unet_infer import unet_apply_fused
+    from test_torch_unet import flax_case, port_model
+
+    kw, tree = flax_case("prune")
+    m = port_model(kw, tree, torch.bfloat16)
+    wrap = PW.make_wrapper(partial(unet_apply_fused, m), STATS5)
+    srv = CouplingServer(wrap, SPEC4.input_len, base_chunk=8,
+                         max_batch=16).start()
+    try:
+        cl = CouplingClient("127.0.0.1", srv.port)
+        for n, seed in ((8, 1), (5, 2)):
+            x = synthetic_inputs(SPEC4, n, load_default_grid(), seed=seed)
+            y = cl.step(x)
+            with torch.inference_mode():
+                direct = wrap(torch.from_numpy(x)).numpy()
+            assert y.shape == (n, 368)
+            np.testing.assert_allclose(
+                y * _scale368(), direct * _scale368(), rtol=1e-5,
+                atol=1e-6 * np.abs(direct * _scale368()).max())
+        cl.close()
+    finally:
+        srv.stop()
+
+
+def test_physics_tensor_functions_match_jax():
+    """liquid_fraction, repartition_clouds and qn_exponential_transform,
+    float64 on both sides (the wrapper's oracle path), bit for bit up to
+    the last place."""
+    from climsim_tpu import physics as JP
+    from climsim_tpu_torch import physics as PP
+
+    rng = np.random.default_rng(9)
+    t = 230.0 + 70.0 * rng.random((6, 60))
+    qc, qi = 1e-5 * rng.random((2, 6, 60))
+    dt_t, dqn = 1e-3 * rng.standard_normal((2, 6, 60))
+    lbd = 1.0 / (1e-6 + 1e-5 * rng.random(60))
+    tt = [torch.from_numpy(a) for a in (t, qc, qi, dt_t, dqn)]
+    np.testing.assert_allclose(PP.liquid_fraction(tt[0]).numpy(),
+                               np.asarray(JP.liquid_fraction(t)), rtol=1e-14)
+    for got, want in zip(PP.repartition_clouds(*tt),
+                         JP.repartition_clouds(t, qc, qi, dt_t, dqn)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-12, atol=1e-20)
+    np.testing.assert_allclose(
+        PP.qn_exponential_transform(tt[1], torch.from_numpy(lbd)).numpy(),
+        np.asarray(JP.qn_exponential_transform(qc, lbd)), rtol=1e-12)
