@@ -1,7 +1,8 @@
 """Synthetic ClimSim-like raw columns for tests, demos and the chip smoke.
 
-The counterpart of ``climsim_tpu.data.synthetic.synthetic_inputs``: the same
-numpy generator, so a seed gives the same columns in both packages.  Value
+The counterpart of ``climsim_tpu.data.synthetic``: the same numpy
+generators, so a seed gives the same columns and targets in both packages,
+bit for bit.  Value
 ranges follow the dataset statistics the normalization assets encode
 (T ~ 190-310 K tropospheric profile, q ~ 1e-7..2e-2 kg/kg decaying with
 height, ps ~ 60-103 kPa, fluxes O(100 W/m^2)).
@@ -100,3 +101,55 @@ def synthetic_inputs(spec: VarSpec, n: int, grid: Grid | None = None,
     if x.shape != (n, spec.input_len):
         raise ValueError(f"built {x.shape}, want {(n, spec.input_len)}")
     return x.astype(np.float32)
+
+
+def synthetic_targets(spec: VarSpec, inputs: np.ndarray, noise: float = 0.05,
+                      seed: int = 1) -> np.ndarray:
+    """Deterministic nonlinear function of inputs + noise, (n, output_len).
+
+    A fixed random two-layer map from inputs to outputs, scaled to the raw
+    magnitudes of real tendencies (dT/dt ~ 1e-4 K/s, dq/dt ~ 1e-8 kg/kg/s,
+    surface fluxes O(100 W/m^2)) so normalization and weighting behave like
+    they do on the real dataset.
+    """
+    n = inputs.shape[0]
+    rng = np.random.default_rng(seed)
+    d_in, d_out = spec.input_len, spec.output_len
+    # standardize inputs feature-wise for a well-conditioned random map
+    mu = inputs.mean(0, keepdims=True)
+    sd = inputs.std(0, keepdims=True) + 1e-6
+    z = (inputs - mu) / sd
+    w1 = rng.standard_normal((d_in, 64)) / np.sqrt(d_in)
+    w2 = rng.standard_normal((64, d_out)) / np.sqrt(64)
+    core = np.tanh(z @ w1) @ w2  # (n, d_out), O(1)
+    core += noise * rng.standard_normal((n, d_out))
+
+    scale = np.empty(d_out)
+    for v, sl in spec.output_slices.items():
+        if v == "ptend_t":
+            s = 1e-4
+        elif v.startswith("ptend_q"):
+            s = 1e-8
+        elif v in ("ptend_u", "ptend_v"):
+            s = 1e-5
+        elif v in ("cam_out_PRECC", "cam_out_PRECSC"):
+            s = 1e-8  # m/s
+        else:
+            s = 100.0  # radiative fluxes W/m^2
+        scale[sl] = s
+    y = core * scale[None, :]
+    # positive-only surface outputs: shift-then-clip keeps them learnable by
+    # a linear+relu head (plain abs() would fold the feature correlation)
+    for v in spec.output_scalar_vars:
+        sl = spec.output_slices[v]
+        y[:, sl] = np.maximum(y[:, sl] + 2.0 * scale[sl], 0.0)
+    return y.astype(np.float32)
+
+
+def synthetic_split(spec: VarSpec, n: int, grid: Grid | None = None,
+                    seed: int = 0, noise: float = 0.05):
+    """(inputs, targets) raw float32 arrays; n should be a multiple of ncol
+    for time x grid reshapes used by the metrics engine."""
+    x = synthetic_inputs(spec, n, grid, seed)
+    y = synthetic_targets(spec, x, noise, seed + 1)
+    return x, y

@@ -1,14 +1,16 @@
-"""Model registry.  The port holds the coupling MLP (MLP_v2rh) and the
-coupling U-Net (Unet_v4/v5 and its classifier) so far."""
+"""Model registry.  The port holds the v1 MLP baseline, the coupling MLP
+(MLP_v2rh) and the coupling U-Net (Unet_v4/v5 and its classifier) so
+far."""
 
-from .mlp import OnlineMLP
+from .mlp import ClimSimMLP, OnlineMLP
 from .unet import ClimSimUNet
 
-__all__ = ["ClimSimUNet", "OnlineMLP", "build_model"]
+__all__ = ["ClimSimMLP", "ClimSimUNet", "OnlineMLP", "build_model"]
 
 
 def build_model(name: str, spec, **kw):
-    table = {"mlp_online": OnlineMLP, "unet": ClimSimUNet}
+    table = {"mlp": ClimSimMLP, "mlp_online": OnlineMLP,
+             "unet": ClimSimUNet}
     if name == "unet_classifier":
         kw = dict(kw)
         kw.setdefault("classifier", True)

@@ -83,13 +83,22 @@ class Dense(nn.Module):
 
 
 class MLPTrunk(nn.Module):
-    """Stack of Dense + activation."""
+    """Stack of Dense + activation.
+
+    The reference's optional LayerNorm and dropout (the HSR/cVAE blocks)
+    are not ported yet: asking for them raises rather than training
+    another network.
+    """
 
     def __init__(self, in_features: int, hidden: Sequence[int],
                  activation: str = "relu",
                  compute_dtype: torch.dtype = torch.bfloat16, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 layernorm: bool = False, dropout: float = 0.0):
         super().__init__()
+        if layernorm or dropout:
+            raise NotImplementedError(
+                "MLPTrunk: layernorm and dropout are not ported yet")
         self.act = ACTIVATIONS[activation]
         widths = [in_features, *hidden]
         self.layers = nn.ModuleList(
@@ -100,3 +109,25 @@ class MLPTrunk(nn.Module):
         for layer in self.layers:
             x = self.act(layer(x))
         return x
+
+
+class LinReluHead(nn.Module):
+    """The ClimSim output head: a linear block for the level-resolved
+    tendencies beside a relu block for the positive surface scalars
+    (hpo_baseline_v1.py:124-128), concatenated in ``out_dtype``.  The
+    submodules carry the flax names ``out_linear`` and ``out_relu``."""
+
+    def __init__(self, in_features: int, lin_features: int,
+                 relu_features: int,
+                 compute_dtype: torch.dtype = torch.bfloat16, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.out_linear = Dense(in_features, lin_features, compute_dtype,
+                                device, generator)
+        self.out_relu = Dense(in_features, relu_features, compute_dtype,
+                              device, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([self.out_linear(x), torch.relu(self.out_relu(x))],
+                         dim=-1).to(out_dtype(self.compute_dtype))

@@ -1,5 +1,11 @@
 """MLP emulators.
 
+``ClimSimMLP`` -- the NeurIPS'23 offline MLP baseline (v1): a dense trunk,
+a pre-head dense + activation at the full output width, and the
+linear/relu split head (baseline_models/MLP/training/HPO/baseline_v1/
+hpo_baseline_v1.py:64-137); the counterpart of
+``climsim_tpu.models.mlp.ClimSimMLP``.
+
 ``OnlineMLP`` -- the coupling-grade plain MLP (MLP_v2rh): dense stack with
 ReLU on the trailing scalar outputs and optional stratosphere output
 pruning (online_testing/baseline_models/MLP_v2rh/training/mlp.py:24-68);
@@ -16,7 +22,7 @@ from torch import nn
 
 from climsim_tpu.varspec import VarSpec, var_len
 
-from .common import Dense, MLPTrunk, out_dtype
+from .common import ACTIVATIONS, Dense, LinReluHead, MLPTrunk, out_dtype
 
 
 def _head_split(spec: VarSpec) -> tuple[int, int]:
@@ -26,6 +32,29 @@ def _head_split(spec: VarSpec) -> tuple[int, int]:
     lin = sum(var_len(v) for v in spec.output_profile_vars)
     rel = sum(var_len(v) for v in spec.output_scalar_vars)
     return lin, rel
+
+
+class ClimSimMLP(nn.Module):
+    """Trunk, then ``prehead`` Dense + activation, then ``LinReluHead``."""
+
+    def __init__(self, spec: VarSpec,
+                 hidden: Sequence[int] = (768, 640, 512, 640, 640),
+                 activation: str = "relu",
+                 compute_dtype: torch.dtype = torch.bfloat16, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.spec = spec
+        self.act = ACTIVATIONS[activation]
+        lin, rel = _head_split(spec)
+        self.trunk = MLPTrunk(spec.input_len, hidden, activation,
+                              compute_dtype, device, generator)
+        self.prehead = Dense(hidden[-1], lin + rel, compute_dtype, device,
+                             generator)
+        self.head = LinReluHead(lin + rel, lin, rel, compute_dtype, device,
+                                generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head(self.act(self.prehead(self.trunk(x))))
 
 
 class OnlineMLP(nn.Module):

@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PP = ctypes.POINTER(ctypes.c_void_p)  # an array of device pointers
 _SIGNATURES = {
     "cst_error_string": ([_I], ctypes.c_char_p),
     # x, consts, out, rows, d, stream
@@ -48,6 +49,14 @@ _SIGNATURES = {
     # x, gamma, beta, w, bias, out, batch, L, C, Cout, G, eps, stream
     "cst_fused_gn_silu_conv3": (
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
+    # x, w[], b[], out, widths, n_layers, rows, tile_rows, stream
+    "cst_fused_mlp_train_fwd": (
+        [_P, _PP, _PP, _P, ctypes.POINTER(_I), _I, _I, _I, _P], _I),
+    # x, dy, w[], b[], dw[], db[], widths, n_layers, rows, tile_b,
+    # tile_rows, h, dh, partial, stream
+    "cst_fused_mlp_train_bwd": (
+        [_P, _P, _PP, _PP, _PP, _PP, ctypes.POINTER(_I), _I, _I, _I, _I, _P,
+         _P, _P, _P], _I),
 }
 
 _lock = threading.Lock()

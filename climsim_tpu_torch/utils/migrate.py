@@ -22,14 +22,10 @@ def _linear(prefix: str, dense: dict) -> dict:
                 np.array(dense["bias"], copy=True))}
 
 
-def port_flax_online_mlp(params: dict) -> dict:
-    """``{"MLPTrunk_0": {"Dense_i": {kernel, bias}}, "out": {...}}`` ->
-    a ``models.mlp.OnlineMLP`` state_dict.
-
-    Trunk layers go in order of their declaration index i (``Dense_10``
-    after ``Dense_2``, which a sort of the key strings would not give).
-    """
-    trunk = params["MLPTrunk_0"]
+def _trunk(trunk: dict) -> dict:
+    """An ``MLPTrunk_0`` subtree -> ``trunk.layers.i.*``, in order of the
+    declaration index i (``Dense_10`` after ``Dense_2``, which a sort of
+    the key strings would not give)."""
     index = {}
     for name in trunk:
         m = re.fullmatch(r"Dense_(\d+)", name)
@@ -41,7 +37,31 @@ def port_flax_online_mlp(params: dict) -> dict:
     state = {}
     for i in range(len(index)):
         state.update(_linear(f"trunk.layers.{i}.", trunk[index[i]]))
+    return state
+
+
+def port_flax_online_mlp(params: dict) -> dict:
+    """``{"MLPTrunk_0": {"Dense_i": {kernel, bias}}, "out": {...}}`` ->
+    a ``models.mlp.OnlineMLP`` state_dict."""
+    state = _trunk(params["MLPTrunk_0"])
     state.update(_linear("out.", params["out"]))
+    return state
+
+
+def port_flax_mlp(params: dict) -> dict:
+    """A ``climsim_tpu.models.mlp.ClimSimMLP`` tree (``MLPTrunk_0``,
+    ``prehead``, ``LinReluHead_0`` with ``out_linear`` and ``out_relu``;
+    a ``{"params": ...}`` wrapper is unwrapped) -> a
+    ``models.mlp.ClimSimMLP`` state_dict."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    if set(params) != {"MLPTrunk_0", "prehead", "LinReluHead_0"}:
+        raise KeyError(f"not a ClimSimMLP tree: {sorted(params)}")
+    head = params["LinReluHead_0"]
+    state = _trunk(params["MLPTrunk_0"])
+    state.update(_linear("prehead.", params["prehead"]))
+    state.update(_linear("head.out_linear.", head["out_linear"]))
+    state.update(_linear("head.out_relu.", head["out_relu"]))
     return state
 
 

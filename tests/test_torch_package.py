@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from climsim_tpu_torch.ops import fused_mlp_train as FT
 from climsim_tpu_torch.ops import kernels as PK
 from climsim_tpu_torch.ops import unet_fused as PU
 
@@ -24,7 +25,10 @@ SLICE_MODULES = (
     "climsim_tpu_torch.ops.unet_fused", "climsim_tpu_torch.ops.unet_infer",
     "climsim_tpu_torch.utils.migrate",
     "climsim_tpu_torch.online.wrapper", "climsim_tpu_torch.online.server",
-    "climsim_tpu_torch.serve",
+    "climsim_tpu_torch.serve", "climsim_tpu_torch.ops.fused_mlp_train",
+    "climsim_tpu_torch.data.pipeline", "climsim_tpu_torch.train.losses",
+    "climsim_tpu_torch.train.schedules", "climsim_tpu_torch.train.step",
+    "climsim_tpu_torch.train.recipes", "climsim_tpu_torch.bench_train",
 )
 
 
@@ -54,7 +58,10 @@ def test_kernels_import_without_toolkit(tmp_path):
     importing loads no library, and a build is refused with a clear
     error rather than half-done."""
     code = ("from climsim_tpu_torch.ops import _build, kernels\n"
+            "from climsim_tpu_torch.ops import fused_mlp_train\n"
             "assert _build._lib is None\n"
+            "assert {'cst_fused_mlp_train_fwd',\n"
+            "        'cst_fused_mlp_train_bwd'} <= set(_build._SIGNATURES)\n"
             "from torch.utils.cpp_extension import CUDA_HOME\n"
             "if CUDA_HOME is not None:\n"
             "    print('toolkit present')\n"
@@ -103,11 +110,26 @@ def _head_args(b=5):
                                    "fused_mlp_forward",
                                    "fused_mlp_forward_int8",
                                    "fused_constraint_head",
-                                   "fused_gn_silu_conv3"])
+                                   "fused_gn_silu_conv3",
+                                   "fused_mlp_train_fwd",
+                                   "fused_mlp_train_bwd"])
 def test_cpu_tensor_takes_plain_path(entry):
     PK.reset_launches()
     x = torch.randn(5, 12, generator=torch.Generator().manual_seed(0))
-    if entry == "fused_constraint_head":
+    if entry.startswith("fused_mlp_train"):
+        m = _mlp(torch.float32)
+        ws = [w.reshape(i, o) for w, i, o in (
+            (m.w[:12 * 16], 12, 16), (m.w[12 * 16:], 16, 6))]
+        bs = [m.b[:16], m.b[16:]]
+        if entry.endswith("fwd"):
+            got, want = FT.fused_mlp_train_fwd(x, ws, bs), \
+                FT.fused_mlp_train_fwd_plain(x, ws, bs)
+        else:
+            dy = torch.ones(5, 6)
+            got, want = (torch.cat([t.flatten() for t in ts]) for ts in (
+                sum(FT.fused_mlp_train_bwd(x, dy, ws, bs, 2), []),
+                sum(FT.fused_mlp_train_bwd_plain(x, dy, ws, bs, 2), [])))
+    elif entry == "fused_constraint_head":
         a = _head_args()
         got, want = PK.fused_constraint_head(*a, 1200.0), \
             PK.fused_constraint_head_plain(*a, 1200.0)
@@ -153,6 +175,16 @@ def test_kernel_entries_reject_bad_inputs():
         PK.pack_mlp([np.zeros((12, 16))], [np.zeros(16)], torch.float16)
     with pytest.raises(ValueError):
         PK.PackedMLP((12, 16), torch.zeros(12 * 15), torch.zeros(16))
+    ws, bs = [torch.zeros(12, 16), torch.zeros(16, 6)], [torch.zeros(16),
+                                                        torch.zeros(6)]
+    with pytest.raises(TypeError):
+        FT.fused_mlp_train_fwd(x, [ws[0].double(), ws[1]], bs)
+    with pytest.raises(ValueError):
+        FT.fused_mlp_train_fwd(x, ws[:1], bs)
+    with pytest.raises(ValueError):
+        FT.fused_mlp_train_bwd(x, torch.zeros(4, 5), ws, bs)
+    with pytest.raises(ValueError):
+        FT.fused_mlp_train_bwd(x, torch.zeros(4, 6), ws, bs, tile_b=0)
 
 
 def test_unet_kernel_entries_reject_bad_inputs():
