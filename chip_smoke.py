@@ -8,7 +8,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    and prints the build time and the compiler's register/spill report.
 3. Checks each kernel against its plain PyTorch version on the card, at
    the shapes the serving path gives it (B = 1, 7, 384, 6144; the v2_rh
-   width 557 and the v5 width 1405 for the input transform; the full
+   width 557 and the v5 width 1405 for the input transform, and the v1
+   trainer's 124 at its config up to its batch of 32768; the full
    557 -> 1024 x 4 -> 368 MLP_v2rh for the fused MLPs), and times both
    with CUDA events at B = 384 and 6144.
 4. Serves the full-width MLP_v2rh (random weights from --seed, in the flax
@@ -34,15 +35,18 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 7. Checks the fused MLP-training kernel (kernel 6) against its plain
    version on the card, forward and backward, at the v1 widths (124 ->
    768, 640, 512, 640, 640 -> 128) and the MLP_v2rh widths (557 -> 1024
-   x 4 -> 368), B = 1, 7, 384, 32768: the forward within kernel 2's
-   tolerance; dW and db within K6_GRAD_TOL (rel-L2 and cosine a tensor),
-   with a float32 control that must fail it, two runs bit-equal, and two
-   values of tile_b within the JAX test's tolerance; then times forward,
-   backward and both against plain autograd at B = 32768.
+   x 4 -> 368), B = 1, 7, 384, 32768, and a hidden width of 2 mod 4 at
+   B = 1, 7: the forward within kernel 2's tolerance; dW and db within
+   K6_GRAD_TOL (rel-L2 and cosine a tensor), with a float32 control that
+   must fail it, two runs bit-equal, and two values of tile_b within the
+   JAX test's tolerance; then times forward, backward and both against
+   plain autograd at B = 32768.
 8. Trains through kernel 6: 30 Adam steps on one fixed 32768-row batch at
    the v1 widths; the loss must fall by 10% and follow the same 30 steps
-   through the plain version within K6_CURVE_TOL; both kernels' launch
-   counts must have risen in that run.
+   through the plain version within K6_CURVE_TOL, which the plain
+   version with its last layer frozen must fail (the float32 control's
+   curve is printed); both kernels' launch counts must have risen in
+   that run.
 9. The slice's main path: trains the full-width v1 MLP (weights from a
    flax-layout tree made from --seed, moved across by port_flax_mlp)
    through mlp_trainer, DeviceResidentLoader (196,608 rows,
@@ -148,6 +152,14 @@ K6_SOURCES = {
 V1_WIDTHS = (124, 768, 640, 512, 640, 640, 128)
 V2RH_WIDTHS = (557, 1024, 1024, 1024, 1024, 368)
 K6_ROWS = (1, 7, 384, 32768)
+# (label, widths, batch sizes, whether the float32 control must fail):
+# the two served MLPs, then a hidden width of 2 mod 4 at odd B, where the
+# recompute's saved second layer starts off a 16-byte boundary
+K6_NETS = (("v1", V1_WIDTHS, K6_ROWS, True),
+           ("v2rh", V2RH_WIDTHS, K6_ROWS, True),
+           ("ragged", (124, 130, 128, 10), (1, 7), False))
+# kernel 1 at the v1 trainer's config: the serving sizes and its batch
+V1_TRANSFORM_ROWS = KERNEL_ROWS + (32768,)
 # dW and db against the plain backward, a tensor at a time: rel-L2 at most
 # K6_GRAD_TOL[0] and cosine at least K6_GRAD_TOL[1].  Both sides round the
 # same float32 h and dh to bf16 and differ only in their float32 orders of
@@ -155,12 +167,12 @@ K6_ROWS = (1, 7, 384, 32768)
 # layer's sums, which flip others, and the rel-L2 grows about as
 # sqrt(delta * 2**-8) a layer down the network.  On an H100 that took the
 # kernel to 1.19e-3 of the plain dW at the v1 input layer (B = 7; 3.6e-6,
-# 6.1e-5, 4.0e-4, 6.9e-4 in the layers above it), and the plain version to
-# 1.33e-3 of its own twin with float64 sums (B = 32768); so the bound is
-# 1.6e-3, not 1e-3.  The control keeps h and dh in float32 (the roundings
-# left out) and was 2.25e-3 to 4.41e-3 off on every dW: it must fail the
-# rel-L2 bound there.  The cosine, 0.99999, is tighter than 0.9999 as
-# measured (at least 0.9999993).
+# 6.1e-5, 4.0e-4, 6.9e-4 in the layers above it), and at B = 32768 the
+# kernel and the plain version to 5.6e-4 and 3.7e-4 of their twin with
+# float64 sums; so the bound is 1.6e-3, not 1e-3.  The control keeps h and
+# dh in float32 (the roundings left out) and was 2.25e-3 to 4.42e-3 off on
+# every dW: it must fail the rel-L2 bound there.  The cosine, 0.99999, is
+# tighter than 0.9999 as measured (at least 0.9999993).
 K6_GRAD_TOL = (1.6e-3, 0.99999)
 K6_TILE_TOL = (2e-2, 1e-4)    # tests/test_fused_train.py:83-84
 K6_TILE_B = (128, 512)
@@ -169,9 +181,14 @@ K6_TILE_B = (128, 512)
 # K6_CURVE_TOL[1] after.  Adam divides each update by the root of its
 # second moment, so gradients that differ in flipped roundings move the
 # weights apart, and the loss spike near step 15 amplifies it.  On an
-# H100 the kernel's curve was within 6.2e-6 of the plain one over the
-# first 10 steps and 1.21e-2 after; the plain version against its twin
-# with float64 sums: 1.0e-5 and 1.93e-2.
+# H100 the kernel's curve was within 4.3e-6 to 6.2e-6 of the plain one
+# over the first 10 steps and 1.21e-2 to 1.60e-2 after; the plain version
+# against its twin with float64 sums: 1.0e-5 and 1.93e-2.  The float32
+# control backward (gradients 2.3e-3 to 4.4e-3 off, see K6_GRAD_TOL)
+# was 1.0e-5 and 1.27e-2 off: Adam's update hardly moves with noise of
+# that size, so no bound here tells the roundings apart, and the gradient
+# check alone decides them.  The curve catches gross faults: the plain
+# version with the last layer's weights frozen must fail the early bound.
 K6_CURVE_TOL = (1e-4, 5e-2)
 K6_CURVE_EARLY = 10
 # the trainer's first loss on the card against the CPU's: both round the
@@ -330,17 +347,19 @@ def with_nonfinite(x):
     x[0, 3] = np.nan
     if x.shape[0] > 2:
         x[1, 9] = np.inf
-        x[2, 130] = -np.inf
+        x[2, min(130, x.shape[1] - 1)] = -np.inf
     return x
 
 
-def kernel_checks(torch, K, T, spec, stats, spec5, stats5, model, columns):
-    """Each kernel against its plain version on the card; returns
-    {name: {"max_abs_err", "ms": {B: ms}, "plain_ms": {B: ms}}}, and for
-    the int8 kernel "whole_network_max_abs_err" (see int8_chain)."""
+def kernel_checks(torch, K, T, specs, model, columns):
+    """Each kernel against its plain version on the card; ``specs`` maps
+    "v2_rh", "v5" and "v1" to (VarSpec, NormStats).  Returns {name:
+    {"max_abs_err", "ms": {B: ms}, "plain_ms": {B: ms}}}, and for the
+    int8 kernel "whole_network_max_abs_err" (see int8_chain)."""
     dev = torch.device("cuda")
     res = {n: {"max_abs_err": 0.0, "ms": {}, "plain_ms": {}}
            for n in SOURCES}
+    spec, stats = specs["v2_rh"]
 
     def record(name, b, err):
         r = res[name]
@@ -348,16 +367,20 @@ def kernel_checks(torch, K, T, spec, stats, spec5, stats5, model, columns):
         print(f"  {name:24s} B={b:5d} max_abs_err={err[0]:.3e} "
               f"max_rel_err={err[1]:.3e}", flush=True)
 
-    # -- kernel 1: the v2_rh serving config and the v5 online config -----
+    # -- kernel 1: the v2_rh serving config, the v5 online config, and the
+    # v1 trainer's (the default TransformConfig) up to its batch ---------
     v2_consts = T.input_transform_consts(
         spec, stats, T.TransformConfig(input_clip=True,
                                        input_clip_rhonly=True), dev)
-    v5_consts = T.input_transform_consts(
-        spec5, stats5, T.v5_online_config(), dev)
-    for label, consts, cols in (("v2_rh", v2_consts, columns["v2_rh"]),
-                                ("v5", v5_consts, columns["v5"])):
-        for b in KERNEL_ROWS:
-            x = torch.from_numpy(with_nonfinite(cols[:b])).to(dev)
+    v5_consts = T.input_transform_consts(*specs["v5"], T.v5_online_config(),
+                                         dev)
+    v1_consts = T.input_transform_consts(*specs["v1"], T.TransformConfig(),
+                                         dev)
+    for label, consts, rows in (("v2_rh", v2_consts, KERNEL_ROWS),
+                                ("v5", v5_consts, KERNEL_ROWS),
+                                ("v1", v1_consts, V1_TRANSFORM_ROWS)):
+        for b in rows:
+            x = torch.from_numpy(with_nonfinite(columns[label][:b])).to(dev)
             got = K.fused_input_transform(x, consts)
             want = K.fused_input_transform_plain(x, consts)
             err = check_close(torch, f"transform {label}", got, want,
@@ -742,16 +765,16 @@ def k6_net(torch, g, widths):
 
 
 def kernel6_checks(torch, FT, seed):
-    """Kernel 6 forward and backward against their plain versions at both
-    width sets and K6_ROWS, the control, bit-equality and tile_b; then
-    the times at B = 32768, v1 widths."""
+    """Kernel 6 forward and backward against their plain versions for each
+    of K6_NETS, the control, bit-equality and tile_b; then the times at
+    B = 32768, v1 widths."""
     g = torch.Generator(device="cuda").manual_seed(seed + 2)
     res = {"fwd_max_abs_err": 0.0, "bwd_max_abs_err": 0.0,
            "bwd_max_rel_l2": 0.0, "bwd_min_cos": 1.0,
            "control_min_rel_l2": 1e9, "tile_b_max_abs_err": 0.0}
-    for label, widths in (("v1", V1_WIDTHS), ("v2rh", V2RH_WIDTHS)):
+    for label, widths, rows, control in K6_NETS:
         ws, bs = k6_net(torch, g, widths)
-        for b in K6_ROWS:
+        for b in rows:
             x = torch.randn(b, widths[0], device="cuda", generator=g)
             dy = torch.randn(b, widths[-1], device="cuda", generator=g) / b
             err = check_close(torch, f"fused_mlp_train_fwd {label}",
@@ -762,9 +785,8 @@ def kernel6_checks(torch, FT, seed):
             got = FT.fused_mlp_train_bwd(x, dy, ws, bs, K6_TILE_B[0])
             again = FT.fused_mlp_train_bwd(x, dy, ws, bs, K6_TILE_B[0])
             other = FT.fused_mlp_train_bwd(x, dy, ws, bs, K6_TILE_B[1])
-            want = FT.fused_mlp_train_bwd_plain(x, dy, ws, bs, K6_TILE_B[0])
-            ctl = FT.fused_mlp_train_bwd_plain(x, dy, ws, bs, K6_TILE_B[0],
-                                               rounded=False)
+            want = FT.fused_mlp_train_bwd_plain(x, dy, ws, bs)
+            ctl = FT.fused_mlp_train_bwd_plain(x, dy, ws, bs, rounded=False)
             names = [f"dW{i}" for i in range(len(ws))] + [
                 f"db{i}" for i in range(len(ws))]
             rels, coss, ctls = [], [], []
@@ -793,12 +815,14 @@ def kernel6_checks(torch, FT, seed):
                 if name.startswith("dW"):
                     cr = rel_l2(c, w)
                     ctls.append(cr)
-                    require(cr > K6_GRAD_TOL[0], f"{label} B={b} {name}: "
-                            f"the float32 control passes ({cr:.3e})")
+                    require(not control or cr > K6_GRAD_TOL[0],
+                            f"{label} B={b} {name}: the float32 control "
+                            f"passes ({cr:.3e})")
             res["bwd_max_rel_l2"] = max(res["bwd_max_rel_l2"], *rels)
             res["bwd_min_cos"] = min(res["bwd_min_cos"], *coss)
-            res["control_min_rel_l2"] = min(res["control_min_rel_l2"],
-                                            *ctls)
+            if control:
+                res["control_min_rel_l2"] = min(res["control_min_rel_l2"],
+                                                *ctls)
             print(f"  kernel 6 {label:4s} B={b:5d} fwd max_abs_err="
                   f"{err[0]:.3e}; bwd rel-L2 max {max(rels):.3e} cos min "
                   f"{min(coss):.8f}; control rel-L2 min {min(ctls):.3e}; "
@@ -837,8 +861,10 @@ def kernel6_training(torch, FT, K, seed):
     """30 Adam steps (lr 1e-3) on one fixed 32768-row batch at the v1
     widths through the kernels, then through the plain versions from the
     same start; the targets are a fixed random tanh map of x, so there is
-    something to learn.  Returns (launches, the curve's two largest gaps:
-    the first K6_CURVE_EARLY steps and after)."""
+    something to learn.  Also runs the float32 control backward and a
+    gross fault (the last layer frozen) through the same steps.  Returns
+    (launches, {curve: its two largest gaps to the plain curve, the first
+    K6_CURVE_EARLY steps and after})."""
     g = torch.Generator(device="cuda").manual_seed(seed + 3)
     ws0, bs0 = k6_net(torch, g, V1_WIDTHS)
     x = torch.randn(32768, V1_WIDTHS[0], device="cuda", generator=g)
@@ -859,25 +885,39 @@ def kernel6_training(torch, FT, K, seed):
             losses.append(loss.detach())
         return torch.stack(losses).cpu().tolist()
 
+    def gaps(curve, want):
+        g = [abs(a - b) / abs(b) for a, b in zip(curve, want)]
+        return max(g[:K6_CURVE_EARLY]), max(g[K6_CURVE_EARLY:])
+
     K.reset_launches()
     got = train(FT.make_fused_mlp_train(V1_WIDTHS))
     torch.cuda.synchronize()
     launches = {k: K.LAUNCHES[k] for k in K6_SOURCES}
-    want = train(FT.make_fused_mlp_train_plain(V1_WIDTHS))
-    gaps = [abs(a - b) / abs(b) for a, b in zip(got, want)]
-    gap = (max(gaps[:K6_CURVE_EARLY]), max(gaps[K6_CURVE_EARLY:]))
+    plain = FT.make_fused_mlp_train_plain(V1_WIDTHS)
+    want = train(plain)
+    curves = {
+        "kernel": got,
+        "float32_control": train(
+            FT.make_fused_mlp_train_plain(V1_WIDTHS, rounded=False)),
+        "frozen_last_layer": train(lambda x, ws, bs: plain(
+            x, ws[:-1] + [ws[-1].detach()], bs))}
+    gap = {k: gaps(c, want) for k, c in curves.items()}
     print(f"kernel 6 training, 30 Adam steps, v1 widths, B=32768: loss "
           f"{got[0]:.6f} -> {got[-1]:.6f} ({got[-1] / got[0]:.3f} of the "
-          f"first); plain {want[0]:.6f} -> {want[-1]:.6f}; largest gap "
-          f"{gap[0]:.3e} in the first {K6_CURVE_EARLY} steps, {gap[1]:.3e} "
-          f"after (tolerance {K6_CURVE_TOL}); launches {launches}",
-          flush=True)
+          f"first); plain {want[0]:.6f} -> {want[-1]:.6f}; largest gap to "
+          f"the plain curve in the first {K6_CURVE_EARLY} steps and after "
+          f"(tolerance {K6_CURVE_TOL}): " + ", ".join(
+              f"{k} {a:.3e} {b:.3e}" for k, (a, b) in gap.items())
+          + f"; launches {launches}", flush=True)
     require(all(np.isfinite(got)), "kernel 6 training: non-finite loss")
     require(got[-1] <= 0.9 * got[0], "kernel 6 training: the loss fell "
             f"by less than 10% ({got[0]:.6f} -> {got[-1]:.6f})")
-    require(gap[0] <= K6_CURVE_TOL[0] and gap[1] <= K6_CURVE_TOL[1],
-            f"kernel 6 training: the loss curve is {gap} from the plain "
-            f"version's: {got} against {want}")
+    require(gap["kernel"][0] <= K6_CURVE_TOL[0]
+            and gap["kernel"][1] <= K6_CURVE_TOL[1],
+            f"kernel 6 training: the loss curve is {gap['kernel']} from the "
+            f"plain version's: {got} against {want}")
+    require(gap["frozen_last_layer"][0] > K6_CURVE_TOL[0],
+            "kernel 6 training: the curve with the last layer frozen passes")
     for name, n in launches.items():
         require(n >= 30, f"{name} launched {n} times in 30 steps")
     return launches, gap
@@ -1047,13 +1087,16 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
 
-    spec, stats = get_varspec("v2_rh"), load_asset_norms("v2_rh")
-    spec5, stats5 = get_varspec("v5"), load_asset_norms("v5")
+    specs = {v: (get_varspec(v), load_asset_norms(v))
+             for v in ("v2_rh", "v5", "v1")}
+    (spec, stats), (spec5, stats5) = specs["v2_rh"], specs["v5"]
     grid = load_default_grid()
     columns = {"v2_rh": synthetic_inputs(spec, max(KERNEL_ROWS), grid,
                                          seed=args.seed),
                "v5": synthetic_inputs(spec5, max(KERNEL_ROWS), grid,
-                                      seed=args.seed + 1)}
+                                      seed=args.seed + 1),
+               "v1": synthetic_inputs(specs["v1"][0], max(V1_TRANSFORM_ROWS),
+                                      grid, seed=args.seed + 2)}
     model = OnlineMLP(spec, hidden=FULL_HIDDEN)
     model.load_state_dict(port_flax_online_mlp(
         flax_tree(spec, FULL_HIDDEN, args.seed)))
@@ -1062,8 +1105,7 @@ def main(argv=None) -> int:
           f"-> {spec.output_len}: {n_params} parameters", flush=True)
 
     print("kernel vs plain on the card:", flush=True)
-    res = kernel_checks(torch, K, T, spec, stats, spec5, stats5, model,
-                        columns)
+    res = kernel_checks(torch, K, T, specs, model, columns)
 
     # -- the slice: the port's sidecar serving the full-width MLP --------
     chunks = [synthetic_inputs(spec, 384, grid, seed=args.seed + 10 + i)
@@ -1221,7 +1263,7 @@ def main(argv=None) -> int:
     # -- kernel 6 and the v1 trainer ---------------------------------------
     print("fused MLP-training kernel vs plain on the card:", flush=True)
     k6 = kernel6_checks(torch, FT, args.seed)
-    k6_launches, k6_gap = kernel6_training(torch, FT, K, args.seed)
+    k6_launches, k6_gaps = kernel6_training(torch, FT, K, args.seed)
     train = train_v1(torch, K, args.seed)
     print(f"{card}: v1 MLP training {train['samples_per_s']:.1f} "
           "samples/s", flush=True)
@@ -1276,7 +1318,7 @@ def main(argv=None) -> int:
                 "fwd_bwd_ms": k6["ms"]["fwd_bwd"],
                 "fwd_bwd_autograd_plain_ms":
                     k6["plain_ms"]["fwd_bwd_autograd"],
-                "training_curve_gap": k6_gap} if d == "bwd" else {})})
+                "training_curve_gaps": k6_gaps} if d == "bwd" else {})})
     print(json.dumps({"kernels": kernels, "card": card,
                       "training": {
                           "samples_per_s": train["samples_per_s"],

@@ -77,6 +77,11 @@ __global__ void __launch_bounds__(kMlpThreads)
     const Bf16OfF32* w = reinterpret_cast<const Bf16OfF32*>(p.w[l]);
     const bool vec =
         dout % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+    // the saved block starts rows * (d_1 + ... + d_l) floats in, which a
+    // hidden width of 2 mod 4 at an odd batch leaves off 16 bytes
+    const bool save4 =
+        kSave && dout % 4 == 0 &&
+        (reinterpret_cast<uintptr_t>(saved + soff) & 15) == 0;
     for (int c0 = 4 * threadIdx.x; c0 < dout; c0 += 4 * blockDim.x) {
       float acc[TB][4];
 #pragma unroll
@@ -111,7 +116,7 @@ __global__ void __launch_bounds__(kMlpThreads)
           }
           if (kSave && row0 + r < rows) {
             float* s = saved + soff + orow + c0;
-            if (vec) {  // rows of dout % 4 == 0 floats stay 16-byte aligned
+            if (save4) {  // rows of dout % 4 == 0 floats keep its alignment
               *reinterpret_cast<float4*>(s) =
                   make_float4(v[0], v[1], v[2], v[3]);
             } else {

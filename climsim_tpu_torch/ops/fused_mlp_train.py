@@ -31,6 +31,7 @@ VMEM budget and has no counterpart here.
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 
 import torch
 
@@ -78,29 +79,20 @@ def fused_mlp_train_fwd_plain(x, ws, bs) -> torch.Tensor:
     return _forward_acts(x, ws, bs)[-1]
 
 
-def fused_mlp_train_bwd_plain(x, dy, ws, bs, tile_b: int = 128,
-                              rounded: bool = True):
-    """(dW list, db list) of the Pallas backward: per tile_b-row tile,
-    dW = bf16(h)^T bf16(dh) and db = sum(dh), then the tiles' partials
-    added; dh <- (bf16(dh) bf16(W)^T) masked by h > 0.
-    ``rounded=False`` keeps h and dh in float32 (the bf16 weights stay):
-    the control that the kernel's check must tell apart."""
+def fused_mlp_train_bwd_plain(x, dy, ws, bs, rounded: bool = True):
+    """(dW list, db list) of the Pallas backward: dW = bf16(h)^T bf16(dh)
+    and db = sum(dh) over the whole batch (the Pallas kernel's tiles only
+    change the order of the float32 sums); dh <- (bf16(dh) bf16(W)^T)
+    masked by h > 0.  ``rounded=False`` keeps h and dh in float32 (the
+    bf16 weights stay): the control that the kernel's check must tell
+    apart."""
     r = _bf16 if rounded else (lambda t: t)
     acts = _forward_acts(x, ws, bs)
-    rows = x.shape[0]
-    tiles = -(-rows // tile_b)
-    pad = tiles * tile_b - rows
-
-    def tiled(t):   # (rows, d) -> (tiles, tile_b, d), zero rows past B
-        return torch.nn.functional.pad(t, (0, 0, 0, pad)).view(
-            tiles, tile_b, t.shape[1])
-
     dws, dbs = [None] * len(ws), [None] * len(ws)
     dh = dy
     for i in range(len(ws) - 1, -1, -1):
-        dws[i] = torch.bmm(tiled(r(acts[i])).transpose(1, 2),
-                           tiled(r(dh))).sum(dim=0)
-        dbs[i] = tiled(dh).sum(dim=1).sum(dim=0)
+        dws[i] = r(acts[i]).t() @ r(dh)
+        dbs[i] = dh.sum(dim=0)
         if i > 0:
             dh = r(dh) @ _bf16(ws[i]).t()
             dh = torch.where(acts[i] > 0, dh, torch.zeros_like(dh))
@@ -146,7 +138,7 @@ def fused_mlp_train_bwd(x: torch.Tensor, dy: torch.Tensor, ws, bs,
         raise ValueError(f"tile_b {tile_b}: want >= 1 and at most 65535 "
                          f"tiles of the batch of {rows}")
     if not _on_cuda(x, "fused_mlp_train_bwd"):
-        return fused_mlp_train_bwd_plain(x, dy, ws, bs, tile_b)
+        return fused_mlp_train_bwd_plain(x, dy, ws, bs)
     dws = [torch.empty_like(w) for w in ws]
     dbs = [torch.empty_like(b) for b in bs]
     if rows == 0:
@@ -177,6 +169,8 @@ def fused_mlp_train_bwd(x: torch.Tensor, dy: torch.Tensor, ws, bs,
 # autograd
 # --------------------------------------------------------------------------
 def _function(fwd, bwd):
+    """The autograd.Function of fwd(x, ws, bs) whose backward is
+    bwd(x, dy, ws, bs, tile_b) -> (dW list, db list)."""
     class Fn(torch.autograd.Function):
         @staticmethod
         def forward(ctx, x, tile_b, n, *params):
@@ -197,14 +191,18 @@ def _function(fwd, bwd):
     return Fn
 
 
+def _plain_bwd(rounded, x, dy, ws, bs, tile_b):
+    del tile_b   # the plain backward sums the whole batch at once
+    return fused_mlp_train_bwd_plain(x, dy, ws, bs, rounded)
+
+
 _KERNEL_FN = _function(fused_mlp_train_fwd, fused_mlp_train_bwd)
-_PLAIN_FN = _function(fused_mlp_train_fwd_plain, fused_mlp_train_bwd_plain)
+_PLAIN_FN = {r: _function(fused_mlp_train_fwd_plain, partial(_plain_bwd, r))
+             for r in (True, False)}
 
 
-def _make(fn, widths, tile_b: int):
+def _make(fn, widths, tile_b: int | None = None):
     widths = tuple(int(w) for w in widths)
-    if tile_b < 1:
-        raise ValueError(f"tile_b {tile_b}: want >= 1")
 
     def apply(x, ws, bs):
         if (x.shape[-1],) + tuple(w.shape[-1] for w in ws) != widths:
@@ -218,10 +216,13 @@ def make_fused_mlp_train(widths, tile_b: int = 128):
     """fn(x, weights, biases) -> (B, d_out), differentiable in the weights
     and biases through the fused backward (dx is zero).  On the card both
     directions are the kernels; on the CPU their plain versions."""
+    if tile_b < 1:
+        raise ValueError(f"tile_b {tile_b}: want >= 1")
     return _make(_KERNEL_FN, widths, tile_b)
 
 
-def make_fused_mlp_train_plain(widths, tile_b: int = 128):
+def make_fused_mlp_train_plain(widths, rounded: bool = True):
     """The same function through the plain versions on any device: the
-    reference the kernels are held to."""
-    return _make(_PLAIN_FN, widths, tile_b)
+    reference the kernels are held to.  ``rounded=False`` takes the
+    float32 control backward (fused_mlp_train_bwd_plain)."""
+    return _make(_PLAIN_FN[rounded], widths)

@@ -128,7 +128,7 @@ def test_cpu_tensor_takes_plain_path(entry):
             dy = torch.ones(5, 6)
             got, want = (torch.cat([t.flatten() for t in ts]) for ts in (
                 sum(FT.fused_mlp_train_bwd(x, dy, ws, bs, 2), []),
-                sum(FT.fused_mlp_train_bwd_plain(x, dy, ws, bs, 2), [])))
+                sum(FT.fused_mlp_train_bwd_plain(x, dy, ws, bs), [])))
     elif entry == "fused_constraint_head":
         a = _head_args()
         got, want = PK.fused_constraint_head(*a, 1200.0), \

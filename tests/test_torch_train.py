@@ -277,12 +277,12 @@ def test_online_mlp_trainer_learns():
     assert losses[-1] < losses[0]
 
 
-def test_bench_train_needs_a_card(capsys):
-    """On a machine without CUDA the benchmark refuses, and prints no
-    result line."""
+def test_bench_train_needs_a_card(capsys, monkeypatch):
+    """Without a CUDA device the benchmark refuses, and prints no result
+    line."""
     from climsim_tpu_torch import bench_train
 
-    assert not torch.cuda.is_available()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert bench_train.main([]) != 0
     assert "metric" not in capsys.readouterr().out
 
