@@ -56,10 +56,32 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    epoch's loss be finite and the last below the first, and the input
    transform kernel have been launched in that run; prints samples/s
    and a torch.profiler split of the step's device time.
-10. With --profile, times the fused MLPs at both tile heights and traces
+10. Checks 5' (kernel 5 under its custom VJP, ops.unet_fused.
+   make_trainable_fused_block) at every fused chain shape of the unet_v5
+   training step, B = 16 and 1024: the forward within GN_TOL of the plain
+   forward (the float32 control must fail), every gradient bit-equal to
+   autograd of the plain chain (cuDNN off in that phase only: its
+   convolutions are not reproducible), one kernel-5 launch a call; times
+   forward + backward at B = 1024.
+11. This slice's main path: trains the full-width U-Net v5 (the unet_v5
+   preset with fused_gn_conv=True, flax-layout weights from --seed moved
+   across by port_flax_unet) through unet_trainer and
+   DeviceResidentLoader at B = 1024 for UNET_EPOCHS epochs
+   (bench_unet_train's core).  The first loss on 16 rows must match the
+   CPU's within UNET_FIRST_LOSS_TOL, the loss be finite and fall, and kernels
+   1 and 5 have been launched once a step and once a fused chain a step
+   (twice under remat_blocks); then the plain arm is timed beside it, a
+   step of each is split by torch.profiler, peak memory is read, and 30
+   steps through the kernel (at UNET_CURVE_BATCH rows) follow the same
+   trainer with the plain chain forward: the losses within
+   UNET_CURVE_TOL, the parameters' moves within UNET_MOVE_TOL, which a
+   planted fault (dw dropped in 5''s backward) must fail.
+12. With --profile, times the fused MLPs at both tile heights and traces
    both served paths with torch.profiler (device time per kernel and
    copy, the card's busy share, the costliest host ops).
-11. Prints one JSON line of the kernels' results, then, last,
+13. Prints one JSON line of the kernels' results (each with its bound:
+   the larger of its bytes over the memory rate and its operations over
+   the peak, at the timed shape), then, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Nothing is caught: any failure exits non-zero and prints no result.
@@ -149,6 +171,9 @@ K6_SOURCES = {
         "climsim_tpu_torch/ops/csrc/fused_mlp_train_bwd.cu",
         "climsim_tpu/ops/fused_mlp_train.py:64"),
 }
+# 5': its forward is kernel 5, its backward autograd of the plain chain
+TRAINABLE_SOURCE = ("climsim_tpu_torch/ops/unet_fused.py:145",
+                    "climsim_tpu/ops/unet_fused.py:160")
 V1_WIDTHS = (124, 768, 640, 512, 640, 640, 128)
 V2RH_WIDTHS = (557, 1024, 1024, 1024, 1024, 368)
 K6_ROWS = (1, 7, 384, 32768)
@@ -199,6 +224,43 @@ TRAIN_EPOCHS = 40
 TRAIN_REPS = 3
 GN_TOL = 5e-4
 GN_OFFSET_TOL = 2e-2
+# 5' (kernel 5 under its custom VJP) and the U-Net v5 trainer
+TRAINABLE_ROWS = (16, 1024)
+UNET_BATCH = 1024         # the unet_v5 preset's (climsim_tpu/config.py:163)
+UNET_POOL = 4             # batches on the card
+UNET_EPOCHS = 2
+UNET_FIRST_ROWS = 16
+UNET_FIRST_BATCHES = 4
+# The U-Net trainer's first loss on 16 rows, card against CPU.  Not 1e-5:
+# on an H100 the all-plain model (no kernel) was 9.3e-6 to 2.6e-5 from
+# the CPU over four 16-row batches, and the fused one 3.9e-6 to 3.4e-5,
+# as far as the float32 control (chains without the bf16 roundings, 2.0e-5
+# to 3.7e-5): the float32 sums of 40 blocks differ in order, the bf16
+# roundings after them flip, and a mean over 16 x 308 outputs cannot tell
+# the roundings apart.  This check catches gross faults; the 5' checks
+# decide the roundings.
+UNET_FIRST_LOSS_TOL = 1e-4
+# 30 steps through kernel 5 against the same trainer with the plain chain
+# forward, at UNET_CURVE_BATCH rows a step (a step at B = 1024 takes 1.6 s
+# on an H100).  The losses, relative, a step at a time: UNET_CURVE_TOL[0]
+# over the first UNET_CURVE_EARLY steps, UNET_CURVE_TOL[1] after.  The
+# loss hardly depends on the fused chains' parameters in 30 steps: on an
+# H100 the kernel's curve was 1.0e-5 / 2.3e-5 from the plain forward's,
+# and with the chains' weight gradients dropped only 1.4e-4 / 9.5e-5.  So
+# the parameters' moves over the 30 steps are compared too, rel-L2 over
+# all of them, within UNET_MOVE_TOL: the kernel's were 3.7e-3 from the
+# plain forward's, and the planted fault's, dw dropped in 5''s backward
+# (the 82 chains' conv kernels do not learn), 0.83.  2e-2 also catches a
+# fault as small as the norms' scales frozen, about (20k / 21M) ** 0.5 of
+# the moves.
+UNET_CURVE_STEPS = 30
+UNET_CURVE_EARLY = 10
+UNET_CURVE_BATCH = 256
+UNET_CURVE_TOL = (1e-4, 1e-3)
+UNET_MOVE_TOL = 2e-2
+# the card's rates for the bounds (H100 SXM data sheet, dense)
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}
 HEAD_TOL = (2e-4, 1e-9)   # tests/test_pallas_kernels.py:69
 NET_TOL = 2e-2            # * max|y|, tests/test_unet_infer.py:44-46
 # served reply against the direct call where a plain op's result depends
@@ -491,15 +553,16 @@ def unet_flax_tree(model, seed):
     return tree
 
 
-def gn_args(torch, g, b, l, c, cout, offset=0.0):
+def gn_args(torch, g, b, l, c, cout, offset=0.0, wdtype=None):
     """Inputs of one fused chain on the card: x ~ N(offset, 1), gamma ~
-    1 + 0.2 N, beta ~ 0.1 N, w xavier-uniform in bf16, bias ~ 0.1 N."""
+    1 + 0.2 N, beta ~ 0.1 N, w xavier-uniform in ``wdtype`` (bf16 by
+    default), bias ~ 0.1 N."""
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=g)
     lim = (6.0 / (3 * (c + cout))) ** 0.5
     w = (torch.rand(3, c, cout, device="cuda", generator=g) * 2 - 1) * lim
     return (randn(b, l, c) + offset, 1.0 + 0.2 * randn(c), 0.1 * randn(c),
-            w.to(torch.bfloat16).contiguous(), 0.1 * randn(cout))
+            w.to(wdtype or torch.bfloat16).contiguous(), 0.1 * randn(cout))
 
 
 def gn_checks(torch, PU, seed):
@@ -513,12 +576,12 @@ def gn_checks(torch, PU, seed):
 
     def reading(label, a, tol=GN_TOL, control=True):
         got = PU.fused_gn_silu_conv3(*a)
-        want = PU.fused_gn_silu_conv3_plain(*a)
+        want = PU.xla_gn_silu_conv3_plain(*a)
         require(got.shape == want.shape, f"{label}: shape {got.shape}")
         require(bool(torch.isfinite(got).all()), f"{label}: non-finite")
         scale = float(want.abs().max())
         err = float((got - want).abs().max())
-        ctl = float((PU.fused_gn_silu_conv3_plain(
+        ctl = float((PU.xla_gn_silu_conv3_plain(
             *a[:3], a[3].float(), a[4]) - want).abs().max())
         print(f"  fused_gn_silu_conv3 {label:28s} max_abs_err={err:.3e} "
               f"({err / scale:.3e} of max|y|); control {ctl / scale:.3e}",
@@ -545,7 +608,7 @@ def gn_checks(torch, PU, seed):
     for (l, c, cout), calls in UNET_CHAINS.items():
         a = gn_args(torch, g, 384, l, c, cout)
         k, p = compare_timed(torch, lambda: PU.fused_gn_silu_conv3(*a),
-                             lambda: PU.fused_gn_silu_conv3_plain(*a), 20)
+                             lambda: PU.xla_gn_silu_conv3_plain(*a), 20)
         res["per_shape"][f"{l}x{c}x{cout}"] = (k, p)
         ms, plain_ms = ms + calls * k, plain_ms + calls * p
         print(f"  fused_gn_silu_conv3 L={l:2d} C={c:3d} Cout={cout} B=384 "
@@ -1034,6 +1097,449 @@ def train_v1(torch, K, seed):
     return res
 
 
+def trainable_checks(torch, K, PU, seed):
+    """5' (kernel 5 under its custom VJP) at every fused chain shape of the
+    unet_v5 step and B in TRAINABLE_ROWS: the forward against the plain
+    forward on the bf16-rounded weight within GN_TOL (the float32 control
+    must fail), every gradient bit-equal to autograd of the plain chain at
+    the same inputs and cotangent (cuDNN off here only), one
+    launch a call; then forward + backward timed at B = 1024 against that
+    autograd, weighted by each shape's count in a step."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 4)
+    res = {"max_abs_err": 0.0, "max_err_rel": 0.0, "control_min_rel": 1e9}
+    names = ("dx", "dgamma", "dbeta", "dw", "db")
+    bf16 = torch.bfloat16
+    # Bit-equality needs reproducible convolutions.  cuDNN's were not on
+    # an H100, even with deterministic set: two runs of the plain chain's
+    # autograd gave different weight gradients at L=64 C=256 Cout=128
+    # B=1024.  So this phase sets deterministic and turns cuDNN off, and
+    # the convolutions run as PyTorch's own im2col and cuBLAS products.
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.enabled
+    cudnn.deterministic, cudnn.enabled = True, False
+    try:
+        K.reset_launches()
+        calls = 0
+        for (l, c, cout) in UNET_CHAINS:
+            f = PU.make_trainable_fused_block(PU._num_groups(c))
+            for b in TRAINABLE_ROWS:
+                a = gn_args(torch, g, b, l, c, cout, wdtype=torch.float32)
+                cot = torch.randn(b, l, cout, device="cuda", generator=g)
+                ins = [t.clone().requires_grad_() for t in a]
+                y = f(*ins)
+                calls += 1
+                got = torch.autograd.grad(y, ins, cot)
+                ref_ins = [t.clone().requires_grad_() for t in a]
+                want = torch.autograd.grad(PU.xla_gn_silu_conv3_plain(
+                    *ref_ins, bf16, f32_accum=False), ref_ins, cot)
+                for name, x, w in zip(names, got, want):
+                    require(x.dtype == torch.float32 and x.shape == w.shape
+                            and x.stride() == w.stride(),
+                            f"5' {name}: {x.dtype} {tuple(x.shape)} "
+                            f"{x.stride()}")
+                    require(torch.equal(x, w), f"5' L={l} C={c} Cout={cout} "
+                            f"B={b}: {name} differs from autograd of the "
+                            f"plain chain (rel-L2 {rel_l2(x, w):.3e})")
+                plain = PU.xla_gn_silu_conv3_plain(*a[:3], a[3].to(bf16),
+                                                   a[4])
+                scale = float(plain.abs().max())
+                err = float((y.detach() - plain).abs().max())
+                ctl = float((PU.xla_gn_silu_conv3_plain(*a) - plain).abs()
+                            .max())
+                require(err <= GN_TOL * scale, f"5' L={l} C={c} B={b}: "
+                        f"forward {err / scale:.3e} of max|y|")
+                require(ctl > GN_TOL * scale, f"5' L={l} C={c} B={b}: the "
+                        "float32 control passes")
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                res["max_err_rel"] = max(res["max_err_rel"], err / scale)
+                res["control_min_rel"] = min(res["control_min_rel"],
+                                             ctl / scale)
+        torch.cuda.synchronize()
+        res["launches"] = K.LAUNCHES["fused_gn_silu_conv3"]
+        require(res["launches"] == calls, f"5': {res['launches']} launches "
+                f"in {calls} calls")
+    finally:
+        cudnn.deterministic, cudnn.enabled = saved
+    print(f"  5' at {len(UNET_CHAINS)} shapes x B={TRAINABLE_ROWS}: forward "
+          f"max {res['max_err_rel']:.3e} of max|y| (control min "
+          f"{res['control_min_rel']:.3e}); dx, dgamma, dbeta, dw, db "
+          f"bit-equal to autograd of the plain chain; {calls} launches",
+          flush=True)
+    ms = plain_ms = 0.0
+    for (l, c, cout), n in UNET_CHAINS.items():
+        f = PU.make_trainable_fused_block(PU._num_groups(c))
+        a = [t.requires_grad_() for t in gn_args(
+            torch, g, UNET_BATCH, l, c, cout, wdtype=torch.float32)]
+        cot = torch.randn(UNET_BATCH, l, cout, device="cuda", generator=g)
+
+        def fwd_bwd(fn):
+            return lambda: torch.autograd.grad(fn(*a), a, cot)
+
+        k, p = compare_timed(torch, fwd_bwd(f), fwd_bwd(
+            lambda *t: PU.xla_gn_silu_conv3_plain(*t, bf16, f32_accum=False)),
+            5)
+        ms, plain_ms = ms + n * k, plain_ms + n * p
+    res["ms"], res["plain_ms"] = ms, plain_ms
+    print(f"  5' forward + backward, the 82 chains of a B={UNET_BATCH} step: "
+          f"{ms:.3f} ms; autograd of the plain chain {plain_ms:.3f} ms",
+          flush=True)
+    return res
+
+
+def unet_split(torch, PU, tr, batches, steps=2):
+    """torch.profiler over ``steps`` train steps: device time a step by
+    part -- kernel 5, the 5' backward's recompute (everything under its
+    range), convs and GEMMs outside it, Adam, kernel 1, the rest -- and
+    the busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    st = tr.state
+    for xb, yb in batches[:2]:
+        st, m = tr.train_step(st, xb, yb)
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            st, m = tr.train_step(st, *batches[i % len(batches)])
+        m["loss"].cpu()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    tr.state = st
+    events = prof.events()
+    inside = set()
+
+    def mark(ev):
+        inside.add(id(ev))
+        for ch in ev.cpu_children:
+            mark(ch)
+
+    for ev in events:
+        if ev.name == PU.BACKWARD_RANGE:
+            mark(ev)
+
+    def part(name):
+        key = name.lower()
+        if "gn_silu_conv3_kernel" in key:
+            return "kernel 5"
+        if "transform_kernel" in key:
+            return "kernel 1"
+        if "adam" in key or "multi_tensor" in key:
+            return "Adam"
+        if any(s in key for s in ("gemm", "conv", "cutlass", "xmma", "cudnn",
+                                  "fft", "region_transform", "sm90",
+                                  "implicit", "grad")):
+            return "convs and GEMMs"
+        return "other"
+
+    # every kernel and copy from the device's own events (kernels 1 and 5
+    # are launched through ctypes, under no torch op), not the ranges that
+    # mirror record_function on the device's timeline; the recompute is
+    # what ran under 5''s backward range, taken out of its parts
+    parts = dict.fromkeys(("kernel 5", "5' backward recompute",
+                           "convs and GEMMs", "Adam", "kernel 1", "other"),
+                          0.0)
+    by_name: dict = {}
+    for ev in events:
+        if ev.device_type == DeviceType.CUDA:
+            if ev.is_user_annotation:
+                continue
+            t = ev.device_time_total / 1e3
+            parts[part(ev.name)] += t
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + t
+        elif id(ev) in inside:
+            for kern in ev.kernels:
+                t = kern.duration / 1e3
+                parts[part(kern.name)] -= t
+                parts["5' backward recompute"] += t
+    busy = sum(parts.values())
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  device {t / steps:9.3f} ms/step {name[:100]}")
+    # one stream: the device's work cannot outlast the wall clock
+    require(busy <= 1.02 * wall_ms, f"the split counts {busy:.1f} ms of "
+            f"device time in {wall_ms:.1f} ms")
+    return {k: v / steps for k, v in parts.items()}, busy / wall_ms
+
+
+def train_unet(torch, K, PU, unet_flax_tree_fn, seed):
+    """The slice's main path: the full-width U-Net v5 (unet_v5 preset,
+    fused_gn_conv=True) through unet_trainer and DeviceResidentLoader at
+    B = 1024 (bench_unet_train's core), its first loss on 16 rows against
+    the CPU's, UNET_CURVE_STEPS steps against the plain chain forward and
+    a planted fault, the plain arm timed beside it, a profile of a step,
+    and peak memory."""
+    from climsim_tpu_torch import bench_unet_train as BU
+    from climsim_tpu_torch.models.unet import ClimSimUNet
+    from climsim_tpu_torch.train import recipes
+    from climsim_tpu_torch.utils.migrate import port_flax_unet
+    from climsim_tpu_torch import get_varspec, load_asset_norms
+
+    spec, stats = get_varspec("v5"), load_asset_norms("v5")
+    t0 = time.perf_counter()
+    data = BU.pool(UNET_BATCH * UNET_POOL, seed)
+    probe = ClimSimUNet(spec, **BU.model_kw("fused"))
+    state = port_flax_unet(unet_flax_tree_fn(probe, seed + 5), probe)
+    tr, loader = BU.build("cuda", "fused", data, seed, UNET_BATCH, state)
+    chains = tr.model.fused_chains(UNET_BATCH)
+    n_chains = sum(chains.values())
+    require(chains == UNET_CHAINS, f"the step's fused chains: {chains}")
+    print(f"U-Net v5 training (unet_v5, fused_gn_conv=True): "
+          f"{sum(p.numel() for p in tr.model.parameters())} parameters, "
+          f"{n_chains} fused chains a forward; {loader.n} rows on the card, "
+          f"{loader.steps_per_epoch} steps an epoch of {UNET_BATCH} (set-up "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # the first loss on 16-row batches, card against CPU: through 5', and
+    # for scale the all-plain model and the float32 control (the chains
+    # without their bf16 roundings, on the card)
+    plain_tr, _ = BU.build("cuda", "plain", data, seed, UNET_BATCH, state)
+    cpu = {arm: recipes.unet_trainer(spec, stats, None, seed,
+                                     model_kw=BU.model_kw(arm), device="cpu")
+           for arm in ("fused", "plain")}
+    for t in cpu.values():
+        t.model.load_state_dict(state)
+    kernel_fn = PU.fused_gn_silu_conv3
+
+    def unrounded(x, gamma, beta, w, b):
+        return PU.xla_gn_silu_conv3_plain(x, gamma, beta, w.float(), b)
+
+    first_gaps = {"fused": [], "plain": [], "float32_control": []}
+    for i in range(UNET_FIRST_BATCHES):
+        rows = slice(i * UNET_FIRST_ROWS, (i + 1) * UNET_FIRST_ROWS)
+        xb, yb = (torch.from_numpy(a[rows]) for a in data)
+
+        def loss(t, dev):
+            return float(t.eval_step(t.model, xb.to(dev), yb.to(dev))["loss"])
+
+        want = {arm: loss(t, "cpu") for arm, t in cpu.items()}
+        got = {"fused": loss(tr, "cuda"), "plain": loss(plain_tr, "cuda")}
+        try:
+            PU.fused_gn_silu_conv3 = unrounded
+            got["float32_control"] = loss(tr, "cuda")
+        finally:
+            PU.fused_gn_silu_conv3 = kernel_fn
+        for arm, v in got.items():
+            ref = want["plain" if arm == "plain" else "fused"]
+            first_gaps[arm].append(abs(v - ref) / abs(ref))
+    gap = max(first_gaps["fused"])
+    print(f"  first loss on {UNET_FIRST_BATCHES} batches of "
+          f"{UNET_FIRST_ROWS} rows, card against CPU: " + ", ".join(
+              f"{arm} " + " ".join(f"{v:.2e}" for v in g)
+              for arm, g in first_gaps.items())
+          + f" (tolerance {UNET_FIRST_LOSS_TOL})", flush=True)
+    require(gap <= UNET_FIRST_LOSS_TOL, f"U-Net first loss {gap:.3e} from "
+            "the CPU's")
+    del cpu
+
+    # the main path: UNET_EPOCHS epochs through the epoch runner
+    from climsim_tpu_torch.bench_train import throughput
+
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    res = throughput(tr, loader, 1, UNET_EPOCHS - 1)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    steps = UNET_EPOCHS * loader.steps_per_epoch
+    losses = res["epoch_loss"]
+    peak = {"fused": torch.cuda.max_memory_allocated()}
+    print(f"  launches in the training run ({steps} steps): {launches}",
+          flush=True)
+    require(launches["fused_gn_silu_conv3"] == n_chains * steps,
+            f"kernel 5 launched {launches['fused_gn_silu_conv3']} times in "
+            f"{steps} steps of {n_chains} fused chains")
+    require(launches["fused_input_transform"] == steps,
+            "fused_input_transform was not launched once a step")
+    require(all(np.isfinite(losses)), f"non-finite U-Net loss: {losses}")
+    require(losses[-1] < losses[0], f"U-Net training loss did not fall: "
+            f"{losses}")
+    print(f"  trained U-Net v5: {UNET_EPOCHS} epochs, loss "
+          + " -> ".join(f"{v:.6f}" for v in losses) + "; epoch walls "
+          + " ".join(f"{t:.3f}" for t in res["call_s"]) + " s; peak "
+          f"{peak['fused'] / 2**30:.2f} GiB", flush=True)
+
+    # under remat, kernel 5 runs again in the backward: twice a chain
+    batches = list(loader)
+    xb, yb = batches[0]
+    tr.model.remat_blocks = True
+    K.reset_launches()
+    tr.state, _ = tr.train_step(tr.state, xb, yb)
+    torch.cuda.synchronize()
+    tr.model.remat_blocks = False
+    remat_launches = K.LAUNCHES["fused_gn_silu_conv3"]
+    require(remat_launches == 2 * n_chains, f"remat step: kernel 5 launched "
+            f"{remat_launches} times, want {2 * n_chains}")
+
+    # the plain arm beside it, in turns: plain, fused, fused, plain
+    run = {"fused": loader.make_epoch_runner(tr.train_step),
+           "plain": loader.make_epoch_runner(plain_tr.train_step)}
+    trainers = {"fused": tr, "plain": plain_tr}
+
+    def epoch_s(arm):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainers[arm].state, m = run[arm](trainers[arm].state, 1)
+        m["loss"].cpu()
+        return time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    epoch_s("plain")                        # warm-up, and its peak memory
+    peak["plain"] = torch.cuda.max_memory_allocated()
+    walls = {"plain": [epoch_s("plain")], "fused": []}
+    walls["fused"] += [epoch_s("fused"), epoch_s("fused")]
+    walls["plain"].append(epoch_s("plain"))
+    rows = loader.n
+    sps = {a: rows / min(w) for a, w in walls.items()}
+    step_ms = {a: 1e3 * min(w) / loader.steps_per_epoch
+               for a, w in walls.items()}
+    print(f"  epochs in turns (plain, fused, fused, plain): " + "; ".join(
+        f"{a} " + " ".join(f"{t:.3f}" for t in w) + f" s, best "
+        f"{sps[a]:.1f} samples/s, {step_ms[a]:.2f} ms a step"
+        for a, w in walls.items()) + f"; peak memory plain "
+        f"{peak['plain'] / 2**30:.2f} GiB", flush=True)
+    split = {a: unet_split(torch, PU, trainers[a], batches)
+             for a in ("fused", "plain")}
+    for a, (parts, busy) in split.items():
+        print(f"profile: U-Net {a} step at B={UNET_BATCH}: card busy "
+              f"{busy:.1%}; per step " + ", ".join(
+                  f"{k} {v:.3f} ms" for k, v in parts.items()), flush=True)
+    del plain_tr, trainers, run
+
+    # UNET_CURVE_STEPS steps from the same weights on the same batches:
+    # the kernel, the plain chain forward, and the planted fault (dw
+    # dropped in 5''s backward), which must fail the curve bound
+    def curve():
+        """(the losses, every parameter's move over the steps)."""
+        t, ld = BU.build("cuda", "fused", data, seed, UNET_CURVE_BATCH,
+                         state)
+        st, out, bs = t.state, [], list(ld)
+        for i in range(UNET_CURVE_STEPS):
+            st, m = t.train_step(st, *bs[i % len(bs)])
+            out.append(m["loss"])
+        move = torch.cat([(p.detach() - state[k].to(p.device)).flatten()
+                          for k, p in t.model.named_parameters()])
+        return torch.stack(out).cpu().tolist(), move
+
+    K.reset_launches()
+    got, move_k = curve()
+    torch.cuda.synchronize()
+    require(K.LAUNCHES["fused_gn_silu_conv3"] == n_chains * UNET_CURVE_STEPS,
+            "the kernel curve did not launch kernel 5 in every chain")
+    backward = PU._TrainableBlock.backward
+    try:
+        PU.fused_gn_silu_conv3 = PU.xla_gn_silu_conv3_plain
+        K.reset_launches()
+        want, move_p = curve()
+        require(K.LAUNCHES["fused_gn_silu_conv3"] == 0,
+                "the plain-forward curve launched kernel 5")
+        PU.fused_gn_silu_conv3 = kernel_fn
+
+        def no_dw(ctx, g):
+            dx, dgamma, dbeta, _, *rest = backward(ctx, g)
+            return (dx, dgamma, dbeta, None, *rest)
+
+        PU._TrainableBlock.backward = staticmethod(no_dw)
+        fault, move_f = curve()
+    finally:
+        PU.fused_gn_silu_conv3 = kernel_fn
+        PU._TrainableBlock.backward = backward
+
+    def gaps(c):
+        d = [abs(a - b) / abs(b) for a, b in zip(c, want)]
+        return max(d[:UNET_CURVE_EARLY]), max(d[UNET_CURVE_EARLY:])
+
+    gap_k, gap_f = gaps(got), gaps(fault)
+    upd_k, upd_f = rel_l2(move_k, move_p), rel_l2(move_f, move_p)
+    print(f"U-Net v5 curve, {UNET_CURVE_STEPS} Adam steps at "
+          f"B={UNET_CURVE_BATCH}: kernel {got[0]:.6f} -> {got[-1]:.6f}, plain "
+          f"forward {want[0]:.6f} -> {want[-1]:.6f}; largest gap to the "
+          f"plain curve in the first {UNET_CURVE_EARLY} steps and after "
+          f"(tolerance {UNET_CURVE_TOL}): kernel {gap_k[0]:.3e} "
+          f"{gap_k[1]:.3e}, dw dropped {gap_f[0]:.3e} {gap_f[1]:.3e}; the "
+          f"parameters' moves against the plain forward's, rel-L2 "
+          f"(tolerance {UNET_MOVE_TOL}): kernel {upd_k:.3e}, dw dropped "
+          f"{upd_f:.3e}", flush=True)
+    print("  curves: " + json.dumps({"kernel": got, "plain": want,
+                                     "fault": fault}), flush=True)
+    require(all(np.isfinite(got)) and got[-1] < got[0],
+            f"the kernel curve did not fall: {got}")
+    require(gap_k[0] <= UNET_CURVE_TOL[0] and gap_k[1] <= UNET_CURVE_TOL[1],
+            f"the kernel's curve is {gap_k} from the plain forward's")
+    require(upd_k <= UNET_MOVE_TOL, f"the kernel's parameters moved "
+            f"{upd_k:.3e} (rel-L2) from the plain forward's")
+    require(upd_f > UNET_MOVE_TOL, f"with dw dropped the parameters moved "
+            f"within {UNET_MOVE_TOL} of the plain forward's ({upd_f:.3e})")
+    return {"samples_per_s": sps, "step_ms": step_ms, "epoch_walls": walls,
+            "main_path_epoch_s": res["call_s"], "epoch_loss": losses,
+            "first_loss_gaps": first_gaps, "peak_mem_bytes": peak,
+            "launches": launches, "steps": steps,
+            "remat_step_k5_launches": remat_launches,
+            "split_ms": {a: s[0] for a, s in split.items()},
+            "busy": {a: s[1] for a, s in split.items()},
+            "curve_gaps": {"kernel": gap_k, "dw_dropped": gap_f},
+            "move_gaps": {"kernel": upd_k, "dw_dropped": upd_f}}
+
+
+def bound(nbytes: float, ops: float, kind: str):
+    """(the least time in ms, "bytes" or "operations"): the larger of the
+    bytes over the card's memory rate and the operations over its peak
+    for ``kind`` (H100 SXM data sheet)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_OPS_S[kind]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def mlp_work(widths, b, wbytes):
+    """(bytes, multiply-add operations) of a fused MLP forward at batch b:
+    x in, y out (float32), every weight (``wbytes`` each) and bias read
+    once."""
+    n_w = sum(i * o for i, o in zip(widths[:-1], widths[1:]))
+    n_b = sum(widths[1:])
+    return (4 * b * (widths[0] + widths[-1]) + wbytes * n_w + 4 * n_b,
+            2 * b * n_w, n_w, n_b)
+
+
+def kernel_bounds():
+    """name -> (bound ms, bound_by) at the shapes each kernel's "ms" is
+    timed at."""
+    b = 384
+    d = 557                                    # the v2_rh width (timed)
+    out = {"fused_input_transform": bound(
+        8 * b * d + 4 * 7 * d, 6 * b * d, "f32")}
+    nbytes, ops, _, n_b = mlp_work(V2RH_WIDTHS, b, 2)
+    out["fused_mlp_forward"] = bound(nbytes, ops, "bf16")
+    nbytes, ops, _, n_b = mlp_work(V2RH_WIDTHS, b, 1)
+    out["fused_mlp_forward_int8"] = bound(nbytes + 4 * n_b, ops, "bf16")
+    out["fused_constraint_head"] = bound(
+        4 * b * (308 + 3 * 60 + 368) + 4 * 2 * 308, 4 * b * 368, "f32")
+
+    def chains(bsz, vjp):
+        nbytes = ops = 0.0
+        for (l, c, cout), n in UNET_CHAINS.items():
+            act = 4 * bsz * l * (c + cout)          # x in, y out
+            par = 2 * 4 * c + 4 * cout              # gamma, beta, b
+            w = 3 * c * cout
+            conv = 2 * bsz * l * w
+            if vjp:   # + g in, dx out; w and dw float32; the 3 products
+                nbytes += n * (2 * act + 2 * par + 2 * 4 * w)
+                ops += n * 3 * conv
+            else:
+                nbytes += n * (act + par + 2 * w)
+                ops += n * conv
+        return bound(nbytes, ops, "bf16")
+
+    out["fused_gn_silu_conv3"] = chains(b, False)
+    out["make_trainable_fused_block"] = chains(UNET_BATCH, True)
+    b = 32768
+    nbytes, ops, n_w, n_b = mlp_work(V1_WIDTHS, b, 4)
+    out["fused_mlp_train_fwd"] = bound(nbytes, ops, "bf16")
+    first = V1_WIDTHS[0] * V1_WIDTHS[1]       # dx is not computed
+    out["fused_mlp_train_bwd"] = bound(
+        4 * b * (V1_WIDTHS[0] + V1_WIDTHS[-1]) + 8 * (n_w + n_b),
+        2 * b * (3 * n_w - first), "bf16")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1268,9 +1774,20 @@ def main(argv=None) -> int:
     print(f"{card}: v1 MLP training {train['samples_per_s']:.1f} "
           "samples/s", flush=True)
 
+    # -- 5' and the slice's main path: U-Net v5 training ------------------
+    print("5' (kernel 5 under its custom VJP) on the card:", flush=True)
+    k5t = trainable_checks(torch, K, PU, args.seed)
+    unet_train = train_unet(torch, K, PU, unet_flax_tree, args.seed)
+    print(f"{card}: U-Net v5 training at B={UNET_BATCH}: fused "
+          f"{unet_train['samples_per_s']['fused']:.1f} samples/s, plain "
+          f"{unet_train['samples_per_s']['plain']:.1f} samples/s", flush=True)
+
     if args.profile:
         profile(torch, K, T, model, stats, spec, columns["v2_rh"], chunks[0])
     require("jax" not in sys.modules, "the port must not load jax")
+    require(not any(m.split(".")[0] == "climsim_tpu" for m in sys.modules),
+            "the port must not load the JAX package")
+    bounds = kernel_bounds()
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = res[name]
@@ -1278,7 +1795,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": launches[name] + launches5[name]
-            + train["launches"][name],
+            + train["launches"][name] + unet_train["launches"][name],
             "max_abs_err": r["max_abs_err"],
             **{k: r[k] for k in ("whole_network_max_abs_err",) if k in r},
             "ms": r["ms"][384], "plain_ms": r["plain_ms"][384],
@@ -1288,7 +1805,8 @@ def main(argv=None) -> int:
         "name": "fused_gn_silu_conv3", "route": "cuda",
         "source": UNET_SOURCES["fused_gn_silu_conv3"][0],
         "replaces": UNET_SOURCES["fused_gn_silu_conv3"][1],
-        "launches": launches5["fused_gn_silu_conv3"],
+        "launches": launches5["fused_gn_silu_conv3"]
+        + unet_train["launches"]["fused_gn_silu_conv3"],
         "max_abs_err": gn["max_abs_err"], "max_err_of_max_y": gn["max_err_rel"],
         "control_min_err_of_max_y": gn["control_min_rel"],
         "offset_1e3_err_of_max_y": gn["offset_err_rel"],
@@ -1319,6 +1837,20 @@ def main(argv=None) -> int:
                 "fwd_bwd_autograd_plain_ms":
                     k6["plain_ms"]["fwd_bwd_autograd"],
                 "training_curve_gaps": k6_gaps} if d == "bwd" else {})})
+    kernels.append({
+        "name": "make_trainable_fused_block", "route": "cuda",
+        "source": TRAINABLE_SOURCE[0], "replaces": TRAINABLE_SOURCE[1],
+        "launches": unet_train["launches"]["fused_gn_silu_conv3"],
+        "max_abs_err": k5t["max_abs_err"],
+        "max_err_of_max_y": k5t["max_err_rel"],
+        "control_min_err_of_max_y": k5t["control_min_rel"],
+        "gradients": "bit-equal to autograd of the plain chain",
+        "ms": k5t["ms"], "plain_ms": k5t["plain_ms"],
+        "ms_is": f"forward + backward, the 82 chains of a B={UNET_BATCH} "
+                 "step"})
+    for k in kernels:
+        k["bound_ms"], k["bound_by"] = bounds[k["name"]]
+        k["library_ms"] = None     # no one PyTorch call computes any of them
     print(json.dumps({"kernels": kernels, "card": card,
                       "training": {
                           "samples_per_s": train["samples_per_s"],
@@ -1326,7 +1858,8 @@ def main(argv=None) -> int:
                           "first_loss_gap": train["first_gap"],
                           "step_ms": train["split_ms"],
                           "busy": train["busy"],
-                          "launches": train["launches"]}}))
+                          "launches": train["launches"]},
+                      "unet_training": unet_train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

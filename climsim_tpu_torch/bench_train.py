@@ -39,13 +39,12 @@ def build(device, seed: int = 0, batch: int = BATCH, pool: int = POOL,
     """(trainer, loader, (x, y)) for the benchmark's workload on
     ``device``; ``state_dict`` (a ClimSimMLP's) replaces the weights drawn
     from ``seed``."""
-    from climsim_tpu.grid import load_default_grid
-    from climsim_tpu.norms import load_asset_norms
-    from climsim_tpu.varspec import get_varspec
-
     from .data.pipeline import DeviceResidentLoader
     from .data.synthetic import synthetic_split
+    from .grid import load_default_grid
+    from .norms import load_asset_norms
     from .train import recipes
+    from .varspec import get_varspec
 
     spec = get_varspec("v1")
     stats = load_asset_norms("v1")

@@ -38,7 +38,7 @@ class DeviceResidentLoader:
 
     def __init__(self, inputs, targets, batch_size: int, rules=None,
                  shuffle: bool = True, seed: int = 0,
-                 block_shuffle: int | None = None, device="cpu"):
+                 block_shuffle: int | None = None, device="cuda"):
         if rules is not None:
             raise NotImplementedError("sharding rules are not ported yet")
         self.block = block_shuffle if shuffle else None

@@ -12,10 +12,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from climsim_tpu.grid import Grid
-from climsim_tpu.varspec import NUM_LEVELS, VarSpec, var_len
-
+from ..grid import Grid
 from ..physics import relative_humidity_np
+from ..varspec import NUM_LEVELS, VarSpec, var_len
 
 
 def _profile_for(name: str, rng, n: int, lev_frac: np.ndarray) -> np.ndarray:

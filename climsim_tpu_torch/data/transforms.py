@@ -23,8 +23,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from climsim_tpu.norms import NormStats
-from climsim_tpu.varspec import NUM_LEVELS, VarSpec
+from ..norms import NormStats
+from ..varspec import NUM_LEVELS, VarSpec
 
 from ..ops import kernels as K
 
@@ -131,7 +131,7 @@ def _clip_bounds(spec: VarSpec, cfg: TransformConfig):
 
 def input_transform_consts(spec: VarSpec, stats: NormStats,
                            cfg: TransformConfig | None = None,
-                           device="cpu", dtype=torch.float32) -> torch.Tensor:
+                           device="cuda", dtype=torch.float32) -> torch.Tensor:
     """Resolve ``cfg`` into the fused input transform's (7, D) constants.
 
     ``qn_transform`` covers BOTH cloud layouts: the combined-qn rate on v5
@@ -172,7 +172,7 @@ def input_transform_consts(spec: VarSpec, stats: NormStats,
 
 def make_input_transform(spec: VarSpec, stats: NormStats,
                          cfg: TransformConfig | None = None,
-                         device="cpu"):
+                         device="cuda"):
     """Build fn raw (B, D_in) -> normalized (B, D_in) float32 on ``device``:
     the fused input transform over ``input_transform_consts``."""
     consts = input_transform_consts(spec, stats, cfg, device)
@@ -185,7 +185,7 @@ def make_input_transform(spec: VarSpec, stats: NormStats,
 
 
 def make_target_transform(spec: VarSpec, stats: NormStats,
-                          cfg: TransformConfig | None = None, device="cpu"):
+                          cfg: TransformConfig | None = None, device="cuda"):
     """raw targets (B, D_out) -> normalized training targets."""
     cfg = cfg or TransformConfig()
     scale = torch.as_tensor(stats.out_scale, dtype=torch.float32,

@@ -20,8 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from climsim_tpu.varspec import VarSpec, var_len
-
+from ..varspec import VarSpec, var_len
 from .common import ACTIVATIONS, Dense, LinReluHead, MLPTrunk, out_dtype
 
 

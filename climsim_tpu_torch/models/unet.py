@@ -17,15 +17,32 @@ casts follow flax's, one by one:
     to float32 (``climsim_tpu/models/unet.py:66-69``).  The rounded
     operands are widened back to float32 before the product, where bf16
     products are exact (the idiom of ``models.common.Dense``).
-  * ``GroupNorm`` is flax ``nn.GroupNorm(dtype=float32)``: statistics in
-    float32 by E[x^2] - E[x]^2 clipped at 0, the scale folded into
-    rsqrt(var + eps).
+  * ``GroupNorm`` is flax ``nn.GroupNorm(dtype=norm_dtype)``: statistics
+    in float32 by E[x^2] - E[x]^2 clipped at 0, the scale folded into
+    rsqrt(var + eps), the result stored in ``norm_dtype`` (float32, or
+    bf16 to halve the bytes a norm writes).
   * ``Attention`` takes scores and the weighted sum from bf16 operands
     with float32 sums, and the softmax in float32 (``:126-134``).
 
-Left out, as training features that come with training: dropout,
-``fused_gn_conv`` (a custom VJP) and ``remat_blocks``; the GroupNorms are
-float32 only (flax's ``norm_dtype`` default).
+The training features of ``climsim_tpu/models/unet.py``:
+
+  * ``dropout`` between silu and conv1 (``:263-264``), active in
+    ``train()`` mode only.  The masks come from the ``seed`` given to
+    ``ClimSimUNet.forward``, block ``i`` from ``seed + i``, as flax folds a
+    module's path into its dropout key; a recomputed block draws the same
+    mask.  JAX's threefry bits are not reproduced.
+  * ``fused_gn_conv``: the eligible GroupNorm -> silu -> conv3 chains run
+    through ``ops.unet_fused.make_trainable_fused_block`` (kernel 5 under
+    a custom VJP), with JAX's eligibility rules (``:237-256``): chain 0
+    unless the block resamples, chain 1 when ``norm1_act`` and no
+    dropout, both only when B % 16 == 0, on every device.  The fused
+    chain keeps float32 statistics whatever ``norm_dtype`` is.
+  * ``remat_blocks``: each block under
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` (``:375``),
+    its activations recomputed in the backward.
+
+None of them changes the parameters: a flax tree carries over by
+``port_flax_unet`` whatever the flags.
 """
 
 from __future__ import annotations
@@ -37,9 +54,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from climsim_tpu.varspec import NUM_LEVELS, VarSpec
-
+from ..varspec import NUM_LEVELS, VarSpec
 from .common import out_dtype
 
 N_LOC = 385       # rows of the column-location embedding (icol 0..384)
@@ -120,12 +137,14 @@ class IdentityConv(Conv1d):
 
 
 class GroupNorm(nn.Module):
-    """flax ``nn.GroupNorm(epsilon=1e-6, dtype=float32)`` over (L, C/G)."""
+    """flax ``nn.GroupNorm(epsilon=1e-6, dtype=dtype)`` over (L, C/G)."""
 
-    def __init__(self, channels: int, eps: float = 1e-6, device=None):
+    def __init__(self, channels: int, eps: float = 1e-6,
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.groups = _num_groups(channels)
         self.eps = eps
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
 
@@ -138,8 +157,11 @@ class GroupNorm(nn.Module):
         mean2 = (xg * xg).mean(dim=(1, 3), keepdim=True)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight.reshape(1, 1, g, -1)
-        y = (xg - mean) * mul + self.bias.reshape(1, 1, g, -1)
-        return y.reshape(b, l, c)
+        y = ((xg - mean) * mul + self.bias.reshape(1, 1, g, -1)).reshape(
+            b, l, c)
+        # flax stores the result in its dtype; float32 keeps a wider input
+        # (the float64 parity path) as it is
+        return y if self.dtype == torch.float32 else y.to(self.dtype)
 
 
 class Attention(nn.Module):
@@ -148,13 +170,14 @@ class Attention(nn.Module):
 
     def __init__(self, channels: int, num_heads: int = 0,
                  channels_per_head: int = 64,
-                 compute_dtype: torch.dtype = torch.bfloat16, device=None,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 norm_dtype: torch.dtype = torch.float32, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.heads = (num_heads if num_heads > 0
                       else max(channels // channels_per_head, 1))
         self.compute_dtype = compute_dtype
-        self.norm = GroupNorm(channels, device=device)
+        self.norm = GroupNorm(channels, dtype=norm_dtype, device=device)
         self.qkv = Conv1d(channels, 3 * channels, 1,
                           compute_dtype=compute_dtype, device=device,
                           generator=generator)
@@ -175,25 +198,42 @@ class Attention(nn.Module):
         return (x + out) / math.sqrt(2.0)
 
 
+def _dropout(h: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """flax ``nn.Dropout(rate)`` in training: each element kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), the mask drawn from
+    a generator on ``h``'s device seeded with ``seed``."""
+    gen = torch.Generator(device=h.device).manual_seed(seed)
+    keep = torch.rand(h.shape, generator=gen, device=h.device) < 1.0 - rate
+    return torch.where(keep, h / (1.0 - rate), torch.zeros_like(h))
+
+
 class UNetBlock(nn.Module):
     """EDM-style residual block.  ``norm1_act=False`` (no silu after
     norm1), ``resample_proj=True`` (a 1x1 skip conv on every up/down block)
     and ``attn_heads=1`` reproduce the reference network; the defaults are
-    the JAX package's design (``climsim_tpu/models/unet.py:189-204``)."""
+    the JAX package's design (``climsim_tpu/models/unet.py:189-220``).
+    ``dropout``, ``fused_gn_conv`` and ``norm_dtype`` as the module
+    docstring says."""
 
     def __init__(self, cin: int, out_channels: int, up: bool = False,
                  down: bool = False, attention: bool = False,
-                 norm1_act: bool = True, resample_proj: bool = False,
-                 attn_heads: int = 0,
-                 compute_dtype: torch.dtype = torch.bfloat16, device=None,
+                 dropout: float = 0.10, norm1_act: bool = True,
+                 resample_proj: bool = False, attn_heads: int = 0,
+                 fused_gn_conv: bool = False,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 norm_dtype: torch.dtype = torch.float32, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.up, self.down, self.norm1_act = up, down, norm1_act
+        self.dropout = dropout
+        self.fused_gn_conv = fused_gn_conv
+        self.compute_dtype = compute_dtype
+        self.seed_offset = 0   # this block's place in the network
         kw = dict(compute_dtype=compute_dtype, device=device,
                   generator=generator)
-        self.norm0 = GroupNorm(cin, device=device)
+        self.norm0 = GroupNorm(cin, dtype=norm_dtype, device=device)
         self.conv0 = Conv1d(cin, out_channels, 3, **kw)
-        self.norm1 = GroupNorm(out_channels, device=device)
+        self.norm1 = GroupNorm(out_channels, dtype=norm_dtype, device=device)
         self.conv1 = Conv1d(out_channels, out_channels, 3, zero_init=True,
                             **kw)
         self.skip = (Conv1d(cin, out_channels, 1, **kw)
@@ -201,18 +241,49 @@ class UNetBlock(nn.Module):
                                                 and (up or down))
                      else None)
         self.Attention_0 = (Attention(out_channels, num_heads=attn_heads,
-                                      **kw) if attention else None)
+                                      norm_dtype=norm_dtype, **kw)
+                            if attention else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.silu(self.norm0(x))
-        if self.down:
-            h, x = _down(h), _down(x)
-        elif self.up:
-            h, x = _up(h), _up(x)
-        h = self.norm1(self.conv0(h))
-        if self.norm1_act:
-            h = F.silu(h)
-        h = self.conv1(h)
+    def fused_chains(self, bsz: int) -> tuple[bool, bool]:
+        """Whether chain 0 (norm0 -> silu -> conv0) and chain 1 (norm1 ->
+        silu -> conv1) go through the fused block at batch ``bsz``
+        (``climsim_tpu/models/unet.py:237-256``)."""
+        fusable = self.fused_gn_conv and bsz % 16 == 0
+        return (fusable and not (self.up or self.down),
+                fusable and self.norm1_act and self.dropout == 0)
+
+    def _fused(self, x: torch.Tensor, norm: GroupNorm,
+               conv: Conv1d) -> torch.Tensor:
+        """GroupNorm -> silu -> conv3 through kernel 5's custom VJP, on the
+        parameters of the plain path (the flax kernel layout is a view)."""
+        from ..ops.unet_fused import make_trainable_fused_block
+
+        fn = make_trainable_fused_block(norm.groups, norm.eps,
+                                        self.compute_dtype)
+        return fn(x.float(), norm.weight, norm.bias,
+                  conv.weight.permute(2, 1, 0), conv.bias)
+
+    def forward(self, x: torch.Tensor, seed: int | None = None
+                ) -> torch.Tensor:
+        fuse0, fuse1 = self.fused_chains(x.shape[0])
+        if fuse0:
+            h = self._fused(x, self.norm0, self.conv0)
+        else:
+            h = F.silu(self.norm0(x))
+            if self.down:
+                h, x = _down(h), _down(x)
+            elif self.up:
+                h, x = _up(h), _up(x)
+            h = self.conv0(h)
+        if fuse1:
+            h = self._fused(h, self.norm1, self.conv1)
+        else:
+            h = self.norm1(h)
+            if self.norm1_act:
+                h = F.silu(h)
+            if self.dropout > 0 and self.training:
+                h = _dropout(h, self.dropout, seed)
+            h = self.conv1(h)
         if self.skip is not None:
             x = self.skip(x)
         y = (h + x) / math.sqrt(2.0)
@@ -243,8 +314,10 @@ class ClimSimUNet(nn.Module):
                  output_prune: bool = False, strato_lev_out: int = 15,
                  classifier: bool = False, num_classes: int = 3,
                  norm1_act: bool = True, resample_proj: bool = False,
-                 attn_heads: int = 0,
-                 compute_dtype: torch.dtype = torch.bfloat16, device=None,
+                 attn_heads: int = 0, dropout: float = 0.0,
+                 fused_gn_conv: bool = False, remat_blocks: bool = False,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 norm_dtype: torch.dtype = torch.float32, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.spec = spec
@@ -263,7 +336,11 @@ class ClimSimUNet(nn.Module):
         self.norm1_act = norm1_act
         self.resample_proj = resample_proj
         self.attn_heads = attn_heads
+        self.dropout = dropout
+        self.fused_gn_conv = fused_gn_conv
+        self.remat_blocks = remat_blocks
         self.compute_dtype = compute_dtype
+        self.norm_dtype = norm_dtype
         self.has_icol = "icol" in spec.inputs
 
         n_prof = len(spec.input_profile_vars)
@@ -282,8 +359,10 @@ class ClimSimUNet(nn.Module):
         mc = model_channels
         conv = dict(compute_dtype=compute_dtype, device=device,
                     generator=generator)
-        blk = dict(norm1_act=norm1_act, resample_proj=resample_proj,
-                   attn_heads=attn_heads, **conv)
+        blk = dict(dropout=dropout, norm1_act=norm1_act,
+                   resample_proj=resample_proj, attn_heads=attn_heads,
+                   fused_gn_conv=fused_gn_conv, norm_dtype=norm_dtype,
+                   **conv)
         skips = []
         for level, mult in enumerate(self.channel_mult):
             res = seq_resolution >> level
@@ -321,12 +400,15 @@ class ClimSimUNet(nn.Module):
         self.n_prof_out = (num_classes if classifier
                            else len(spec.output_profile_vars))
         n_scal_out = 0 if classifier else len(spec.output_scalar_vars)
-        self.out_norm = GroupNorm(c, device=device)
+        self.out_norm = GroupNorm(c, dtype=norm_dtype, device=device)
         self.out_conv = Conv1d(c, self.n_prof_out + n_scal_out, 3,
                                zero_init=True, **conv)
         self.register_buffer("prune_mask", torch.as_tensor(
             _output_prune_mask(spec, strato_lev_out), device=device),
             persistent=False)
+        blocks = [m for m in self.modules() if isinstance(m, UNetBlock)]
+        for i, m in enumerate(blocks):
+            m.seed_offset = i
 
     def assemble(self, x: torch.Tensor) -> torch.Tensor:
         """(B, D_in) flat -> (B, 64, C) channelized with the location
@@ -406,7 +488,44 @@ class ClimSimUNet(nn.Module):
             y = y * self.prune_mask
         return y
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.trunk(self.assemble(x), lambda m, h: m(h),
-                       lambda m, h: m(h))
+    def fused_chains(self, bsz: int = 16) -> dict:
+        """{(L, C, Cout): count} of the chains that run through the fused
+        block in a forward at batch ``bsz`` (shapes only, on the meta
+        device)."""
+        chains: dict = {}
+
+        def block(m, h):
+            b, l, _ = h.shape
+            l_out = l // 2 if m.down else 2 * l if m.up else l
+            cout = m.conv0.weight.shape[0]
+            fuse0, fuse1 = m.fused_chains(b)
+            for on, key in ((fuse0, (l, h.shape[2], cout)),
+                            (fuse1, (l_out, cout, cout))):
+                if on:
+                    chains[key] = chains.get(key, 0) + 1
+            return h.new_empty(b, l_out, cout)
+
+        def conv(m, h):
+            return h.new_empty(*h.shape[:2], m.weight.shape[0])
+
+        first = getattr(self, f"enc{self.seq_resolution}_conv")
+        self.trunk(torch.empty(bsz, self.seq_resolution,
+                               first.weight.shape[1], device="meta"),
+                   block, conv)
+        return chains
+
+    def forward(self, x: torch.Tensor, seed: int | None = None
+                ) -> torch.Tensor:
+        """``seed`` draws the dropout masks in ``train()`` mode (block i
+        from ``seed + i``); it is needed there when ``dropout > 0``."""
+        if self.training and self.dropout > 0 and seed is None:
+            raise ValueError("dropout in train() mode needs a seed")
+
+        def block(m, h):
+            s = None if seed is None else seed + m.seed_offset
+            if self.remat_blocks and torch.is_grad_enabled():
+                return checkpoint(m, h, s, use_reentrant=False)
+            return m(h, s)
+
+        h = self.trunk(self.assemble(x), block, lambda m, h: m(h))
         return self.finish(self.out_conv(F.silu(self.out_norm(h))))

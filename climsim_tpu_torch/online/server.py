@@ -98,7 +98,7 @@ class CouplingServer:
 
     def __init__(self, wrapper, n_features: int, base_chunk: int = 384,
                  max_batch: int = 6144, host: str = "127.0.0.1",
-                 port: int = 0, warmup: bool = True, device="cpu"):
+                 port: int = 0, warmup: bool = True, device="cuda"):
         self._wrapper = wrapper
         self.device = torch.device(device)
         self.n_features = n_features

@@ -17,12 +17,11 @@ from typing import Callable
 import numpy as np
 import torch
 
-from climsim_tpu.norms import NormStats
-from climsim_tpu.varspec import VarSpec, get_varspec
-
 from .. import physics
 from ..data import transforms as T
+from ..norms import NormStats
 from ..ops import kernels as K
+from ..varspec import VarSpec, get_varspec
 
 
 def convert_v4_to_v5(x: torch.Tensor) -> torch.Tensor:
@@ -63,7 +62,7 @@ class WrapperConfig:
 
 def make_wrapper(model_apply: Callable, stats: NormStats,
                  cfg: WrapperConfig | None = None,
-                 device="cpu") -> Callable:
+                 device="cuda") -> Callable:
     """Build fn(x_raw) -> (B, 368) raw tendencies for a v5 model.
 
     ``model_apply(x_norm)`` maps normalized v5 (B, 1405) columns to the
@@ -146,7 +145,7 @@ def make_v2rh_wrapper(model: Callable, stats: NormStats,
                       spec: VarSpec | None = None,
                       tcfg: T.TransformConfig | None = None,
                       out_zero: dict | None = None,
-                      device="cpu") -> Callable:
+                      device="cuda") -> Callable:
     """Wrapper for v2_rh-family online models (MLP_v2rh): normalize in,
     un-scale out; ``model`` maps normalized (B, 557) to the (B, 368)
     contract layout (v2_nn_wrapper.ipynb is the same flow without cloud
@@ -171,7 +170,7 @@ def make_v2rh_wrapper(model: Callable, stats: NormStats,
 def make_fast_mlp_wrapper(model, stats: NormStats,
                           spec: VarSpec | None = None,
                           weights_dtype=torch.bfloat16,
-                          device="cpu") -> Callable:
+                          device="cuda") -> Callable:
     """Latency-oriented v2_rh wrapper: the input transform kernel, then the
     whole ``OnlineMLP`` in one fused-MLP kernel launch.
 

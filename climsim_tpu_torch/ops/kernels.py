@@ -37,9 +37,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from climsim_tpu.varspec import NUM_LEVELS
-
 from .. import physics
+from ..varspec import NUM_LEVELS
 from . import _build
 
 LAUNCHES = {"fused_input_transform": 0, "fused_mlp_forward": 0,
@@ -140,7 +139,7 @@ CONTRACT_OUT = 368  # t, q1, qc, qi, u, v (60 each), 8 scalars
 
 
 def constraint_head_consts(out_scale, strato_lev_out: int,
-                           dtype=torch.float32, device="cpu") -> torch.Tensor:
+                           dtype=torch.float32, device="cuda") -> torch.Tensor:
     """The (2, 308) rows of the head: the stratosphere mask (the top
     ``strato_lev_out`` levels of q1, qn, u and v zeroed) and 1 / out_scale
     (divided in float64, then rounded, as the reference wrapper does)."""
@@ -239,7 +238,7 @@ class PackedMLP:
 
 
 def pack_mlp(weights, biases, weights_dtype=torch.bfloat16,
-             device="cpu") -> PackedMLP:
+             device="cuda") -> PackedMLP:
     """Pack (d_in, d_out) weights and biases once, at build time.
 
     ``weights_dtype`` is torch.float32, torch.bfloat16 or ``"int8"``

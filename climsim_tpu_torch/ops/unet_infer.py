@@ -19,11 +19,15 @@ topology (``ClimSimUNet.trunk``):
 Any B is taken, 1 and ragged sizes included: the kernel works per sample,
 so there is no batch tile.  ``fused=False`` is the all-plain engine.
 
-The JAX engine ignores three of the model's flags (``resample_proj=True``,
-``norm1_act=False``, ``attn_heads != 0``) and the classifier's
+The JAX engine ignores four of the model's flags (``resample_proj=True``,
+``norm1_act=False``, ``attn_heads != 0``, ``norm_dtype`` other than
+float32: its ``_gn`` always normalizes in float32,
+``climsim_tpu/ops/unet_infer.py:49-56``) and the classifier's
 stratosphere logit forcing (``classifier`` with ``output_prune``), and
 then returns another network's answer; this engine refuses them with a
-ValueError.  The ``unet_v5`` preset sets none of them.
+ValueError.  The ``unet_v5`` preset sets none of them.  The training
+flags (``dropout``, ``fused_gn_conv``, ``remat_blocks``) do not change
+inference, and the engine takes them.
 
 Weights are prepared once per model and device -- bf16 conv kernels in
 the kernel's (3, C, Cout) layout, bf16-rounded float32 kernels for the
@@ -49,6 +53,7 @@ def _check_flags(model: ClimSimUNet) -> None:
         ("resample_proj=True", model.resample_proj),
         ("norm1_act=False", not model.norm1_act),
         (f"attn_heads={model.attn_heads}", model.attn_heads != 0),
+        (f"norm_dtype={model.norm_dtype}", model.norm_dtype != torch.float32),
         ("classifier with output_prune",
          model.classifier and model.output_prune)) if on]
     if bad:

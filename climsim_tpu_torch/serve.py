@@ -48,14 +48,13 @@ def main(argv=None):
 
     import torch
 
-    from climsim_tpu.norms import load_asset_norms
-    from climsim_tpu.varspec import get_varspec
-
     from .models import build_model
+    from .norms import load_asset_norms
     from .online.server import CouplingServer
     from .online.wrapper import (WrapperConfig, make_fast_mlp_wrapper,
                                  make_wrapper)
     from .ops.unet_infer import unet_apply_fused
+    from .varspec import get_varspec
 
     gen = torch.Generator().manual_seed(args.seed)
     if args.demo == "v2rh":

@@ -8,6 +8,10 @@ update the group's learning rate is set to ``schedule(count) *
 lr_scale``, where ``count`` is the number of updates made before this one,
 as optax counts.  Both put eps (1e-8) outside the square root.
 
+The state's ``rng`` is a host ``torch.Generator``: each step draws the
+step's dropout seed from it (JAX splits its key, ``step.py:55``), so the
+generator advances once a step and the card never waits for it.
+
 Distribution (the JAX ``rules=`` argument) waits for its slice; passing
 rules raises.
 """
@@ -47,7 +51,7 @@ class TrainState:
     params: torch.nn.Module
     opt_state: torch.optim.Optimizer
     step: int                  # updates made so far (optax's count)
-    rng: torch.Generator       # the loss's randomness (dropout)
+    rng: torch.Generator       # host generator of the steps' dropout seeds
     lr_scale: float = 1.0      # host-controlled multiplier (plateau)
 
 
@@ -70,7 +74,8 @@ def _clip_by_global_norm(grads, max_norm: float) -> None:
 
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer, rules=None):
-    """loss_fn(model, generator, xb, yb) -> (scalar loss, aux dict).
+    """loss_fn(model, seed, xb, yb) -> (scalar loss, aux dict), where
+    ``seed`` is the step's dropout seed (an int; None in evaluation).
 
     Returns step(state, xb, yb) -> (state, metrics); the state is updated
     in place (where JAX donated it) and returned.  Metrics stay on the
@@ -81,7 +86,8 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, rules=None):
     def step(state: TrainState, xb, yb):
         model, opt = state.params, state.opt_state
         opt.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(model, state.rng, xb, yb)
+        seed = int(torch.randint(2**62, (), generator=state.rng))
+        loss, aux = loss_fn(model, seed, xb, yb)
         loss.backward()
         if optimizer.clip is not None:
             _clip_by_global_norm(
@@ -95,7 +101,8 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, rules=None):
             group["lr"] = lr
         opt.step()
         state.step += 1
-        return state, {"loss": loss.detach(), **aux}
+        return state, {k: v.detach() for k, v in (("loss", loss),
+                                                   *aux.items())}
 
     return step
 

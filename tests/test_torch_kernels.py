@@ -56,7 +56,7 @@ def test_input_transform_matches_pallas_and_xla(case):
     spec, stats = get_varspec(version), load_asset_norms(version)
     x = _raw_columns(spec, 48, seed=7)
 
-    got = PT.make_input_transform(spec, stats, pcfg)(
+    got = PT.make_input_transform(spec, stats, pcfg, device="cpu")(
         torch.from_numpy(x)).numpy()
     assert PK.LAUNCHES["fused_input_transform"] == 0  # CPU: plain version
 
@@ -117,7 +117,7 @@ def test_fused_mlp_matches_pallas_and_xla(wdtype, b):
         (b, WIDTHS[0])).astype(np.float32)
     tdt, jdt = {"bf16": (torch.bfloat16, jnp.bfloat16),
                 "f32": (torch.float32, jnp.float32)}[wdtype]
-    mlp = PK.pack_mlp(ws, bs, tdt)
+    mlp = PK.pack_mlp(ws, bs, tdt, device="cpu")
     got = PK.fused_mlp_forward(torch.from_numpy(x), mlp, relu_tail=8).numpy()
     assert PK.LAUNCHES["fused_mlp_forward"] == 0
 
@@ -148,7 +148,7 @@ def test_fused_mlp_int8_matches_pallas_and_xla(b):
     ws, bs = _mlp_params(WIDTHS, seed=12)
     x = np.random.default_rng(b).standard_normal(
         (b, WIDTHS[0])).astype(np.float32)
-    mlp = PK.pack_mlp(ws, bs, "int8")
+    mlp = PK.pack_mlp(ws, bs, "int8", device="cpu")
     got = PK.fused_mlp_forward_int8(torch.from_numpy(x), mlp,
                                     relu_tail=8).numpy()
     assert PK.LAUNCHES["fused_mlp_forward_int8"] == 0
@@ -173,7 +173,7 @@ def test_int8_fused_mlp_accuracy():
 
     want = np.maximum(x @ ws[0] + bs[0], 0) @ ws[1] + bs[1]
     got = PK.fused_mlp_forward_int8(
-        torch.from_numpy(x), PK.pack_mlp(ws, bs, "int8")).numpy()
+        torch.from_numpy(x), PK.pack_mlp(ws, bs, "int8", device="cpu")).numpy()
     err = np.abs(got - want) / (np.abs(want).mean() + 1e-6)
     assert err.mean() < 0.02, err.mean()
     qs, scales = PK.quantize_weights_int8(ws)
@@ -225,7 +225,7 @@ def test_fused_gn_silu_conv3_matches_pallas_and_xla(case, dtype):
         # float32 orders of summation agree to 1e-5 (the Pallas kernel and
         # the XLA chain differ by 7e-5 * max|y|): hold all three to the
         # float64 chain at 1.5e-4 * max|y| instead
-        exact = PU.fused_gn_silu_conv3_plain(*[
+        exact = PU.xla_gn_silu_conv3_plain(*[
             torch.from_numpy(a).double() for a in (x, gamma, beta, w, bias)
         ]).numpy()
         scale = np.abs(exact).max()
@@ -254,7 +254,7 @@ def test_fused_constraint_head_matches_pallas_and_wrapper_math(b):
     t = (260 + 30 * rng.random((b, 60))).astype(np.float32)
     qc = np.abs(rng.normal(size=(b, 60))).astype(np.float32) * 1e-5
     qi = np.abs(rng.normal(size=(b, 60))).astype(np.float32) * 1e-5
-    consts = PK.constraint_head_consts(stats.out_scale, 15)
+    consts = PK.constraint_head_consts(stats.out_scale, 15, device="cpu")
     got = PK.fused_constraint_head(*map(torch.from_numpy, (y, t, qc, qi)),
                                    consts, 1200.0).numpy()
     assert PK.LAUNCHES["fused_constraint_head"] == 0

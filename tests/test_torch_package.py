@@ -2,9 +2,11 @@
 and builds nothing without a CUDA toolkit, and a kernel entry given a CPU
 tensor takes the plain version and launches nothing."""
 
+import inspect
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,6 +31,8 @@ SLICE_MODULES = (
     "climsim_tpu_torch.data.pipeline", "climsim_tpu_torch.train.losses",
     "climsim_tpu_torch.train.schedules", "climsim_tpu_torch.train.step",
     "climsim_tpu_torch.train.recipes", "climsim_tpu_torch.bench_train",
+    "climsim_tpu_torch.varspec", "climsim_tpu_torch.norms",
+    "climsim_tpu_torch.grid", "climsim_tpu_torch.bench_unet_train",
 )
 
 
@@ -51,6 +55,156 @@ def test_port_imports_no_jax():
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
             "print(bad)\n")
     assert _run(code).strip() == "[]"
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    """The registry, norms and grid are the port's own copies: after every
+    slice module is imported and used, no module of ``climsim_tpu`` is
+    loaded."""
+    code = ("import importlib, sys\n"
+            f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
+            "import climsim_tpu_torch as p\n"
+            "for v in ('v1', 'v2_rh', 'v4', 'v5'):\n"
+            "    p.get_varspec(v); p.load_asset_norms(v)\n"
+            "p.load_default_grid()\n"
+            "print(sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] == 'climsim_tpu'))\n")
+    assert _run(code).strip() == "[]"
+
+
+def test_copies_equal_the_jax_package():
+    """Every registered spec field by field, every norms asset and the
+    grid bit for bit."""
+    from climsim_tpu import grid as JG
+    from climsim_tpu import norms as JN
+    from climsim_tpu import varspec as JV
+    from climsim_tpu_torch import grid as PG
+    from climsim_tpu_torch import norms as PN
+    from climsim_tpu_torch import varspec as PV
+
+    assert PV.available() == JV.available()
+    assert PV.NUM_LEVELS == JV.NUM_LEVELS
+    for name in JV.available():
+        j, p = JV.get_varspec(name), PV.get_varspec(name)
+        for field in ("name", "inputs", "outputs", "input_len",
+                      "output_len", "input_slices", "output_slices",
+                      "input_profile_vars", "input_scalar_vars",
+                      "output_profile_vars", "output_scalar_vars"):
+            assert getattr(p, field) == getattr(j, field), (name, field)
+        if "state_ps" in j.inputs:
+            assert p.ps_index == j.ps_index
+        for v in j.inputs + j.outputs:
+            assert PV.var_len(v) == JV.var_len(v)
+    assets = sorted(f.name for f in (Path(PN.__file__).parent
+                                     / "assets").iterdir())
+    assert len(assets) == 6
+    for f in assets:
+        if not f.startswith("norms_"):
+            continue
+        v = f[len("norms_"):-len(".npz")]
+        j, p = JN.load_asset_norms(v), PN.load_asset_norms(v)
+        for field in ("inp_sub", "inp_div", "out_scale", "lbd_qn", "lbd_qc",
+                      "lbd_qi"):
+            a, b = getattr(j, field), getattr(p, field)
+            assert (a is None) == (b is None), (v, field)
+            if a is not None:
+                assert a.dtype == b.dtype, (v, field)
+                np.testing.assert_array_equal(a, b)
+    jg, pg = JG.load_default_grid(), PG.load_default_grid()
+    for field in ("lat", "lon", "area", "hyai", "hybi", "hyam", "hybm"):
+        a, b = getattr(jg, field), getattr(pg, field)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert jg.p0 == pg.p0
+
+
+def _entry_points():
+    """name -> a call of the entry point with every argument but the
+    device."""
+    from climsim_tpu_torch.data import transforms as PT
+    from climsim_tpu_torch.data.pipeline import DeviceResidentLoader
+    from climsim_tpu_torch.models import OnlineMLP
+    from climsim_tpu_torch.norms import load_asset_norms
+    from climsim_tpu_torch.online import wrapper as PW
+    from climsim_tpu_torch.online.server import CouplingServer
+    from climsim_tpu_torch.train import losses as PL
+    from climsim_tpu_torch.train import recipes as PR
+    from climsim_tpu_torch.varspec import get_varspec
+
+    spec, stats = get_varspec("v2_rh"), load_asset_norms("v2_rh")
+    spec5, stats5 = get_varspec("v5"), load_asset_norms("v5")
+    mlp = OnlineMLP(spec, hidden=(8,))
+    tiny = dict(model_channels=8, channel_mult=(1,), num_blocks=1,
+                attn_resolutions=())
+    x = np.zeros((32, 4), np.float32)
+    return {
+        "mlp_trainer": lambda: PR.mlp_trainer(
+            get_varspec("v1"), load_asset_norms("v1"), None, 0, hidden=(8,)),
+        "online_mlp_trainer": lambda: PR.online_mlp_trainer(
+            spec, stats, None, 0, hidden=(8,)),
+        "unet_trainer": lambda: PR.unet_trainer(
+            spec5, stats5, None, 0, model_kw=tiny),
+        "unet_classifier_trainer": lambda: PR.unet_classifier_trainer(
+            spec5, stats5, None, 0, model_kw=tiny),
+        "DeviceResidentLoader": lambda: DeviceResidentLoader(x, x, 8),
+        "make_input_transform": lambda: PT.make_input_transform(spec, stats),
+        "make_target_transform": lambda: PT.make_target_transform(spec,
+                                                                  stats),
+        "input_transform_consts": lambda: PT.input_transform_consts(spec,
+                                                                    stats),
+        "make_wrapper": lambda: PW.make_wrapper(lambda xn: xn, stats5),
+        "make_v2rh_wrapper": lambda: PW.make_v2rh_wrapper(mlp, stats, spec),
+        "make_fast_mlp_wrapper": lambda: PW.make_fast_mlp_wrapper(
+            mlp, stats, spec),
+        "CouplingServer": lambda: CouplingServer(lambda x: x, 4),
+        "block_weight_vector": lambda: PL.block_weight_vector(spec,
+                                                              {"2d": 2.0}),
+        "constraint_head_consts": lambda: PK.constraint_head_consts(
+            np.ones(308), 15),
+        "pack_mlp": lambda: PK.pack_mlp([np.zeros((4, 2), np.float32)],
+                                        [np.zeros(2, np.float32)]),
+    }
+
+
+ENTRY_POINTS = ("mlp_trainer", "online_mlp_trainer", "unet_trainer",
+                "unet_classifier_trainer", "DeviceResidentLoader",
+                "make_input_transform", "make_target_transform",
+                "input_transform_consts", "make_wrapper",
+                "make_v2rh_wrapper", "make_fast_mlp_wrapper",
+                "CouplingServer", "block_weight_vector",
+                "constraint_head_consts", "pack_mlp")
+
+
+def _default_device(name):
+    from climsim_tpu_torch.data import transforms as PT
+    from climsim_tpu_torch.data.pipeline import DeviceResidentLoader
+    from climsim_tpu_torch.online import wrapper as PW
+    from climsim_tpu_torch.online.server import CouplingServer
+    from climsim_tpu_torch.train import losses as PL
+    from climsim_tpu_torch.train import recipes as PR
+
+    for mod in (PR, PT, PW, PL, PK):
+        if hasattr(mod, name):
+            fn = getattr(mod, name)
+            break
+    else:
+        fn = {"DeviceResidentLoader": DeviceResidentLoader,
+              "CouplingServer": CouplingServer}[name]
+    return inspect.signature(fn).parameters["device"].default
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_points_default_to_the_card(name):
+    """Each entry point takes ``device="cuda"`` by default.  Without a card
+    that default raises (torch's own error): it never quietly runs on the
+    CPU."""
+    assert _default_device(name) == "cuda"
+    call = _entry_points()[name]
+    if torch.cuda.is_available():
+        call()
+        return
+    with pytest.raises((AssertionError, RuntimeError)):
+        call()
 
 
 def test_kernels_import_without_toolkit(tmp_path):
@@ -80,7 +234,7 @@ def _mlp(wdtype):
     ws = [rng.standard_normal((12, 16)).astype(np.float32),
           rng.standard_normal((16, 6)).astype(np.float32)]
     bs = [np.zeros(16, np.float32), np.zeros(6, np.float32)]
-    return PK.pack_mlp(ws, bs, wdtype)
+    return PK.pack_mlp(ws, bs, wdtype, device="cpu")
 
 
 def _consts(d):
@@ -103,7 +257,8 @@ def _head_args(b=5):
             260 + 30 * torch.rand(b, 60, generator=g),
             1e-5 * torch.rand(b, 60, generator=g),
             1e-5 * torch.rand(b, 60, generator=g),
-            PK.constraint_head_consts(np.ones(308), 15))
+            PK.constraint_head_consts(np.ones(308), 15,
+                                        device="cpu"))
 
 
 @pytest.mark.parametrize("entry", ["fused_input_transform",
@@ -136,7 +291,7 @@ def test_cpu_tensor_takes_plain_path(entry):
     elif entry == "fused_gn_silu_conv3":
         a = _gn_args()
         got, want = PU.fused_gn_silu_conv3(*a), \
-            PU.fused_gn_silu_conv3_plain(*a)
+            PU.xla_gn_silu_conv3_plain(*a)
     elif entry == "fused_input_transform":
         c = _consts(12)
         got, want = PK.fused_input_transform(x, c), \
@@ -170,9 +325,10 @@ def test_kernel_entries_reject_bad_inputs():
     with pytest.raises(ValueError):
         PK.fused_mlp_forward(x, _mlp(torch.float32), relu_tail=7)
     with pytest.raises(ValueError):
-        PK.pack_mlp([np.zeros((12, 16))], [np.zeros(15)])
+        PK.pack_mlp([np.zeros((12, 16))], [np.zeros(15)], device="cpu")
     with pytest.raises(ValueError):
-        PK.pack_mlp([np.zeros((12, 16))], [np.zeros(16)], torch.float16)
+        PK.pack_mlp([np.zeros((12, 16))], [np.zeros(16)], torch.float16,
+                    device="cpu")
     with pytest.raises(ValueError):
         PK.PackedMLP((12, 16), torch.zeros(12 * 15), torch.zeros(16))
     ws, bs = [torch.zeros(12, 16), torch.zeros(16, 6)], [torch.zeros(16),
@@ -226,11 +382,11 @@ def test_packed_layout_is_row_major_concatenation():
     ws = [rng.standard_normal((3, 4)).astype(np.float32),
           rng.standard_normal((4, 2)).astype(np.float32)]
     bs = [np.arange(4, dtype=np.float32), np.arange(2, dtype=np.float32)]
-    m = PK.pack_mlp(ws, bs, torch.float32)
+    m = PK.pack_mlp(ws, bs, torch.float32, device="cpu")
     assert m.widths == (3, 4, 2)
     np.testing.assert_array_equal(
         m.w.numpy(), np.concatenate([w.reshape(-1) for w in ws]))
     np.testing.assert_array_equal(m.b.numpy(), np.concatenate(bs))
-    q = PK.pack_mlp(ws, bs, "int8")
+    q = PK.pack_mlp(ws, bs, "int8", device="cpu")
     assert q.w.dtype == torch.int8 and q.scale.shape == (6,)
-    assert PK.pack_mlp(ws, bs).w.dtype == torch.bfloat16
+    assert PK.pack_mlp(ws, bs, device="cpu").w.dtype == torch.bfloat16

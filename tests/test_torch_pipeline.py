@@ -36,7 +36,8 @@ def _epoch(loader):
 @pytest.mark.parametrize("block", [None, 64])
 def test_upload_order_equals_jax(block):
     x, y = _data()
-    ours = DeviceResidentLoader(x, y, 256, seed=3, block_shuffle=block)
+    ours = DeviceResidentLoader(x, y, 256, seed=3, block_shuffle=block,
+                                device="cpu")
     ref = JaxLoader(x, y, 256, seed=3, block_shuffle=block)
     np.testing.assert_array_equal(ours.x.numpy(), np.asarray(ref.x))
     np.testing.assert_array_equal(ours.y.numpy(), np.asarray(ref.y))
@@ -46,7 +47,8 @@ def test_upload_order_equals_jax(block):
 @pytest.mark.parametrize("block", [None, 64])
 def test_epochs_are_permutations_of_the_split(block):
     x, y = _data()
-    ld = DeviceResidentLoader(x, y, 256, seed=1, block_shuffle=block)
+    ld = DeviceResidentLoader(x, y, 256, seed=1, block_shuffle=block,
+                              device="cpu")
     orders = []
     for _ in range(3):
         ex, ey = _epoch(ld)
@@ -63,7 +65,8 @@ def test_blocks_stay_whole():
     """Each 64-row block of an epoch is a block of the uploaded order,
     rows in their uploaded order."""
     x, y = _data()
-    ld = DeviceResidentLoader(x, y, 256, seed=2, block_shuffle=64)
+    ld = DeviceResidentLoader(x, y, 256, seed=2, block_shuffle=64,
+                              device="cpu")
     up = ld.x[:, 0].numpy().astype(np.int64).reshape(-1, 64)
     seen = set()
     for blk in _epoch(ld)[0][:, 0].astype(np.int64).reshape(-1, 64):
@@ -76,7 +79,7 @@ def test_blocks_stay_whole():
 def test_no_shuffle_keeps_order_and_drops_the_remainder():
     x, y = _data()
     ld = DeviceResidentLoader(x[:1000], y[:1000], 256, shuffle=False,
-                              block_shuffle=64)
+                              block_shuffle=64, device="cpu")
     assert ld.block is None and ld.steps_per_epoch == 3
     np.testing.assert_array_equal(_epoch(ld)[0], x[:768])
 
@@ -84,19 +87,22 @@ def test_no_shuffle_keeps_order_and_drops_the_remainder():
 def test_split_must_divide_into_blocks():
     x, y = _data()
     with pytest.raises(ValueError):
-        DeviceResidentLoader(x[:1000], y[:1000], 100, block_shuffle=64)
+        DeviceResidentLoader(x[:1000], y[:1000], 100, block_shuffle=64,
+                             device="cpu")
     with pytest.raises(NotImplementedError):
-        DeviceResidentLoader(x, y, 256, rules=object())
+        DeviceResidentLoader(x, y, 256, rules=object(), device="cpu")
 
 
 def test_set_epoch_reproduces_an_epoch():
     x, y = _data()
-    ld = DeviceResidentLoader(x, y, 256, seed=4, block_shuffle=64)
+    ld = DeviceResidentLoader(x, y, 256, seed=4, block_shuffle=64,
+                              device="cpu")
     epochs = [_epoch(ld)[0] for _ in range(3)]
     ld.set_epoch(1)
     np.testing.assert_array_equal(_epoch(ld)[0], epochs[1])
     np.testing.assert_array_equal(_epoch(ld)[0], epochs[2])
-    again = DeviceResidentLoader(x, y, 256, seed=4, block_shuffle=64)
+    again = DeviceResidentLoader(x, y, 256, seed=4, block_shuffle=64,
+                                 device="cpu")
     np.testing.assert_array_equal(_epoch(again)[0], epochs[0])
 
 
@@ -113,11 +119,13 @@ def test_epoch_runner_equals_the_python_loop(block):
 
     def trainer():
         return PR.mlp_trainer(spec, stats, (x, y), 5, hidden=(32, 16),
-                              steps_per_epoch=3)
+                              steps_per_epoch=3, device="cpu")
 
     a, b = trainer(), trainer()
-    la = DeviceResidentLoader(x, y, 256, seed=6, block_shuffle=block)
-    lb = DeviceResidentLoader(x, y, 256, seed=6, block_shuffle=block)
+    la = DeviceResidentLoader(x, y, 256, seed=6, block_shuffle=block,
+                              device="cpu")
+    lb = DeviceResidentLoader(x, y, 256, seed=6, block_shuffle=block,
+                              device="cpu")
     sa, ma = la.make_epoch_runner(a.train_step)(a.state, 2)
     sb, means = b.state, []
     for _ in range(2):

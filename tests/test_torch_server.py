@@ -40,7 +40,7 @@ def _echo_wrapper(x):
 @pytest.fixture()
 def echo_server():
     srv = CouplingServer(_echo_wrapper, n_features=16, base_chunk=64,
-                         max_batch=256, warmup=True)
+                         max_batch=256, warmup=True, device="cpu")
     srv.start()
     yield srv
     srv.stop()
@@ -122,7 +122,7 @@ def test_model_error_sends_zero_row_frame():
         raise ValueError("model failure")
 
     srv = CouplingServer(boom, n_features=16, base_chunk=64, max_batch=64,
-                         warmup=False).start()
+                         warmup=False, device="cpu").start()
     try:
         cl = CouplingClient("127.0.0.1", srv.port)
         x = np.ones((4, 16), np.float32)
@@ -142,14 +142,15 @@ def test_wire_format_matches_reference():
 def _tiny_v2rh_wrapper():
     model = build_model("mlp_online", SPEC, hidden=(32,),
                         generator=torch.Generator().manual_seed(0))
-    return make_v2rh_wrapper(model, STATS, SPEC)
+    return make_v2rh_wrapper(model, STATS, SPEC, device="cpu")
 
 
 def test_real_v2rh_wrapper_served():
     wrap = _tiny_v2rh_wrapper()
     x = synthetic_inputs(SPEC, 64, load_default_grid(), seed=0)
     srv = CouplingServer(wrap, n_features=SPEC.input_len, base_chunk=64,
-                         max_batch=128, warmup=False).start()
+                         max_batch=128, warmup=False,
+                         device="cpu").start()
     try:
         cl = CouplingClient("127.0.0.1", srv.port)
         y = cl.step(x)
@@ -175,7 +176,7 @@ def test_c_client_roundtrip(tmp_path):
     x = synthetic_inputs(SPEC, grid.ncol, grid, seed=0)
     srv = CouplingServer(wrap, n_features=SPEC.input_len,
                          base_chunk=grid.ncol, max_batch=2 * grid.ncol,
-                         warmup=True).start()
+                         warmup=True, device="cpu").start()
     try:
         fin, fout = tmp_path / "in.f32", tmp_path / "out.f32"
         fin.write_bytes(np.ascontiguousarray(x, "<f4").tobytes())
@@ -217,9 +218,10 @@ def test_slice_jax_server_vs_port_server(wdtype):
         n_features=SPEC.input_len, base_chunk=64, max_batch=128,
         warmup=False).start()
     psrv = CouplingServer(
-        make_fast_mlp_wrapper(model, STATS, SPEC, weights_dtype=tdt),
+        make_fast_mlp_wrapper(model, STATS, SPEC, weights_dtype=tdt,
+                              device="cpu"),
         n_features=SPEC.input_len, base_chunk=64, max_batch=128,
-        warmup=True).start()
+        warmup=True, device="cpu").start()
     try:
         jcl = jax_server.CouplingClient("127.0.0.1", jsrv.port)
         pcl = CouplingClient("127.0.0.1", psrv.port)

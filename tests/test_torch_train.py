@@ -76,7 +76,8 @@ def test_losses_match_jax(kind, weighted):
     tgt = rng.normal(size=(16, SPEC.output_len)).astype(np.float32)
     bw = {"ptend_t": 2.0, "2d": 0.5, "cam_out_PRECC": 3.0}
     wj = JL.block_weight_vector(SPEC, bw) if weighted else None
-    wp = PL.block_weight_vector(SPEC, bw) if weighted else None
+    wp = (PL.block_weight_vector(SPEC, bw, device="cpu") if weighted
+          else None)
     want = float(JL.LOSS_FNS[kind](jnp.asarray(pred), jnp.asarray(tgt), wj))
     got = float(PL.LOSS_FNS[kind](torch.from_numpy(pred),
                                   torch.from_numpy(tgt), wp))
@@ -154,7 +155,7 @@ def _pair(data, monkeypatch, steps_per_epoch=3):
                         hidden=HIDDEN, steps_per_epoch=steps_per_epoch)
     pt = PR.mlp_trainer(SPEC, stats, (x, y), 0, hidden=HIDDEN,
                         steps_per_epoch=steps_per_epoch,
-                        compute_dtype=torch.float32)
+                        compute_dtype=torch.float32, device="cpu")
     pt.model.load_state_dict(port_flax_mlp(
         jax.tree.map(np.asarray, jt.state.params)))
     return jt, pt
@@ -253,11 +254,13 @@ def test_recipes_refuse_what_is_not_ported(data):
     with pytest.raises(NotImplementedError):
         PR._optimizer(PS.constant(1e-3), "radam")
     with pytest.raises(NotImplementedError):
+        PR.mlp_trainer(SPEC, stats, (x, y), 0, hidden=(8,), rules=object(),
+                       device="cpu")
+    # the energy and water penalties are ported; they need the grid
+    with pytest.raises(ValueError, match="grid"):
         PR.online_mlp_trainer(get_varspec("v2_rh"),
                               load_asset_norms("v2_rh"), None, 0,
-                              hidden=(8,), energy_weight=0.1)
-    with pytest.raises(NotImplementedError):
-        PR.mlp_trainer(SPEC, stats, (x, y), 0, hidden=(8,), rules=object())
+                              hidden=(8,), energy_weight=0.1, device="cpu")
 
 
 def test_online_mlp_trainer_learns():
@@ -267,7 +270,8 @@ def test_online_mlp_trainer_learns():
     x, y = synthetic_split(spec, 256, load_default_grid(), seed=1)
     stats = compute_norms_from_data(spec, x, y)
     tr = PR.online_mlp_trainer(spec, stats, (x, y), 1, hidden=(32,),
-                               steps_per_epoch=4, lr=3e-3)
+                               steps_per_epoch=4, lr=3e-3,
+                               device="cpu")
     st, losses = tr.state, []
     for _ in range(3):
         for s in range(4):

@@ -76,7 +76,7 @@ def columns(n=8, seed=0):
     """Normalized v5 columns (the served input transform, plain path)."""
     x = synthetic_inputs(SPEC, n, load_default_grid(), seed=seed)
     t = PT.make_input_transform(SPEC, load_asset_norms("v5"),
-                                PT.v5_online_config())
+                                PT.v5_online_config(), device="cpu")
     return t(torch.from_numpy(x)).numpy()
 
 

@@ -77,7 +77,7 @@ def test_v2rh_wrapper_matches_jax(published):
     want = np.asarray(W.make_v2rh_wrapper(fl.apply, STATS, SPEC, **kw)(
         params, jnp.asarray(x)))
     with torch.no_grad():
-        got = PW.make_v2rh_wrapper(m, STATS, SPEC, **pkw)(
+        got = PW.make_v2rh_wrapper(m, STATS, SPEC, device="cpu", **pkw)(
             torch.from_numpy(x)).numpy()
     assert got.shape == (32, 368)
     np.testing.assert_allclose(got, want, rtol=5e-5, atol=1e-6)
@@ -96,7 +96,8 @@ def test_fast_mlp_wrapper_matches_jax(wdtype):
     want = np.asarray(W.make_fast_mlp_wrapper(fl, params, STATS, SPEC,
                                               weights_dtype=jdt)(
         jnp.asarray(x)))
-    got = PW.make_fast_mlp_wrapper(m, STATS, SPEC, weights_dtype=tdt)(
+    got = PW.make_fast_mlp_wrapper(m, STATS, SPEC, weights_dtype=tdt,
+                                   device="cpu")(
         torch.from_numpy(x)).numpy()
     assert got.shape == (24, 368)
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-5)
@@ -109,11 +110,12 @@ def test_fast_wrapper_leaves_output_prune_off():
     _, _, plain = _models(output_prune=False)
     _, _, pruned = _models(output_prune=True)
     x = torch.from_numpy(_columns(8, seed=2))
-    a = PW.make_fast_mlp_wrapper(plain, STATS, SPEC, torch.float32)(x)
-    b = PW.make_fast_mlp_wrapper(pruned, STATS, SPEC, torch.float32)(x)
+    a = PW.make_fast_mlp_wrapper(plain, STATS, SPEC, torch.float32, "cpu")(x)
+    b = PW.make_fast_mlp_wrapper(pruned, STATS, SPEC, torch.float32,
+                                 "cpu")(x)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     with torch.no_grad():
-        slow = PW.make_v2rh_wrapper(pruned, STATS, SPEC)(x)
+        slow = PW.make_v2rh_wrapper(pruned, STATS, SPEC, device="cpu")(x)
     s = SPEC.output_slices["ptend_q0001"].start
     assert (slow[:, s:s + 12] == 0).all() and (a[:, s:s + 12] != 0).any()
 
@@ -123,7 +125,7 @@ def test_input_transform_missing_rate_fails_loud():
                       out_scale=STATS.out_scale)
     cfg = PT.TransformConfig(qn_transform=True)
     with pytest.raises(ValueError, match="state_q0002"):
-        PT.make_input_transform(SPEC, stats, cfg)
+        PT.make_input_transform(SPEC, stats, cfg, device="cpu")
 
 
 @pytest.mark.parametrize("prune", [False, True])
@@ -135,7 +137,7 @@ def test_target_transform_matches_jax(prune):
     want = np.asarray(T.make_target_transform(
         SPEC, STATS, T.TransformConfig(output_prune=prune))(jnp.asarray(y)))
     got = PT.make_target_transform(
-        SPEC, STATS, PT.TransformConfig(output_prune=prune))(
+        SPEC, STATS, PT.TransformConfig(output_prune=prune), device="cpu")(
         torch.from_numpy(y)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
 
@@ -187,7 +189,7 @@ def test_v5_wrapper_matches_jax(version, dtype):
     with torch.inference_mode():
         got = PW.make_wrapper(
             partial(unet_apply_fused, m), STATS5,
-            PW.WrapperConfig(input_version=version))(
+            PW.WrapperConfig(input_version=version), device="cpu")(
             torch.from_numpy(x)).numpy()
     assert PK.LAUNCHES == dict.fromkeys(PK.LAUNCHES, 0)
     assert got.shape == (12, 368) and np.isfinite(got).all()
@@ -209,7 +211,8 @@ def test_v5_wrapper_float64_oracle_path():
         lambda p, xn: xn @ jnp.asarray(proj), STATS5,
         W.WrapperConfig(dtype=jnp.float64))(None, jnp.asarray(x, jnp.float64)))
     got = PW.make_wrapper(lambda xn: xn @ torch.from_numpy(proj), STATS5,
-                          PW.WrapperConfig(dtype=torch.float64))(
+                          PW.WrapperConfig(dtype=torch.float64),
+                          device="cpu")(
         torch.from_numpy(x))
     assert got.dtype == torch.float64
     np.testing.assert_allclose(got.numpy() * _scale368(),
@@ -219,7 +222,7 @@ def test_v5_wrapper_float64_oracle_path():
                         PW.WrapperConfig(dtype=torch.float64), device="cuda")
     with pytest.raises(ValueError, match="input_version"):
         PW.make_wrapper(lambda xn: xn, STATS5,
-                        PW.WrapperConfig(input_version="v2_rh"))
+                        PW.WrapperConfig(input_version="v2_rh"), device="cpu")
 
 
 def test_v5_wrapper_served_over_coupling_server():
@@ -231,9 +234,10 @@ def test_v5_wrapper_served_over_coupling_server():
 
     kw, tree = flax_case("prune")
     m = port_model(kw, tree, torch.bfloat16)
-    wrap = PW.make_wrapper(partial(unet_apply_fused, m), STATS5)
+    wrap = PW.make_wrapper(partial(unet_apply_fused, m), STATS5,
+                           device="cpu")
     srv = CouplingServer(wrap, SPEC4.input_len, base_chunk=8,
-                         max_batch=16).start()
+                         max_batch=16, device="cpu").start()
     try:
         cl = CouplingClient("127.0.0.1", srv.port)
         for n, seed in ((8, 1), (5, 2)):
