@@ -5,7 +5,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from climsim_tpu_torch/ops/csrc (nvcc, sm_90a)
-   and prints the build time and the compiler's register/spill report.
+   and prints the build time and the compiler's register/spill report
+   (fused_gn_silu_conv3's by tiling; it must not spill).
 3. Checks each kernel against its plain PyTorch version on the card, at
    the shapes the serving path gives it (B = 1, 7, 384, 6144; the v2_rh
    width 557 and the v5 width 1405 for the input transform, and the v1
@@ -21,8 +22,10 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    launch counts of all three kernels must have risen in that run.
 5. Checks the U-Net kernels against their plain versions on the card:
    fused_gn_silu_conv3 at the 13 (L, C, Cout) shapes of the unet_v5
-   forward at B = 1, 7, 384, an offset-1e3 case and a control that must
-   fail; fused_constraint_head at B = 1, 7, 384, 6144; times both.
+   forward and two ragged ones at B = 1, 7, 50, 384, 1024, an offset-1e3
+   case and a control that must fail, then times every chain shape at
+   B = 384 and 1024 beside its bound (CUDA-graph replays: device time);
+   fused_constraint_head at B = 1, 7, 384, 6144; times both.
 6. Serves the full-width U-Net v5 (the unet_v5 preset, 21,231,125
    parameters, random flax-layout weights from --seed with every conv at
    full xavier scale, moved across by the porter) through the v5 coupling
@@ -31,7 +34,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    (or within SERVED_TOL where a plain op is not batch-invariant; the ops
    are probed and printed), and within 2e-2 * max|y| of the all-plain
    path on the card; the launch counts of kernels 1, 4 and 5 must have
-   risen in that run.
+   risen in that run.  Kernel 5 must give a sample the same bits in any
+   batch: 50 rows alone and inside 384, 7 alone and inside 1024.
 7. Checks the fused MLP-training kernel (kernel 6) against its plain
    version on the card, forward and backward, at the v1 widths (124 ->
    768, 640, 512, 640, 640 -> 128) and the MLP_v2rh widths (557 -> 1024
@@ -150,18 +154,24 @@ UNET_CHAINS = {
     (32, 256, 256): 13, (32, 384, 256): 1, (32, 512, 256): 4,
     (16, 256, 256): 15, (16, 512, 256): 5, (8, 256, 256): 18,
     (8, 512, 256): 5}
-GN_ROWS = (1, 7, 384)
+GN_ROWS = (1, 7, 50, 384, 1024)
+GN_TIMED_ROWS = (384, 1024)
+# ragged shapes the plan must take: L fills no tile, Cout no 64-column box
+GN_RAGGED = ((60, 64, 48), (15, 128, 80))
 # fused_gn_silu_conv3 against its plain version: max |kernel - plain| <=
 # GN_TOL * max|plain|.  Both round the normalized activations to bf16;
 # their float32 group statistics differ in the last bits, so a rounding
 # flips now and then (2**-8 of one term of a 3C-term sum).  On an H100
-# that left at most 2.92e-4 * max|y| over the 13 shapes at B = 1, 7, 384;
-# float32 activations in place of the rounding (the control, which must
-# fail) left 1.42e-3 to 1.89e-3.  With an offset of 1e3 on x, float32
-# resolves the centred values to ~6e-5 only, the two sides' statistics
-# differ more, flips are many (7.7e-4 * max|y|), and the case is held at
-# the JAX test's 2e-2 * max|y| (tests/test_pallas_kernels.py:156-173),
-# which a one-pass variance, E[x^2] - mean^2, fails there.
+# that left at most 2.92e-4 * max|y| over the 13 shapes at B = 1, 7, 384
+# (the first design of the kernel) and 4.34e-4 over them and GN_RAGGED at
+# GN_ROWS (the present one); float32 activations in place of the rounding
+# (the control, which must fail) left 1.42e-3 to 1.89e-3 (1.44e-3 at
+# least over the present checks).  With
+# an offset of 1e3 on x, float32 resolves the centred values to ~6e-5
+# only, the two sides' statistics differ more, flips are many (7.7e-4 *
+# max|y|), and the case is held at the JAX test's 2e-2 * max|y|
+# (tests/test_pallas_kernels.py:156-173), which a one-pass variance,
+# E[x^2] - mean^2, fails there.
 # Kernel 6, the fused MLP-training kernel (forward and backward).
 K6_SOURCES = {
     "fused_mlp_train_fwd": (
@@ -553,26 +563,21 @@ def unet_flax_tree(model, seed):
     return tree
 
 
-def gn_args(torch, g, b, l, c, cout, offset=0.0, wdtype=None):
-    """Inputs of one fused chain on the card: x ~ N(offset, 1), gamma ~
-    1 + 0.2 N, beta ~ 0.1 N, w xavier-uniform in ``wdtype`` (bf16 by
-    default), bias ~ 0.1 N."""
-    def randn(*shape):
-        return torch.randn(*shape, device="cuda", generator=g)
-    lim = (6.0 / (3 * (c + cout))) ** 0.5
-    w = (torch.rand(3, c, cout, device="cuda", generator=g) * 2 - 1) * lim
-    return (randn(b, l, c) + offset, 1.0 + 0.2 * randn(c), 0.1 * randn(c),
-            w.to(wdtype or torch.bfloat16).contiguous(), 0.1 * randn(cout))
-
-
 def gn_checks(torch, PU, seed):
     """fused_gn_silu_conv3 against its plain version at every chain shape
-    of the unet_v5 forward and B in GN_ROWS, with the float32-activation
-    control, the offset-1e3 case, and times at B = 384 (the per-forward
-    sum weighted by each shape's call count)."""
+    of the unet_v5 forward and the GN_RAGGED shapes, B in GN_ROWS, with the
+    float32-activation control and the offset-1e3 case; then every chain
+    shape timed at GN_TIMED_ROWS beside its bound, kernel against plain in
+    turns, each from a replayed CUDA graph (device time, no host time a
+    call), and the 82-chain sums."""
+    from climsim_tpu_torch.bench_gn_conv3 import (chain_args,
+                                                  chain_bound_ms)
+    from climsim_tpu_torch.bench_gn_conv3 import time_ms as graph_ms
+
     g = torch.Generator(device="cuda").manual_seed(seed)
     res = {"max_abs_err": 0.0, "max_err_rel": 0.0, "control_min_rel": 1e9,
-           "per_shape": {}}
+           "per_shape_ms": {}, "per_shape_plain_ms": {},
+           "per_shape_bound_ms": {}, "plans": {}}
 
     def reading(label, a, tol=GN_TOL, control=True):
         got = PU.fused_gn_silu_conv3(*a)
@@ -583,7 +588,7 @@ def gn_checks(torch, PU, seed):
         err = float((got - want).abs().max())
         ctl = float((PU.xla_gn_silu_conv3_plain(
             *a[:3], a[3].float(), a[4]) - want).abs().max())
-        print(f"  fused_gn_silu_conv3 {label:28s} max_abs_err={err:.3e} "
+        print(f"  fused_gn_silu_conv3 {label:30s} max_abs_err={err:.3e} "
               f"({err / scale:.3e} of max|y|); control {ctl / scale:.3e}",
               flush=True)
         require(err <= tol * scale, f"{label}: {err / scale:.3e} of "
@@ -592,31 +597,48 @@ def gn_checks(torch, PU, seed):
             require(ctl > tol * scale,
                     f"{label}: the float32-activation control passes")
             res["control_min_rel"] = min(res["control_min_rel"], ctl / scale)
-        if control:
             res["max_abs_err"] = max(res["max_abs_err"], err)
             res["max_err_rel"] = max(res["max_err_rel"], err / scale)
         else:
             res["offset_err_rel"] = err / scale
 
-    for (l, c, cout) in UNET_CHAINS:
+    for (l, c, cout) in (*UNET_CHAINS, *GN_RAGGED):
         for b in GN_ROWS:
             reading(f"L={l} C={c} Cout={cout} B={b}",
-                    gn_args(torch, g, b, l, c, cout))
-    reading("L=64 C=128 Cout=128 B=7 +1e3", gn_args(
+                    chain_args(torch, g, b, l, c, cout))
+    reading("L=64 C=128 Cout=128 B=7 +1e3", chain_args(
         torch, g, 7, 64, 128, 128, offset=1e3), GN_OFFSET_TOL, False)
-    ms = plain_ms = 0.0
-    for (l, c, cout), calls in UNET_CHAINS.items():
-        a = gn_args(torch, g, 384, l, c, cout)
-        k, p = compare_timed(torch, lambda: PU.fused_gn_silu_conv3(*a),
-                             lambda: PU.xla_gn_silu_conv3_plain(*a), 20)
-        res["per_shape"][f"{l}x{c}x{cout}"] = (k, p)
-        ms, plain_ms = ms + calls * k, plain_ms + calls * p
-        print(f"  fused_gn_silu_conv3 L={l:2d} C={c:3d} Cout={cout} B=384 "
-              f"x{calls:2d}: kernel {k:.4f} ms  plain {p:.4f} ms",
-              flush=True)
-    res["ms"], res["plain_ms"] = ms, plain_ms
-    print(f"  fused_gn_silu_conv3 per forward (82 chains, B=384): kernel "
-          f"{ms:.3f} ms  plain {plain_ms:.3f} ms", flush=True)
+    for b in GN_TIMED_ROWS:
+        ms = plain_ms = bound_ms = 0.0
+        for (l, c, cout), calls in UNET_CHAINS.items():
+            a = chain_args(torch, g, b, l, c, cout)
+            p1 = graph_ms(torch, lambda: PU.xla_gn_silu_conv3_plain(*a), 5)
+            k1 = graph_ms(torch, lambda: PU.fused_gn_silu_conv3(*a), 20)
+            k2 = graph_ms(torch, lambda: PU.fused_gn_silu_conv3(*a), 20)
+            p2 = graph_ms(torch, lambda: PU.xla_gn_silu_conv3_plain(*a), 5)
+            k, p = (k1 + k2) / 2, (p1 + p2) / 2
+            bound = chain_bound_ms(b, l, c, cout)[0]
+            plan = PU._device_plan(b, l, c, cout, a[0].device)
+            key = f"B{b}_{l}x{c}x{cout}"
+            res["per_shape_ms"][key] = k
+            res["per_shape_plain_ms"][key] = p
+            res["per_shape_bound_ms"][key] = bound
+            res["plans"][key] = {"rows": plan.rows, "n_tile": plan.n_tile,
+                                 "samples": plan.samples,
+                                 "stages": plan.stages, "grid": plan.grid}
+            ms, plain_ms = ms + calls * k, plain_ms + calls * p
+            bound_ms += calls * bound
+            print(f"  fused_gn_silu_conv3 L={l:2d} C={c:3d} Cout={cout} "
+                  f"B={b:4d} x{calls:2d}: kernel {k:.4f} ms  plain {p:.4f} "
+                  f"ms  bound {bound:.4f} ms ({bound / k:.1%} of it); tile "
+                  f"{plan.rows}x{plan.n_tile}, {plan.samples} samples, "
+                  f"{plan.stages} stages, {plan.grid} blocks", flush=True)
+        sfx = "" if b == 384 else f"_b{b}"
+        res["ms" + sfx], res["plain_ms" + sfx] = ms, plain_ms
+        res["bound_ms" + sfx] = bound_ms
+        print(f"  fused_gn_silu_conv3 per forward (82 chains, B={b}): kernel "
+              f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bound_ms:.3f} "
+              f"ms ({bound_ms / ms:.1%} of it)", flush=True)
     return res
 
 
@@ -654,17 +676,21 @@ def head_checks(torch, K, stats5, seed):
 
 def batch_invariance(torch, F, PU, unet_apply_fused, unet, xn):
     """Print which ops give the first 50 rows the same bits alone as inside
-    the 384-row batch (the server pads a 50-row request to 384)."""
+    the 384-row batch (the server pads a 50-row request to 384), and
+    require it of kernel 5: 50 rows inside 384, and 7 inside 1024."""
+    from climsim_tpu_torch.bench_gn_conv3 import chain_args
+
     g = torch.Generator(device="cuda").manual_seed(7)
 
-    def same(fn, x):
-        return bool(torch.equal(fn(x[:50]), fn(x)[:50]))
+    def same(fn, x, n=50):
+        return bool(torch.equal(fn(x[:n]), fn(x)[:n]))
 
     h = unet.assemble(xn)
     w3 = unet.enc64_conv.weight.detach()
     w1 = torch.randn(256, 512, device="cuda", generator=g)
     q = torch.randn(384, 8, 4, 64, device="cuda", generator=g)
-    a = gn_args(torch, g, 384, 64, 128, 128)
+    a = chain_args(torch, g, 384, 64, 128, 128)
+    b = chain_args(torch, g, 1024, 8, 512, 256)
     probes = {
         "conv3, F.conv1d (cuDNN)": same(lambda x: F.conv1d(
             x.transpose(1, 2), w3, padding=1), h),
@@ -675,10 +701,17 @@ def batch_invariance(torch, F, PU, unet_apply_fused, unet, xn):
             lambda x: torch.einsum("blhd,bmhd->bhlm", x, x), q),
         "fused_gn_silu_conv3 kernel": same(
             lambda x: PU.fused_gn_silu_conv3(x.contiguous(), *a[1:]), a[0]),
+        "fused_gn_silu_conv3 kernel, 7 in 1024 (L=8 C=512)": same(
+            lambda x: PU.fused_gn_silu_conv3(x.contiguous(), *b[1:]), b[0],
+            7),
         "whole engine": same(lambda x: unet_apply_fused(unet, x), xn),
     }
     for name, ok in probes.items():
-        print(f"  batch-invariant at B=50 vs 384: {name}: {ok}", flush=True)
+        print(f"  batch-invariant (50 rows in 384 unless named): {name}: "
+              f"{ok}", flush=True)
+    for name, ok in probes.items():
+        require(ok or "fused_gn_silu_conv3" not in name,
+                f"{name}: a sample's output depends on its batch")
     return probes
 
 
@@ -1105,6 +1138,8 @@ def trainable_checks(torch, K, PU, seed):
     the same inputs and cotangent (cuDNN off here only), one
     launch a call; then forward + backward timed at B = 1024 against that
     autograd, weighted by each shape's count in a step."""
+    from climsim_tpu_torch.bench_gn_conv3 import chain_args
+
     g = torch.Generator(device="cuda").manual_seed(seed + 4)
     res = {"max_abs_err": 0.0, "max_err_rel": 0.0, "control_min_rel": 1e9}
     names = ("dx", "dgamma", "dbeta", "dw", "db")
@@ -1123,7 +1158,7 @@ def trainable_checks(torch, K, PU, seed):
         for (l, c, cout) in UNET_CHAINS:
             f = PU.make_trainable_fused_block(PU._num_groups(c))
             for b in TRAINABLE_ROWS:
-                a = gn_args(torch, g, b, l, c, cout, wdtype=torch.float32)
+                a = chain_args(torch, g, b, l, c, cout, wdtype=torch.float32)
                 cot = torch.randn(b, l, cout, device="cuda", generator=g)
                 ins = [t.clone().requires_grad_() for t in a]
                 y = f(*ins)
@@ -1168,7 +1203,7 @@ def trainable_checks(torch, K, PU, seed):
     ms = plain_ms = 0.0
     for (l, c, cout), n in UNET_CHAINS.items():
         f = PU.make_trainable_fused_block(PU._num_groups(c))
-        a = [t.requires_grad_() for t in gn_args(
+        a = [t.requires_grad_() for t in chain_args(
             torch, g, UNET_BATCH, l, c, cout, wdtype=torch.float32)]
         cot = torch.randn(UNET_BATCH, l, cout, device="cuda", generator=g)
 
@@ -1589,9 +1624,21 @@ def main(argv=None) -> int:
     _build.load()
     print(f"kernel build+load: {time.perf_counter() - t0:.1f} s "
           f"({_build.library_path().parent.name})", flush=True)
-    for line in _build.build_log().splitlines():
+    log = _build.build_log().splitlines()
+    for line in log:
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
+    # kernel 5's instantiations by name: (ROWS, NT), registers, spills
+    for i, line in enumerate(log):
+        if ("Function properties for" in line
+                and "gn_silu_conv3_kernel" in line):
+            tiles = line.split("kernelILi")[1].split("EE")[0].replace(
+                "ELi", ",")
+            print(f"  ptxas: fused_gn_silu_conv3 <ROWS, NT> = <{tiles}>: "
+                  f"{log[i + 1].strip()}; "
+                  f"{log[i + 2].split('ptxas info    :')[-1].strip()}")
+            require(" 0 bytes spill stores" in log[i + 1],
+                    f"fused_gn_silu_conv3 <{tiles}> spills")
 
     specs = {v: (get_varspec(v), load_asset_norms(v))
              for v in ("v2_rh", "v5", "v1")}
@@ -1811,7 +1858,13 @@ def main(argv=None) -> int:
         "control_min_err_of_max_y": gn["control_min_rel"],
         "offset_1e3_err_of_max_y": gn["offset_err_rel"],
         "ms": gn["ms"], "plain_ms": gn["plain_ms"],
-        "ms_is": "sum over the 82 chains of one B=384 forward"})
+        "ms_is": "sum over the 82 chains of one B=384 forward",
+        "ms_b1024": gn["ms_b1024"], "plain_ms_b1024": gn["plain_ms_b1024"],
+        "bound_ms_b1024": gn["bound_ms_b1024"],
+        "per_shape_ms": gn["per_shape_ms"],
+        "per_shape_plain_ms": gn["per_shape_plain_ms"],
+        "per_shape_bound_ms": gn["per_shape_bound_ms"],
+        "tiles": gn["plans"]})
     kernels.append({
         "name": "fused_constraint_head", "route": "cuda",
         "source": UNET_SOURCES["fused_constraint_head"][0],

@@ -46,9 +46,11 @@ _SIGNATURES = {
     # y, t, qc, qi, consts, out, rows, dt, stream
     "cst_fused_constraint_head": (
         [_P, _P, _P, _P, _P, _P, _I, _F, _P], _I),
-    # x, gamma, beta, w, bias, out, batch, L, C, Cout, G, eps, stream
+    # x, gamma, beta, w, bias, out, batch, L, C, Cout, G, eps, nwg, nt,
+    # stages, samples, stream
     "cst_fused_gn_silu_conv3": (
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
+        _I),
     # x, w[], b[], out, widths, n_layers, rows, tile_rows, stream
     "cst_fused_mlp_train_fwd": (
         [_P, _PP, _PP, _P, ctypes.POINTER(_I), _I, _I, _I, _P], _I),

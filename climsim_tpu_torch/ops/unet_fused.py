@@ -13,7 +13,10 @@ channels-last: x (B, L, C), w (3, C, Cout) as flax keeps a conv kernel.
 As in ``ops.kernels``: the public function checks its arguments, takes the
 plain version for a tensor on the CPU and launches the kernel for a tensor
 on a CUDA device (no fallback), and counts each launch in
-``kernels.LAUNCHES["fused_gn_silu_conv3"]``.
+``kernels.LAUNCHES["fused_gn_silu_conv3"]``.  How the kernel tiles a call
+(whole samples a row tile, output channels a block, weight stages) is
+planned here, in ``plan_gn_silu_conv3``, from the shape, the batch and
+the card; shapes it cannot take are refused with the reason.
 
 ``make_trainable_fused_block`` (``climsim_tpu/ops/unet_fused.py:160``) puts
 the kernel inside a training step: its forward is the kernel, its backward
@@ -24,6 +27,9 @@ XLA chain (``:194-196``).
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -32,7 +38,7 @@ from . import _build
 from .kernels import LAUNCHES, _check, _on_cuda, _stream
 
 EPS = 1e-6
-MAX_LEVELS = 64   # kMaxRowTiles * 16 in the kernel
+MAX_LEVELS = 64   # a sample fits one warpgroup's 64 rows
 # the profiler range around the custom VJP's backward (the recompute)
 BACKWARD_RANGE = "fused_gn_silu_conv3 backward"
 
@@ -71,21 +77,152 @@ def xla_gn_silu_conv3_plain(x: torch.Tensor, gamma: torch.Tensor,
     return y + b
 
 
+# The tile plan mirrors ops/csrc/fused_gn_silu_conv3.cu: a block of two
+# consumer warpgroups owns 64 * nwg output rows made of whole samples and
+# nt boxes of 64 output channels (nwg = 2: a warpgroup a 64-row half; nwg =
+# 1: the two split the boxes); the weights stream through `stages` shared
+# memory stages of 64 rows (K) by 64 * nt columns.
+BOX = 64
+STAGES = 3            # weight stages in flight (the sweep's best, H100)
+_PAD_BYTES = 16       # slab row padding
+# every (nwg, nt) the kernel is built for: the sweep in bench_gn_conv3
+_TILES = ((2, 2), (1, 4), (2, 1), (1, 2), (1, 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class GnPlan:
+    """How the kernel tiles one (B, L, C, Cout) call."""
+    nwg: int            # 64-row halves of the row tile
+    nt: int             # 64-column boxes of output channels a block
+    stages: int         # weight stages in flight
+    samples: int        # S: whole samples a row tile (S * L <= rows)
+    tiles_m: int        # row tiles: ceil(B / S)
+    tiles_n: int        # column tiles: ceil(Cout / n_tile)
+    smem: int           # dynamic shared memory a block, bytes
+    # (tap, first channel) of each 64-row weight stage, in the order every
+    # output sums them: it depends on C only
+    k_order: tuple
+
+    @property
+    def rows(self) -> int:
+        return 64 * self.nwg
+
+    @property
+    def n_tile(self) -> int:
+        return BOX * self.nt
+
+    @property
+    def grid(self) -> int:
+        return self.tiles_m * self.tiles_n
+
+
+def _smem_bytes(s: int, l: int, c: int, g: int, nt: int, stages: int) -> int:
+    """``smem_layout(...).total`` of the kernel: the weight ring; the slab
+    (S samples of L + 2 rows, pitch 2C + 16 bytes; the partial sums before
+    it in the same bytes); mean and rstd a (sample, group); each row's
+    sample; two barriers a stage; and the base's 1024-byte alignment."""
+    return (stages * nt * BOX * BOX * 2 + s * (l + 2) * (2 * c + _PAD_BYTES)
+            + 8 * s * g + 128 + 16 * stages + 1024)
+
+
+def _per_sm(smem: int, smem_limit: int) -> int:
+    """Blocks of ``smem`` bytes an SM holds (the SM has the block limit
+    plus the 1 KB it keeps a block), at most the kernel's 2."""
+    return min(2, (smem_limit + 1024) // (smem + 1024))
+
+
+def _stages(s, l, c, g, nt, smem_limit, least=2,
+            most=STAGES) -> int | None:
+    """The weight stages (``least`` to ``most``): the most that keep the
+    most blocks an SM; None if none fits."""
+    fit = [st for st in range(least, most + 1)
+           if _smem_bytes(s, l, c, g, nt, st) <= smem_limit]
+    return max(fit, key=lambda st: (_per_sm(
+        _smem_bytes(s, l, c, g, nt, st), smem_limit), st), default=None)
+
+
+def _tiling(bsz: int, l: int, c: int, cout: int, smem_limit: int,
+            n_sm: int) -> tuple:
+    """(nwg, nt, samples) by the rules the sweep on an H100 found (PERF.md):
+    where Cout <= 128, 128-row tiles if they fill the SMs two blocks an SM;
+    else 64-row tiles with every output channel in the block (nt up to 4),
+    the columns split while the grid is under half the SMs, and, where the
+    grid leaves SMs idle, fewer samples a tile (down to half the rows), so
+    that the grid comes as close to one block an SM as it can."""
+    g = _num_groups(c)
+    nt = 4 if cout > 128 else 2 if cout > 64 else 1
+
+    def grid(s, nt):
+        return -(-bsz // s) * -(-cout // (BOX * nt))
+
+    s = min(128 // l, bsz)
+    st = _stages(s, l, c, g, nt, smem_limit) if nt <= 2 else None
+    if (st and grid(s, nt) >= n_sm
+            and _per_sm(_smem_bytes(s, l, c, g, nt, st), smem_limit) == 2):
+        return 2, nt, s
+    s = min(64 // l, bsz)
+    while nt > 1 and grid(s, nt) < n_sm / 2:
+        nt //= 2
+    fits = [k for k in range(-(-s // 2), s) if grid(k, nt) <= n_sm]
+    if grid(s, nt) < n_sm and fits:
+        s = fits[0]
+    return 1, nt, s
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_gn_silu_conv3(bsz: int, l: int, c: int, cout: int, smem_limit: int,
+                       n_sm: int, tiles: tuple | None = None) -> GnPlan:
+    """The kernel's tile plan for x (B, L, C) -> (B, L, Cout) on a card with
+    ``smem_limit`` bytes of shared memory a block and ``n_sm`` SMs; raises
+    ValueError, with the reason, for a shape the kernel cannot take.
+
+    The tiling is ``_tiling``'s, with ``_stages`` weight stages;
+    ``tiles=(nwg, nt[, stages])`` forces one, with the most samples a tile
+    holds and, if given, exactly that many stages (the sweep in
+    ``bench_gn_conv3``).  The samples a tile, the
+    tiles and the stages change with B and the card; the K order does
+    not."""
+    g = _num_groups(c)
+    if (not 1 <= l <= MAX_LEVELS or c % BOX or (c // g) % 4 or cout % 16
+            or cout < 16 or bsz < 1):
+        raise ValueError(
+            f"the kernel takes L <= {MAX_LEVELS}, C a multiple of {BOX} with "
+            "C / groups a multiple of 4, Cout a multiple of 16 and B >= 1; "
+            f"got B={bsz}, L={l}, C={c}, Cout={cout} (C / groups = "
+            f"{c / g:g})")
+    if tiles:
+        nwg, nt, *forced = tiles
+        s = min(64 * nwg // l, bsz)
+    else:
+        (nwg, nt, s), forced = _tiling(bsz, l, c, cout, smem_limit, n_sm), []
+    stages = _stages(s, l, c, g, nt, smem_limit, *forced * 2)
+    if stages is None:
+        need = _smem_bytes(s, l, c, g, nt, forced[0] if forced else 2)
+        raise ValueError(f"C={c} at L={l} needs {need} B of shared memory; "
+                         f"the card has {smem_limit}")
+    plan = GnPlan(nwg, nt, stages, s, -(-bsz // s), -(-cout // (BOX * nt)),
+                  _smem_bytes(s, l, c, g, nt, stages),
+                  tuple(divmod(q * BOX, c) for q in range(3 * c // BOX)))
+    if plan.grid > 2**31 - 1:
+        raise ValueError(f"B={bsz} at L={l} needs {plan.grid} blocks")
+    return plan
+
+
+def _device_plan(bsz: int, l: int, c: int, cout: int,
+                 dev: torch.device) -> GnPlan:
+    props = torch.cuda.get_device_properties(dev)
+    return plan_gn_silu_conv3(bsz, l, c, cout,
+                              props.shared_memory_per_block_optin,
+                              props.multi_processor_count)
+
+
 def _shape_error(bsz: int, l: int, c: int, cout: int,
                  dev: torch.device) -> str | None:
     """Why the kernel cannot take this shape on ``dev``, or None."""
-    if (not 1 <= l <= MAX_LEVELS or c % 64 or (c // _num_groups(c)) % 4
-            or cout % 16 or bsz > 65535):
-        return (f"the kernel takes L <= {MAX_LEVELS}, C a multiple of 64 "
-                "with C / groups a multiple of 4, Cout a multiple of 16 and "
-                f"B <= 65535; got B={bsz}, L={l}, C={c}, Cout={cout}")
-    rows = -(-l // 16) * 16
-    smem = ((rows + 2) * (c + 16) * 2 + max(3 * 64 * 136 * 2, rows * 128 * 4)
-            + 8 * _num_groups(c))
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if smem > limit:
-        return (f"C={c} at L={l} needs {smem} B of shared memory; the card "
-                f"has {limit}")
+    try:
+        _device_plan(bsz, l, c, cout, dev)
+    except ValueError as e:
+        return str(e)
     return None
 
 
@@ -123,23 +260,29 @@ def fused_gn_silu_conv3(x: torch.Tensor, gamma: torch.Tensor,
         return xla_gn_silu_conv3_plain(x, gamma, beta, w, b)
     if w.dtype != torch.bfloat16:
         raise TypeError(f"w: the kernel takes bf16 weights, got {w.dtype}")
-    err = _shape_error(bsz, l, c, cout, dev)
-    if err:
-        raise ValueError(err)
+    plan = _device_plan(max(bsz, 1), l, c, cout, dev)
     if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("x and w must be 16-byte aligned (vector loads)")
+        raise ValueError("x and w must be 16-byte aligned (vector loads, "
+                         "TMA)")
     out = torch.empty((bsz, l, cout), dtype=torch.float32, device=dev)
     if bsz == 0:
         return out
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        code = lib.cst_fused_gn_silu_conv3(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(),
-            b.data_ptr(), out.data_ptr(), bsz, l, c, cout, _num_groups(c),
-            EPS, _stream(dev))
-    _build.check(code, "fused_gn_silu_conv3")
+    _launch(x, gamma, beta, w, b, out, plan)
     LAUNCHES["fused_gn_silu_conv3"] += 1
     return out
+
+
+def _launch(x, gamma, beta, w, b, out, plan: GnPlan) -> None:
+    """The kernel on checked CUDA tensors, tiled by ``plan``."""
+    bsz, l, c = x.shape
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        code = lib.cst_fused_gn_silu_conv3(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(),
+            b.data_ptr(), out.data_ptr(), bsz, l, c, w.shape[2],
+            _num_groups(c), EPS, plan.nwg, plan.nt, plan.stages,
+            plan.samples, _stream(x.device))
+    _build.check(code, "fused_gn_silu_conv3")
 
 
 class _TrainableBlock(torch.autograd.Function):

@@ -170,6 +170,7 @@ def test_trainable_block_refuses_other_groups():
 
 class _H100:
     shared_memory_per_block_optin = 232_448
+    multi_processor_count = 132
 
 
 def test_kernel_shapes_checked_before_the_first_step(monkeypatch):
