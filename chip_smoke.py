@@ -11,8 +11,14 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    the shapes the serving path gives it (B = 1, 7, 384, 6144; the v2_rh
    width 557 and the v5 width 1405 for the input transform, and the v1
    trainer's 124 at its config up to its batch of 32768; the full
-   557 -> 1024 x 4 -> 368 MLP_v2rh for the fused MLPs), and times both
-   with CUDA events at B = 384 and 6144.
+   557 -> 1024 x 4 -> 368 MLP_v2rh for the fused MLPs, also at B = 50,
+   and ragged widths), and times both with CUDA events at B = 384 and
+   6144.  Kernels 2 and 3 (one tensor-core kernel, its plan printed):
+   a row's bits alone and inside its batch (50 in 384, 7 in 6144) must
+   be equal, kernel 2 with one bf16 pass (a planted fault) must fail the
+   tolerance, and they are timed as CUDA-graph replays beside a cuBLAS
+   bf16 chain of the same five products (a yardstick, never called by
+   the port).
 4. Serves the full-width MLP_v2rh (random weights from --seed, in the flax
    layout, moved across by the weight porter) through the port's
    CouplingServer, bf16 and then int8 weights: three concurrent 384-column
@@ -23,7 +29,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 5. Checks the U-Net kernels against their plain versions on the card:
    fused_gn_silu_conv3 at the 13 (L, C, Cout) shapes of the unet_v5
    forward and two ragged ones at B = 1, 7, 50, 384, 1024, an offset-1e3
-   case and a control that must fail, then times every chain shape at
+   case, a control that must fail, and (8, 1024, 512) at B = 1024, where
+   the plan takes fewer samples a tile (bit-equal to another tiling of
+   them); then times every chain shape at
    B = 384 and 1024 beside its bound (CUDA-graph replays: device time);
    fused_constraint_head at B = 1, 7, 384, 6144; times both.
 6. Serves the full-width U-Net v5 (the unet_v5 preset, 21,231,125
@@ -80,9 +88,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    trainer with the plain chain forward: the losses within
    UNET_CURVE_TOL, the parameters' moves within UNET_MOVE_TOL, which a
    planted fault (dw dropped in 5''s backward) must fail.
-12. With --profile, times the fused MLPs at both tile heights and traces
-   both served paths with torch.profiler (device time per kernel and
-   copy, the card's busy share, the costliest host ops).
+12. With --profile, prints the fused MLPs' plans and traces both served
+   paths with torch.profiler (device time per kernel and copy, the
+   card's busy share, the costliest host ops).
 13. Prints one JSON line of the kernels' results (each with its bound:
    the larger of its bytes over the memory rate and its operations over
    the peak, at the timed shape), then, last,
@@ -106,6 +114,7 @@ import numpy as np
 
 FULL_HIDDEN = (1024, 1024, 1024, 1024)
 KERNEL_ROWS = (1, 7, 384, 6144)
+MLP_ROWS = (1, 7, 50, 384, 6144)   # kernels 2 and 3, 50: a ragged request
 TIMED_ROWS = (384, 6144)
 N_LOOP = 1000   # sequential requests a weight type: p99 has 10 beyond it
 N_TRACE = 100   # served requests a weight type under --profile
@@ -158,6 +167,9 @@ GN_ROWS = (1, 7, 50, 384, 1024)
 GN_TIMED_ROWS = (384, 1024)
 # ragged shapes the plan must take: L fills no tile, Cout no 64-column box
 GN_RAGGED = ((60, 64, 48), (15, 128, 80))
+# a chain of the 256-channel unet_v5 whose first tiling overflows shared
+# memory at B = 1024 (the plan steps the samples a tile down)
+GN_STEPPED = (8, 1024, 512)
 # fused_gn_silu_conv3 against its plain version: max |kernel - plain| <=
 # GN_TOL * max|plain|.  Both round the normalized activations to bf16;
 # their float32 group statistics differ in the last bits, so a rounding
@@ -472,7 +484,7 @@ def kernel_checks(torch, K, T, specs, model, columns):
         ("bf16", torch.bfloat16), ("f32", torch.float32), ("int8", "int8"))}
     xn = K.fused_input_transform_plain(
         torch.from_numpy(columns["v2_rh"]).to(dev), v2_consts)
-    for b in KERNEL_ROWS:
+    for b in MLP_ROWS:
         x = xn[:b].contiguous()
         for w in ("bf16", "f32"):
             got = K.fused_mlp_forward(x, packed[w], 8)
@@ -492,8 +504,42 @@ def kernel_checks(torch, K, T, specs, model, columns):
         f32 = K.fused_mlp_forward_plain(x, packed["f32"], 8)
         q_err = float(((got - f32).abs() / (f32.abs().mean() + 1e-6)).mean())
         require(q_err < 0.02, f"int8 vs f32 mean error {q_err:.4f}")
-    # widths that are not multiples of 4 take the kernels' unaligned,
-    # guarded weight loads (the coupling MLP never does)
+        r["int8_vs_f32_mean_err"] = max(r.get("int8_vs_f32_mean_err", 0.0),
+                                        q_err)
+    # a row's bits do not depend on its batch (the server pads a 50-row
+    # request to 384): 50 rows alone and inside 384, 7 inside 6144
+    for name, kern, p in (("fused_mlp_forward", K.fused_mlp_forward,
+                           packed["bf16"]),
+                          ("fused_mlp_forward_int8", K.fused_mlp_forward_int8,
+                           packed["int8"])):
+        for n, b in ((50, 384), (7, 6144)):
+            alone = kern(xn[:n].contiguous(), p, 8)
+            inside = kern(xn[:b].contiguous(), p, 8)[:n]
+            require(torch.equal(alone, inside), f"{name}: {n} rows alone "
+                    f"differ from the same rows inside {b}")
+        res[name]["batch_invariant"] = "50 in 384, 7 in 6144"
+        print(f"  {name}: 50 rows alone bit-equal inside 384, 7 inside 6144",
+              flush=True)
+    # the planted fault: kernel 2 with the activations' hi part alone (one
+    # bf16 pass, the change of numerics the three-part split avoids) must
+    # fail the tolerance; two parts are printed for the record
+    x = xn[:384].contiguous()
+    want = K.fused_mlp_forward_plain(x, packed["bf16"], 8)
+    faults = {}
+    for passes in (1, 2):
+        got = K._launch_wgmma(x, packed["bf16"], 8, passes)
+        faults[passes] = (outside(got, want, *TOL["fused_mlp_forward"]),
+                          errors(got, want)[0])
+    print(f"  fused_mlp_forward B=384 with the hi part alone: "
+          f"{faults[1][0]:.4%} outside {TOL['fused_mlp_forward']}, max_abs_err"
+          f" {faults[1][1]:.3e}; hi + mid: {faults[2][0]:.4%} outside, "
+          f"max_abs_err {faults[2][1]:.3e}", flush=True)
+    require(faults[1][0] > 0, "kernel 2 with one bf16 pass passes the "
+            "tolerance: the check cannot see the split")
+    res["fused_mlp_forward"]["one_pass_fault_outside"] = faults[1][0]
+    res["fused_mlp_forward"]["two_pass_outside"] = faults[2][0]
+    res["fused_mlp_forward"]["two_pass_max_abs_err"] = faults[2][1]
+    # ragged widths: the padded device layout through the same kernel
     rng = np.random.default_rng(1)
     ragged = (spec.input_len, 97, 64, 30, spec.output_len)
     rw = [rng.standard_normal((i, o)).astype(np.float32) / np.sqrt(i)
@@ -511,6 +557,22 @@ def kernel_checks(torch, K, T, specs, model, columns):
         p = K.pack_mlp(rw, rb, "int8", dev)
         check_int8(torch, K, "fused_mlp_forward_int8[ragged]", x, p)
     print(f"  ragged widths {ragged}: bf16, f32, int8 match", flush=True)
+    # device time (CUDA-graph replays, warm L2), in turns plain, kernel,
+    # kernel, plain; beside it a cuBLAS bf16 chain of the same five
+    # products, a yardstick the port never calls
+    from climsim_tpu_torch.bench_gn_conv3 import time_ms as graph_ms
+
+    wb = [w.to(device=dev, dtype=torch.bfloat16) for w in ws]
+    bb = [b.to(device=dev, dtype=torch.bfloat16) for b in bs]
+
+    def cublas_chain(x):
+        h = x.to(torch.bfloat16)
+        for i, (w, b) in enumerate(zip(wb, bb)):
+            h = h @ w + b
+            if i < len(wb) - 1:
+                h = torch.relu(h)
+        return h
+
     for b in TIMED_ROWS:
         x = xn[:b].contiguous()
         for name, kern, plain, p in (
@@ -518,14 +580,25 @@ def kernel_checks(torch, K, T, specs, model, columns):
                  K.fused_mlp_forward_plain, packed["bf16"]),
                 ("fused_mlp_forward_int8", K.fused_mlp_forward_int8,
                  K.fused_mlp_forward_int8_plain, packed["int8"])):
-            k, pl = compare_timed(torch, lambda: kern(x, p, 8),
-                                  lambda: plain(x, p, 8), 20)
-            res[name]["ms"][b] = k
-            res[name]["plain_ms"][b] = pl
+            p1 = graph_ms(torch, lambda: plain(x, p, 8), 20)
+            k1 = graph_ms(torch, lambda: kern(x, p, 8), 20)
+            k2 = graph_ms(torch, lambda: kern(x, p, 8), 20)
+            p2 = graph_ms(torch, lambda: plain(x, p, 8), 20)
+            res[name]["ms"][b] = (k1 + k2) / 2
+            res[name]["plain_ms"][b] = (p1 + p2) / 2
+            res[name].setdefault("cublas_chain_ms", {})[b] = graph_ms(
+                torch, lambda: cublas_chain(x), 20)
+            plan = K._mlp_plan(b, p, dev)
+            res[name].setdefault("plans", {})[b] = {
+                "cluster": plan.cluster, "rows": plan.rows, "nb": plan.nb,
+                "stages": plan.stages, "grid": plan.grid}
     for name, r in res.items():
         for b in TIMED_ROWS:
             print(f"  {name:24s} B={b:5d} kernel {r['ms'][b]:.4f} ms  "
-                  f"plain {r['plain_ms'][b]:.4f} ms", flush=True)
+                  f"plain {r['plain_ms'][b]:.4f} ms"
+                  + (f"  cuBLAS bf16 chain {r['cublas_chain_ms'][b]:.4f} ms"
+                     f"  plan {r['plans'][b]}" if "plans" in r else ""),
+                  flush=True)
     return res
 
 
@@ -608,6 +681,30 @@ def gn_checks(torch, PU, seed):
                     chain_args(torch, g, b, l, c, cout))
     reading("L=64 C=128 Cout=128 B=7 +1e3", chain_args(
         torch, g, 7, 64, 128, 128, offset=1e3), GN_OFFSET_TOL, False)
+    # a chain whose first tiling overflows shared memory at the trainer's
+    # batch (the 256-channel unet_v5's): the plan takes fewer samples a
+    # tile, within GN_TOL and bit-equal to another tiling of the samples
+    l, c, cout = GN_STEPPED
+    a = chain_args(torch, g, UNET_BATCH, l, c, cout)
+    reading(f"L={l} C={c} Cout={cout} B={UNET_BATCH} (stepped)", a)
+    plan = PU._device_plan(UNET_BATCH, l, c, cout, a[0].device)
+    props = torch.cuda.get_device_properties(a[0].device)
+    other = PU.plan_gn_silu_conv3(UNET_BATCH, l, c, cout,
+                                  props.shared_memory_per_block_optin,
+                                  props.multi_processor_count, (1, 1))
+    got = PU.fused_gn_silu_conv3(*a)
+    out = torch.empty_like(got)
+    PU._launch(*a, out, other)
+    require(torch.equal(out, got), f"L={l} C={c} Cout={cout}: the stepped "
+            f"plan and tiling (1, 1) differ")
+    res["stepped"] = {"shape": [UNET_BATCH, l, c, cout],
+                      "plan": {"samples": plan.samples, "n_tile": plan.n_tile,
+                               "stages": plan.stages},
+                      "other": {"samples": other.samples,
+                                "n_tile": other.n_tile}}
+    print(f"  fused_gn_silu_conv3 L={l} C={c} Cout={cout} B={UNET_BATCH}: "
+          f"plan {plan.samples} samples x {plan.n_tile} columns, bit-equal "
+          f"to {other.samples} x {other.n_tile}", flush=True)
     for b in GN_TIMED_ROWS:
         ms = plain_ms = bound_ms = 0.0
         for (l, c, cout), calls in UNET_CHAINS.items():
@@ -715,33 +812,26 @@ def batch_invariance(torch, F, PU, unet_apply_fused, unet, xn):
     return probes
 
 
-def profile(torch, K, T, model, stats, spec, cols, chunk):
-    """--profile: each fused MLP at every tile height (the choice in
-    kernels._tile_rows), then a trace_served of 384-column requests a
-    weight type."""
+def profile(torch, K, model, stats, spec, chunk):
+    """--profile: the fused MLPs' plan at each batch, then a trace_served
+    of 384-column requests a weight type."""
     from climsim_tpu_torch.online.server import (CouplingClient,
                                                  CouplingServer)
     from climsim_tpu_torch.online.wrapper import make_fast_mlp_wrapper
 
     dev = torch.device("cuda")
-    consts = T.input_transform_consts(
-        spec, stats, T.TransformConfig(input_clip=True,
-                                       input_clip_rhonly=True), dev)
-    xn = K.fused_input_transform_plain(torch.from_numpy(cols).to(dev), consts)
     ws, bs = K.mlp_params_to_matrices(model.state_dict())
-    weights = (("bf16", torch.bfloat16, "fused_mlp_forward_bf16"),
-               ("int8", "int8", "fused_mlp_forward_int8"))
-    print("profile: fused MLP at each tile height", flush=True)
-    for w, dt, entry in weights:
+    weights = (("bf16", torch.bfloat16), ("int8", "int8"))
+    print("profile: the fused MLPs' plans", flush=True)
+    for w, dt in weights:
         p = K.pack_mlp(ws, bs, dt, dev)
-        for b in (384, 1536, 6144):
-            x = xn[:b].contiguous()
-            ms = {tb: time_ms(torch, lambda: K._launch_mlp(entry, x, p, 8, tb),
-                              20) for tb in K.TILE_ROWS}
-            print(f"  {w} B={b:5d} " + " ".join(
-                f"TB={tb} {t:.4f} ms" for tb, t in ms.items())
-                + f" (picked: TB={K._tile_rows(b, dev)})", flush=True)
-    for w, dt, _ in weights:
+        for b in (1, 50, 384, 1536, 6144):
+            plan = K._mlp_plan(b, p, dev)
+            print(f"  {w} B={b:5d}: clusters of {plan.cluster} over "
+                  f"{plan.rows}-row tiles, {plan.nb} chunks a CTA, "
+                  f"{plan.stages} stages, {plan.grid} CTAs, {plan.smem} B of "
+                  "shared memory", flush=True)
+    for w, dt in weights:
         wrap = make_fast_mlp_wrapper(model, stats, spec, dt, device="cuda")
         srv = CouplingServer(wrap, spec.input_len, base_chunk=384,
                              max_batch=6144, device="cuda").start()
@@ -776,7 +866,7 @@ def trace_served(torch, CouplingClient, srv, chunk, label):
           f"card busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%})",
           flush=True)
     # the ten costliest, then every copy and every kernel of the port
-    ours = ("Memcpy", "transform_kernel", "mlp_forward_kernel",
+    ours = ("Memcpy", "transform_kernel", "mlp_wgmma_kernel",
             "constraint_head_kernel", "gn_silu_conv3_kernel")
     ranked = sorted(dev_ops, key=lambda e: -e.self_device_time_total)
     for i, e in enumerate(ranked):
@@ -1579,8 +1669,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="then time the fused MLPs at both tile heights and "
-                    "trace both served paths with torch.profiler")
+                    help="then print the fused MLPs' plans and trace both "
+                    "served paths with torch.profiler")
     args = ap.parse_args(argv)
 
     import torch
@@ -1639,6 +1729,17 @@ def main(argv=None) -> int:
                   f"{log[i + 2].split('ptxas info    :')[-1].strip()}")
             require(" 0 bytes spill stores" in log[i + 1],
                     f"fused_gn_silu_conv3 <{tiles}> spills")
+        # kernels 2 and 3's: (int8, rows / 64, chunks a CTA)
+        if "Function properties for" in line and "mlp_wgmma_kernel" in line:
+            tmpl = line.split("kernelILb")[1].split("EE")[0].replace(
+                "ELi", ",")
+            print(f"  ptxas: fused MLP <int8, NWG, NB> = <{tmpl}>: "
+                  f"{log[i + 1].strip()}; "
+                  f"{log[i + 2].split('ptxas info    :')[-1].strip()}")
+            require(" 0 bytes spill stores" in log[i + 1],
+                    f"the fused MLP <{tmpl}> spills")
+        if "C75" in line:   # wgmma serialized by ptxas
+            print("  ptxas:", line.split("ptxas info    :")[-1].strip())
 
     specs = {v: (get_varspec(v), load_asset_norms(v))
              for v in ("v2_rh", "v5", "v1")}
@@ -1830,7 +1931,7 @@ def main(argv=None) -> int:
           f"{unet_train['samples_per_s']['plain']:.1f} samples/s", flush=True)
 
     if args.profile:
-        profile(torch, K, T, model, stats, spec, columns["v2_rh"], chunks[0])
+        profile(torch, K, model, stats, spec, chunks[0])
     require("jax" not in sys.modules, "the port must not load jax")
     require(not any(m.split(".")[0] == "climsim_tpu" for m in sys.modules),
             "the port must not load the JAX package")
@@ -1847,6 +1948,10 @@ def main(argv=None) -> int:
             **{k: r[k] for k in ("whole_network_max_abs_err",) if k in r},
             "ms": r["ms"][384], "plain_ms": r["plain_ms"][384],
             "ms_b6144": r["ms"][6144], "plain_ms_b6144": r["plain_ms"][6144],
+            **{k: r[k] for k in (
+                "cublas_chain_ms", "plans", "batch_invariant",
+                "one_pass_fault_outside", "two_pass_outside",
+                "two_pass_max_abs_err", "int8_vs_f32_mean_err") if k in r},
         })
     kernels.append({
         "name": "fused_gn_silu_conv3", "route": "cuda",
@@ -1864,7 +1969,7 @@ def main(argv=None) -> int:
         "per_shape_ms": gn["per_shape_ms"],
         "per_shape_plain_ms": gn["per_shape_plain_ms"],
         "per_shape_bound_ms": gn["per_shape_bound_ms"],
-        "tiles": gn["plans"]})
+        "tiles": gn["plans"], "stepped_plan": gn["stepped"]})
     kernels.append({
         "name": "fused_constraint_head", "route": "cuda",
         "source": UNET_SOURCES["fused_constraint_head"][0],

@@ -37,12 +37,19 @@ _SIGNATURES = {
     # x, w, bias, out, widths, n_layers, rows, relu_tail, tile_rows, stream
     "cst_fused_mlp_forward_f32": (
         [_P, _P, _P, _P, ctypes.POINTER(_I), _I, _I, _I, _I, _P], _I),
+    # x, w, bias, out, act, widths, n_layers, rows, relu_tail, nwg, nb,
+    # cluster, stages, passes, stream
     "cst_fused_mlp_forward_bf16": (
-        [_P, _P, _P, _P, ctypes.POINTER(_I), _I, _I, _I, _I, _P], _I),
-    # x, q, scale, bias, out, widths, n_layers, rows, relu_tail, tile_rows,
-    # stream
+        [_P, _P, _P, _P, _P, ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _I,
+         _I, _P], _I),
+    # x, q, scale, bias, out, act, widths, n_layers, rows, relu_tail, nwg,
+    # nb, cluster, stages, stream
     "cst_fused_mlp_forward_int8": (
-        [_P, _P, _P, _P, _P, ctypes.POINTER(_I), _I, _I, _I, _I, _P], _I),
+        [_P, _P, _P, _P, _P, _P, ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I,
+         _I, _P], _I),
+    # nwg, nb, cluster, smem
+    "cst_mlp_forward_clusters_bf16": ([_I, _I, _I, _I], _I),
+    "cst_mlp_forward_clusters_int8": ([_I, _I, _I, _I], _I),
     # y, t, qc, qi, consts, out, rows, dt, stream
     "cst_fused_constraint_head": (
         [_P, _P, _P, _P, _P, _P, _I, _F, _P], _I),

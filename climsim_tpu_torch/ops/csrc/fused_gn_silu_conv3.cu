@@ -57,11 +57,12 @@
 //    any batch and any tile (the server pads a 50-row request to 384).
 //  * Epilogue: float32 accumulators + the float32 bias, float2 stores of
 //    the valid rows straight from the registers.
-#include <cuda.h>  // CUtensorMap and its enums only: no libcuda is linked
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using namespace cst;  // the Hopper helpers of hopper.cuh
 
 constexpr int kBoxRows = 64;    // weight rows (K) a stage
 constexpr int kBoxCols = 64;    // output channels a box: 128 bytes, one swizzle row
@@ -96,121 +97,6 @@ __host__ __device__ inline Layout smem_layout(int S, int L, int C, int G,
   return o;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// Keep the compiler from moving register reads or writes across the
-// asynchronous products (they read A and accumulate into D behind its back).
-__device__ __forceinline__ void fence_reg(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-__device__ __forceinline__ void fence_reg(uint32_t& r) {
-  asm volatile("" : "+r"(r)::"memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// B descriptor: a 64-row (K) x 64-column (N) box as TMA lays it down with
-// the 128-byte swizzle, N contiguous (MN-major).  One instruction reads 16
-// K rows: two 8-row swizzle atoms 1024 bytes apart.  With N = 64 there is
-// one atom along N, so the leading offset is never stepped; both offsets
-// are 1024 bytes.
-__device__ __forceinline__ uint64_t b_desc(uint32_t saddr) {
-  uint64_t d = static_cast<uint64_t>((saddr & 0x3FFFF) >> 4);
-  d |= static_cast<uint64_t>(1024 >> 4) << 16;  // leading byte offset
-  d |= static_cast<uint64_t>(1024 >> 4) << 32;  // stride byte offset
-  d |= static_cast<uint64_t>(1) << 62;          // 128-byte swizzle
-  return d;
-}
-
-// D (64 x 64, float32) += A (64 x 16, bf16, registers) * B (16 x 64, bf16,
-// shared memory, transposed: N contiguous).
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
-                                                const uint32_t (&a)[4],
-                                                uint64_t desc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
 // The A fragments of one weight stage (four 16-deep steps) for this
 // thread's row: `row_addr` is the shared address of its slab row at tap 0,
 // channel 8 * (lane / 16).
@@ -221,10 +107,6 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4][4], uint32_t row_addr,
   const uint32_t addr = row_addr + tap * pitch + (r0 - tap * C) * 2;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) ldmatrix_x4(a[kk], addr + kk * 32);
-}
-
-__device__ __forceinline__ void wgmma_wait_one() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // The weight ring: `stages` slots of NT 64 x 64 boxes of the (3C, Cout)
@@ -329,9 +211,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float* xs = x + static_cast<size_t>(s0) * L * C;
 
   if (threadIdx.x == 0) {
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                     reinterpret_cast<uint64_t>(&wmap))
-                 : "memory");
+    prefetch_tensormap(&wmap);
     for (int s = 0; s < stages; ++s) {
       mbar_init(full + s, 1);
       mbar_init(empty + s, kMmaWarps);  // one arrival a consumer warp
@@ -538,33 +418,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
-// library links against no libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 template <int ROWS, int NT>
 int launch(const CUtensorMap& map, const float* x, const float* gamma,
            const float* beta, const float* bias, float* out, int batch,
@@ -610,18 +463,12 @@ extern "C" int cst_fused_gn_silu_conv3(const float* x, const float* gamma,
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_layout(S, L, C, G, nt, stages).total;
 
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap map;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(Cout),
-                              static_cast<cuuint64_t>(3) * C};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(Cout) * 2};
-  const cuuint32_t box[2] = {kBoxCols, kBoxRows};
-  const cuuint32_t elem[2] = {1, 1};
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+  if (!encode_2d(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w,
+                 static_cast<uint64_t>(3) * C, Cout, kBoxRows, kBoxCols,
+                 CU_TENSOR_MAP_SWIZZLE_128B)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const unsigned grid = static_cast<unsigned>(tiles_m * tiles_n);

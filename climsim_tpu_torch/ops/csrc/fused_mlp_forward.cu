@@ -4,20 +4,18 @@
 // pl.pallas_call at kernels.py:263): h = h_f32 @ W + b layer by layer, relu
 // between layers and on the last relu_tail outputs.
 //
-// Bound on the H100: float32 FMA throughput.  The 557 -> 1024 x 4 -> 368
-// coupling MLP costs about 4.1 M multiply-adds a row; its bf16 weights
-// (8.4 MB) are re-read from L2 by every block, which at TB rows a block
-// makes L2 traffic 8.4 MB * ceil(B / TB).  The reference numerics (float32
-// activations) rule out the bf16 tensor cores for now.
+// bf16 weights (the served path) run the tensor-core kernel of
+// mlp_forward_wgmma.cuh: float32 activations split exactly into three
+// bf16 parts, three bf16 wgmma passes into float32 sums, so the products
+// are float32's; weights by TMA, read once a row tile by a cluster that
+// splits every layer's columns; bound by the weights' bytes from device
+// memory (8.2 MB for the 557 -> 1024 x 4 -> 368 coupling MLP).
 //
-// Design (see mlp_forward.cuh): activations stay in shared memory for the
-// whole network, so only x, the weights and the output touch device memory;
-// each weight loaded from L2 feeds TB rows, and each activation read from
-// shared memory feeds 4 columns.  The caller picks TB = 16 (128 KB of
-// shared memory at width 1024) once there are rows enough to give every SM
-// a block of 16, else TB = 4, which runs B = 384 (one ne4 chunk) as 96
-// blocks rather than 24.
+// float32 weights (no served path) stay on the FMA kernel of
+// mlp_forward.cuh: TB rows a block, activations in shared memory, float32
+// FMAs; the caller picks TB = 16 once every SM gets a block of 16, else 4.
 #include "mlp_forward.cuh"
+#include "mlp_forward_wgmma.cuh"
 
 // x: (rows, widths[0]) float32; w: every layer's (d_in, d_out) row-major,
 // concatenated; bias: every layer's d_out floats, concatenated; out:
@@ -27,17 +25,31 @@ extern "C" int cst_fused_mlp_forward_f32(const float* x, const float* w,
                                          const int* widths, int n_layers,
                                          int rows, int relu_tail,
                                          int tile_rows, void* stream) {
-  return cst::launch_mlp<float, false>(x, w, nullptr, bias, out, widths,
-                                       n_layers, rows, relu_tail, tile_rows,
-                                       stream);
+  return cst::launch_mlp<float>(x, w, bias, out, widths, n_layers, rows,
+                                relu_tail, tile_rows, stream);
 }
 
+// w: the pack's device layout (PackedMLP.dev_w, bf16), bias its padded
+// biases (dev_b); the plan (ops/kernels.py plan_mlp_forward): 64 nwg rows
+// a tile, clusters of `cluster` CTAs owning at most nb 64-column chunks of
+// a layer, `stages` weight stages.  passes: how many of the activations'
+// bf16 parts (hi, mid, lo) enter the products; 3 is float32's arithmetic.
 extern "C" int cst_fused_mlp_forward_bf16(const float* x, const void* w,
                                           const float* bias, float* out,
-                                          const int* widths, int n_layers,
-                                          int rows, int relu_tail,
-                                          int tile_rows, void* stream) {
-  return cst::launch_mlp<__nv_bfloat16, false>(
-      x, static_cast<const __nv_bfloat16*>(w), nullptr, bias, out, widths,
-      n_layers, rows, relu_tail, tile_rows, stream);
+                                          void* act, const int* widths,
+                                          int n_layers,
+                                          int rows, int relu_tail, int nwg,
+                                          int nb, int cluster, int stages,
+                                          int passes, void* stream) {
+  return cst::mlpw::launch<false>(x, w, nullptr, bias, out, act, widths,
+                                  n_layers, rows, relu_tail, nwg, nb,
+                                  cluster, stages, passes, stream);
+}
+
+// Clusters of the bf16 instantiation for (nwg, nb, cluster) with `smem`
+// bytes a CTA that the current card holds at once; 0 where none can be
+// scheduled; minus a CUDA error.
+extern "C" int cst_mlp_forward_clusters_bf16(int nwg, int nb, int cluster,
+                                             int smem) {
+  return cst::mlpw::active_clusters<false>(nwg, nb, cluster, smem);
 }

@@ -6,29 +6,34 @@
 // y = bf16(h) @ bf16(q) with float32 accumulation, then h = y * scale + b,
 // relu as in fused_mlp_forward.
 //
-// Bound on the H100: float32 FMA throughput, as fused_mlp_forward; the int8
-// weights halve the L2 traffic of the bf16 variant (4.2 MB for the
-// 4x1024 coupling MLP).  Hopper has no int8 x bf16 MMA, and quantizing the
-// activations to s8 for the integer tensor cores would change the
-// semantics, so the product stays on the float32 pipes.
-//
-// Design: the skeleton of mlp_forward.cuh with int8 weights widened to
-// float (exact for |q| <= 127) and every activation rounded to bf16 with
-// __float2bfloat16_rn when it is written to shared memory, i.e. before its
-// product: bf16 x (small integer) products are exact in float32, so the
-// float32 FMA chain computes what the bf16 dot with float32 accumulation
-// computes, up to summation order.
-#include "mlp_forward.cuh"
+// Bound on the H100: the int8 weights' bytes from device memory (4.1 MB
+// for the 4x1024 coupling MLP).  Design: the tensor-core kernel of
+// mlp_forward_wgmma.cuh.  Every activation is rounded to bf16 (round to
+// nearest even) when it is published, as kernels.py:320 does, and an int8
+// weight widens to bf16 exactly, so bf16 x bf16 wgmma with float32 sums
+// forms the Pallas kernel's products; Hopper has no int8 x bf16 MMA, so
+// TMA brings each int8 box and the threads widen it in shared memory into
+// the swizzled bf16 box wgmma reads.
+#include "mlp_forward_wgmma.cuh"
 
-// q: every layer's (d_in, d_out) int8 row-major, concatenated; scale and
-// bias: every layer's d_out floats, concatenated.
+// q: the pack's device layout (PackedMLP.dev_w, int8); scale and bias: its
+// padded scales and biases (dev_scale, dev_b); the plan as in
+// cst_fused_mlp_forward_bf16.
 extern "C" int cst_fused_mlp_forward_int8(const float* x, const int8_t* q,
                                           const float* scale,
                                           const float* bias, float* out,
-                                          const int* widths, int n_layers,
-                                          int rows, int relu_tail,
-                                          int tile_rows, void* stream) {
-  return cst::launch_mlp<int8_t, true>(x, q, scale, bias, out, widths,
-                                       n_layers, rows, relu_tail, tile_rows,
-                                       stream);
+                                          void* act, const int* widths,
+                                          int n_layers,
+                                          int rows, int relu_tail, int nwg,
+                                          int nb, int cluster, int stages,
+                                          void* stream) {
+  return cst::mlpw::launch<true>(x, q, scale, bias, out, act, widths,
+                                 n_layers, rows, relu_tail, nwg, nb, cluster,
+                                 stages, 1, stream);
+}
+
+// cst_mlp_forward_clusters_bf16 for the int8 instantiations.
+extern "C" int cst_mlp_forward_clusters_int8(int nwg, int nb, int cluster,
+                                             int smem) {
+  return cst::mlpw::active_clusters<true>(nwg, nb, cluster, smem);
 }

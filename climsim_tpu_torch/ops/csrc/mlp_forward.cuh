@@ -1,18 +1,21 @@
-// The fused relu-MLP forward shared by fused_mlp_forward.cu (f32 or bf16
-// weights) and fused_mlp_forward_int8.cu (int8 weights, per-channel scale).
+// The FMA relu-MLP forward: fused_mlp_forward.cu's float32-weight entry,
+// which no served path uses, and, through accumulate(), the forward of the
+// training kernel (mlp_train.cuh).  The served bf16 and int8 entries run
+// the tensor-core kernel of mlp_forward_wgmma.cuh; this file keeps the
+// float32 path and accumulate() as they were.
 //
 // One launch runs the whole network.  All layers' weights sit in one
 // contiguous buffer, layer after layer, each (d_in, d_out) row-major; the
-// biases (and int8 scales) in one float buffer; the widths arrive by value.
+// biases in one float buffer; the widths arrive by value.
 //
 // Each block owns a tile of TB rows and keeps its activations as float32
 // in dynamic shared memory, ping-ponging between two TB x ld buffers
 // (ld = widest layer input, rounded up to 4 floats so rows stay 16-byte
 // aligned).  Layer by layer, each thread owns groups of 4 adjacent output
 // columns for all TB rows: per 8 steps of k it reads an 8 x 4 block of W
-// from global memory (one 8-byte load a row for bf16; neighbouring threads,
-// neighbouring columns: coalesced; the 8.4 MB of bf16 weights of the 4x1024
-// coupling MLP stay in the 50 MB L2 across blocks), reads each row's 4
+// from global memory (one 16-byte load a row; neighbouring threads,
+// neighbouring columns: coalesced; the 16.4 MB of float32 weights of the
+// 4x1024 coupling MLP stay in the 50 MB L2 across blocks), reads each row's 4
 // activations as float4 broadcasts from shared memory, and accumulates
 // TB x 4 sums in registers with float32 FMAs.  Why: the products run on
 // the float32 pipes, which shared-memory reads and L2 latency starve; with
@@ -23,12 +26,8 @@
 // in shared memory and never stored; columns past d_out (d_out % 4 != 0)
 // read zero weights and are never stored.
 //
-// Numerics follow the Pallas kernels: float32 activations times weights
-// widened exactly to float32, float32 accumulation, bias added in float32;
-// the int8 variant rounds every activation to bf16 (round to nearest even)
-// before its product, as kernels.py:320 does, and applies y * scale + b
-// with two roundings.  wgmma would round the activations of the bf16
-// variant to bf16 too, which changes its numerics; that waits.
+// Numerics follow the Pallas kernel: float32 activations times float32
+// weights, float32 accumulation, bias added in float32.
 #pragma once
 
 #include "common.cuh"
@@ -38,12 +37,6 @@ namespace cst {
 constexpr int kMlpThreads = 256;
 
 __device__ __forceinline__ float widen(float w) { return w; }
-__device__ __forceinline__ float widen(__nv_bfloat16 w) {
-  return __bfloat162float(w);
-}
-__device__ __forceinline__ float widen(int8_t w) {
-  return static_cast<float>(w);  // exact for |q| <= 127
-}
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -55,22 +48,6 @@ __device__ __forceinline__ void load4(const float* p, float (&w)[4]) {
   w[1] = v.y;
   w[2] = v.z;
   w[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&w)[4]) {
-  // a bf16 is the top half of a float: element 2i sits in the low half
-  // of word i (little endian)
-  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-  w[0] = __uint_as_float(v.x << 16);
-  w[1] = __uint_as_float(v.x & 0xffff0000u);
-  w[2] = __uint_as_float(v.y << 16);
-  w[3] = __uint_as_float(v.y & 0xffff0000u);
-}
-__device__ __forceinline__ void load4(const int8_t* p, float (&w)[4]) {
-  const char4 v = __ldg(reinterpret_cast<const char4*>(p));
-  w[0] = static_cast<float>(v.x);
-  w[1] = static_cast<float>(v.y);
-  w[2] = static_cast<float>(v.z);
-  w[3] = static_cast<float>(v.w);
 }
 
 // Weights of columns c0..c0+3 of one row of W (p points at column c0):
@@ -133,10 +110,9 @@ __device__ __forceinline__ void accumulate(const WT* wc, int dout,
   }
 }
 
-template <typename WT, int TB, bool kInt8>
+template <typename WT, int TB>
 __global__ void __launch_bounds__(kMlpThreads)
     mlp_forward_kernel(const float* __restrict__ x, const WT* __restrict__ w,
-                       const float* __restrict__ scale,
                        const float* __restrict__ bias, float* __restrict__ out,
                        Widths wd, int rows, int ld, int relu_tail) {
   extern __shared__ float4 smem[];
@@ -150,7 +126,7 @@ __global__ void __launch_bounds__(kMlpThreads)
     const int k = i - r * d0;
     const float v =
         row0 + r < rows ? x[static_cast<long long>(row0 + r) * d0 + k] : 0.0f;
-    hin[r * ld + k] = kInt8 ? round_bf16(v) : v;
+    hin[r * ld + k] = v;
   }
   __syncthreads();
 
@@ -181,18 +157,16 @@ __global__ void __launch_bounds__(kMlpThreads)
         const int c = c0 + j;
         if (c >= dout) break;
         const float b = bias[boff + c];
-        const float s = kInt8 ? scale[boff + c] : 1.0f;
         // relu between layers, and on the last relu_tail outputs (the
         // non-negative surface scalars); `v < 0` keeps a NaN, as
         // jnp.maximum does
         const bool relu = !last || c >= dout - relu_tail;
 #pragma unroll
         for (int r = 0; r < TB; ++r) {
-          float v = kInt8 ? __fadd_rn(__fmul_rn(acc[r][j], s), b)
-                          : acc[r][j] + b;
+          float v = acc[r][j] + b;
           if (relu && v < 0.0f) v = 0.0f;
           if (!last) {
-            hout[r * ld + c] = kInt8 ? round_bf16(v) : v;
+            hout[r * ld + c] = v;
           } else if (row0 + r < rows) {
             out[static_cast<long long>(row0 + r) * dout + c] = v;
           }
@@ -208,26 +182,26 @@ __global__ void __launch_bounds__(kMlpThreads)
   }
 }
 
-template <typename WT, int TB, bool kInt8>
-int launch_tile(const float* x, const WT* w, const float* scale,
-                const float* bias, float* out, const Widths& wd, int rows,
-                int ld, int relu_tail, cudaStream_t stream) {
+template <typename WT, int TB>
+int launch_tile(const float* x, const WT* w, const float* bias, float* out,
+                const Widths& wd, int rows, int ld, int relu_tail,
+                cudaStream_t stream) {
   const size_t smem = 2 * static_cast<size_t>(TB) * ld * sizeof(float);
-  auto kernel = mlp_forward_kernel<WT, TB, kInt8>;
+  auto kernel = mlp_forward_kernel<WT, TB>;
   static bool opted[kMaxDevices] = {};
   static std::mutex mu;
   const int e = opt_in_shared_memory(kernel, opted, mu);
   if (e != 0) return e;
   const int blocks = (rows + TB - 1) / TB;
-  kernel<<<blocks, kMlpThreads, smem, stream>>>(x, w, scale, bias, out, wd,
-                                                rows, ld, relu_tail);
+  kernel<<<blocks, kMlpThreads, smem, stream>>>(x, w, bias, out, wd, rows,
+                                                ld, relu_tail);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename WT, bool kInt8>
-int launch_mlp(const float* x, const WT* w, const float* scale,
-               const float* bias, float* out, const int* widths, int n_layers,
-               int rows, int relu_tail, int tile_rows, void* stream) {
+template <typename WT>
+int launch_mlp(const float* x, const WT* w, const float* bias, float* out,
+               const int* widths, int n_layers, int rows, int relu_tail,
+               int tile_rows, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -242,11 +216,11 @@ int launch_mlp(const float* x, const WT* w, const float* scale,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tile_rows) {
     case 4:
-      return launch_tile<WT, 4, kInt8>(x, w, scale, bias, out, wd, rows, ld,
-                                       relu_tail, s);
+      return launch_tile<WT, 4>(x, w, bias, out, wd, rows, ld, relu_tail,
+                                s);
     case 16:
-      return launch_tile<WT, 16, kInt8>(x, w, scale, bias, out, wd, rows, ld,
-                                        relu_tail, s);
+      return launch_tile<WT, 16>(x, w, bias, out, wd, rows, ld, relu_tail,
+                                 s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -32,7 +32,8 @@ No lane padding: the kernels mask their own ragged edges.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+import functools
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -202,6 +203,11 @@ def _host_f32(a) -> torch.Tensor:
 
 
 MAX_LAYERS = 16  # kMaxLayers in csrc/common.cuh
+CHUNK = 64       # the wgmma kernel's K chunk and output column slice
+
+
+def _padded(width: int) -> int:
+    return -(-width // CHUNK) * CHUNK
 
 
 @dataclass(frozen=True)
@@ -212,12 +218,26 @@ class PackedMLP:
     after the other, as float32, bfloat16 or int8; ``b`` every layer's
     float32 bias; ``scale`` every layer's float32 per-output-channel scale
     (int8 only).  ``widths`` is (d_in, h_1, ..., d_out).
+
+    For bf16 and int8 weights the pack also holds the device layout of the
+    tensor-core kernel (``csrc/mlp_forward_wgmma.cuh``): ``dev_w`` stacks
+    every layer's weights, each zero-padded to (Kp, Np) = (d_in, d_out)
+    rounded up to CHUNK, in one (sum Kp, max Np) matrix; ``dev_b`` and
+    ``dev_scale`` every layer's Np values, zero past d_out.  So no weight
+    box the kernel reads has a ragged edge.  ``layers()`` and the plain
+    versions read the unpadded views.
     """
 
     widths: tuple[int, ...]
     w: torch.Tensor
     b: torch.Tensor
     scale: torch.Tensor | None = None
+    dev_w: torch.Tensor | None = field(default=None, init=False, repr=False,
+                                       compare=False)
+    dev_b: torch.Tensor | None = field(default=None, init=False, repr=False,
+                                       compare=False)
+    dev_scale: torch.Tensor | None = field(default=None, init=False,
+                                           repr=False, compare=False)
 
     def __post_init__(self):
         n_w = sum(i * o for i, o in zip(self.widths[:-1], self.widths[1:]))
@@ -225,9 +245,42 @@ class PackedMLP:
         if (self.w.numel() != n_w or self.b.numel() != n_b
                 or (self.scale is not None and self.scale.numel() != n_b)):
             raise ValueError(f"buffers do not match widths {self.widths}")
+        if self.w.dtype in (torch.bfloat16, torch.int8):
+            for name, t in zip(("dev_w", "dev_b", "dev_scale"),
+                               self._device_layout()):
+                object.__setattr__(self, name, t)
 
-    def layers(self):
-        """Yield (w (d_in, d_out), b, scale or None) views per layer."""
+    def _device_layout(self):
+        kp = [_padded(d) for d in self.widths]
+        wmax = max(kp[1:])
+        dw = self.w.new_zeros(sum(kp[:-1]), wmax)
+        db = self.b.new_zeros(sum(kp[1:]))
+        ds = None if self.scale is None else self.scale.new_zeros(db.numel())
+        ro = bo = 0
+        for i, (w, b, s) in enumerate(self.layers()):
+            din, dout = w.shape
+            dw[ro:ro + din, :dout] = w
+            db[bo:bo + dout] = b
+            if s is not None:
+                ds[bo:bo + dout] = s
+            ro, bo = ro + kp[i], bo + kp[i + 1]
+        return dw, db, ds
+
+    def layers(self, padded: bool = False):
+        """Yield (w (d_in, d_out), b, scale or None) views per layer; with
+        ``padded``, the (Kp, Np) blocks of the device layout instead."""
+        if padded:
+            if self.dev_w is None:
+                raise ValueError("float32 packs have no device layout")
+            kp = [_padded(d) for d in self.widths]
+            ro = bo = 0
+            for din, dout in zip(kp[:-1], kp[1:]):
+                s = None if self.dev_scale is None else \
+                    self.dev_scale[bo:bo + dout]
+                yield (self.dev_w[ro:ro + din, :dout],
+                       self.dev_b[bo:bo + dout], s)
+                ro, bo = ro + din, bo + dout
+            return
         wo = bo = 0
         for din, dout in zip(self.widths[:-1], self.widths[1:]):
             s = None if self.scale is None else self.scale[bo:bo + dout]
@@ -278,46 +331,88 @@ def _relu_tail(h: torch.Tensor, relu_tail: int) -> torch.Tensor:
                      dim=1)
 
 
-def fused_mlp_forward_plain(x: torch.Tensor, mlp: PackedMLP,
-                            relu_tail: int = 0) -> torch.Tensor:
-    layers = list(mlp.layers())
+def _plain_chain(x, mlp, relu_tail, padded, layer):
+    """``layer(h, w, b, s)`` through the network, relu between layers and
+    on the last ``relu_tail`` outputs.  ``padded`` reads the weights, biases
+    and scales from the device layout's zero-padded blocks and keeps the
+    activations at their padded widths, zero past each layer's width (as
+    the kernel does); each product takes the blocks' real rows and columns,
+    so that a CPU product sums as many terms, in the same order, as the
+    unpadded one."""
     h = x
-    for i, (w, b, _) in enumerate(layers):
-        h = h @ w.float() + b
-        if i < len(layers) - 1:
-            h = torch.relu(h)
-    return _relu_tail(h, relu_tail)
+    if padded:
+        h = torch.nn.functional.pad(x, (0, _padded(x.shape[1]) - x.shape[1]))
+    layers = list(mlp.layers(padded))
+    for i, (w, b, s) in enumerate(layers):
+        din, dout = mlp.widths[i], mlp.widths[i + 1]
+        if padded:
+            y = h.new_zeros(h.shape[0], w.shape[1])
+            y[:, :dout] = layer(h[:, :din], w[:din, :dout], b[:dout],
+                                None if s is None else s[:dout])
+        else:
+            y = layer(h, w, b, s)
+        h = torch.relu(y) if i < len(layers) - 1 else y
+    return _relu_tail(h[:, :mlp.widths[-1]], relu_tail)
+
+
+def fused_mlp_forward_plain(x: torch.Tensor, mlp: PackedMLP,
+                            relu_tail: int = 0,
+                            padded: bool = False) -> torch.Tensor:
+    return _plain_chain(x, mlp, relu_tail, padded,
+                        lambda h, w, b, s: h @ w.float() + b)
 
 
 def fused_mlp_forward_int8_plain(x: torch.Tensor, mlp: PackedMLP,
-                                 relu_tail: int = 0) -> torch.Tensor:
-    layers = list(mlp.layers())
-    h = x
-    for i, (q, b, s) in enumerate(layers):
-        # bf16 x bf16 products are exact in float32: the float32 product of
-        # the rounded operands is the bf16 dot with float32 accumulation
-        h = (h.to(torch.bfloat16).float() @ q.float()) * s + b
-        if i < len(layers) - 1:
-            h = torch.relu(h)
-    return _relu_tail(h, relu_tail)
+                                 relu_tail: int = 0,
+                                 padded: bool = False) -> torch.Tensor:
+    # bf16 x bf16 products are exact in float32: the float32 product of the
+    # rounded operands is the bf16 dot with float32 accumulation
+    return _plain_chain(
+        x, mlp, relu_tail, padded,
+        lambda h, q, b, s: (h.to(torch.bfloat16).float() @ q.float()) * s + b)
 
 
-TILE_ROWS = (4, 16)  # the tile heights the kernels are built for
+def split_bf16x3(h: torch.Tensor):
+    """(hi, mid, lo) bf16 with hi + mid + lo == h exactly, as the tensor-core
+    kernel 2 splits its float32 activations: hi is h truncated to bf16 (its
+    top 16 bits), mid the remainder truncated, lo what is left; the two
+    subtractions are exact in float32, and lo takes the last 8 significant
+    bits whole.  Exact for every finite h of magnitude >= 2**-110; below
+    that lo may lose a residue under bf16's subnormal spacing (2**-133).
+    A non-finite h goes whole into hi (NaN stays NaN, inf inf) with mid = lo
+    = 0, so the products are float32's inf * w and NaN."""
+    h = h.float()
+    mask = torch.tensor(-65536, dtype=torch.int32)          # 0xffff0000
+
+    def trunc(v):
+        return (v.view(torch.int32) & mask).view(torch.float32)
+
+    finite = torch.isfinite(h)
+    hf = torch.where(finite, h, torch.zeros_like(h))
+    hi = trunc(hf)
+    r1 = hf - hi
+    mid = trunc(r1)
+    lo = r1 - mid
+    hi = torch.where(finite, hi, h)
+    return hi.to(torch.bfloat16), mid.to(torch.bfloat16), lo.to(torch.bfloat16)
+
+
+TILE_ROWS = (4, 16)  # the tile heights the float32-weight kernel is built for
 
 
 def _tile_rows(rows: int, device: torch.device) -> int:
-    """Rows a block: 16 once every SM gets a block of 16 (fewer re-reads
-    of the weights from L2), else 4, so B = 384 (one ne4 chunk) runs as 96
-    blocks.  ``chip_smoke.py --profile`` times both heights; PERF.md keeps
-    the readings."""
+    """Rows a block of the float32-weight (FMA) kernel: 16 once every SM
+    gets a block of 16 (fewer re-reads of the weights from L2), else 4, so
+    B = 384 (one ne4 chunk) runs as 96 blocks."""
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     return 16 if rows >= 16 * n_sm else 4
 
 
 def _launch_mlp(entry: str, x: torch.Tensor, mlp: PackedMLP,
                 relu_tail: int, tile_rows: int | None = None) -> torch.Tensor:
-    """Launch one fused-MLP entry; ``tile_rows`` (one of TILE_ROWS) fixes
-    the tile height, which ``_tile_rows`` picks otherwise."""
+    """Launch the float32-weight FMA entry; ``tile_rows`` (one of
+    TILE_ROWS) fixes the tile height, which ``_tile_rows`` picks
+    otherwise."""
     out = torch.empty((x.shape[0], mlp.widths[-1]), dtype=torch.float32,
                       device=x.device)
     if x.shape[0] == 0:
@@ -337,15 +432,198 @@ def _launch_mlp(entry: str, x: torch.Tensor, mlp: PackedMLP,
         raise ValueError(f"{entry}: packed weights must be 16-byte aligned "
                          "(the kernel loads 4 columns at a time)")
     widths = (ctypes.c_int * len(mlp.widths))(*mlp.widths)
-    ptrs = [x.data_ptr(), mlp.w.data_ptr()]
-    if mlp.scale is not None:
-        ptrs.append(mlp.scale.data_ptr())
-    ptrs += [mlp.b.data_ptr(), out.data_ptr()]
     lib = _build.load()
     with torch.cuda.device(x.device):
         code = getattr(lib, "cst_" + entry)(
-            *ptrs, widths, len(mlp.widths) - 1, x.shape[0], relu_tail, tb,
+            x.data_ptr(), mlp.w.data_ptr(), mlp.b.data_ptr(), out.data_ptr(),
+            widths, len(mlp.widths) - 1, x.shape[0], relu_tail, tb,
             _stream(x.device))
+    _build.check(code, entry)
+    return out
+
+
+# --------------------------------------------------------------------------
+# the tensor-core kernel of kernels 2 (bf16 weights) and 3 (int8 weights)
+# --------------------------------------------------------------------------
+# The plan mirrors csrc/mlp_forward_wgmma.cuh: a cluster of `cluster` CTAs
+# owns a row tile of 64 * nwg rows; CTA `rank` owns every layer's output
+# chunks j (CHUNK columns each) with j % cluster == rank, at most nb of
+# them, and publishes them in its shared memory for the next layer, whose
+# K chunks the CTAs read from their owners; weights stream through
+# `stages` TMA stages of CHUNK K rows by nb chunks.
+MLP_STAGES = 6          # the most weight stages a plan takes
+MLP_MAX_NB = 2
+MLP_CLUSTERS = (16, 8)  # cluster sizes, largest first
+
+
+@dataclass(frozen=True)
+class MlpPlan:
+    """How the tensor-core kernel tiles one (B, widths) call."""
+    nwg: int            # 64-row warpgroups a CTA: rows a tile = 64 * nwg
+    cluster: int        # CTAs a cluster
+    nb: int             # output chunks a CTA owns of the widest layer
+    stages: int         # weight stages in flight
+    tiles_m: int        # row tiles (clusters)
+    smem: int           # dynamic shared memory a CTA, bytes
+    # a layer at a time, the K chunks (CHUNK deep) in the order every
+    # output sums them, ascending: they depend on the widths only
+    k_order: tuple
+
+    @property
+    def rows(self) -> int:
+        return 64 * self.nwg
+
+    @property
+    def grid(self) -> int:
+        return self.tiles_m * self.cluster
+
+    def owned(self, width: int, rank: int) -> tuple:
+        """The output chunks of a layer of ``width`` that CTA ``rank``
+        owns, in its slots 0, 1, ..."""
+        return tuple(range(rank, -(-width // CHUNK), self.cluster))
+
+
+def _mlp_chunk_bytes(int8: bool, nwg: int) -> int:
+    """Bytes of one activation chunk of 64 nwg rows by CHUNK columns: one
+    bf16 plane (int8 weights) or three, hi, mid and lo (bf16 weights)."""
+    return (1 if int8 else 3) * 64 * nwg * CHUNK * 2
+
+
+def _mlp_smem(int8: bool, nwg: int, nb: int, stages: int) -> int:
+    """``smem_layout(...).total`` of the kernel: the weight ring (int8: the
+    raw boxes, then four widened bf16 stages); the activation ring, a chunk
+    a stage; the layer table; four barriers a stage (int8: and two a
+    widened stage); the base's 1024-byte alignment."""
+    box = CHUNK * CHUNK * (1 if int8 else 2)
+    conv = 4 * nb * CHUNK * CHUNK * 2 if int8 else 0
+    return (stages * nb * box + conv + stages * _mlp_chunk_bytes(int8, nwg)
+            + 32 * (MAX_LAYERS + 1) + 32 * stages + (64 if int8 else 0)
+            + 1024)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_mlp_forward(rows: int, widths: tuple, smem_limit: int, n_sm: int,
+                     max_cluster: int, int8: bool = False) -> MlpPlan:
+    """The tensor-core kernel's plan for x (rows, widths[0]) through the
+    MLP of ``widths`` on a card with ``smem_limit`` bytes of shared memory
+    a block and ``n_sm`` SMs, where clusters of up to ``max_cluster`` CTAs
+    schedule; raises ValueError, with the reason, for a call it cannot
+    take.
+
+    The rules the sweep of ``bench_mlp_forward --sweep`` found on an H100:
+    while the 64-row tiles fit in the clusters of 16 the SMs hold at once
+    (n_sm // 16), clusters of 16 CTAs a 64-row tile, one 64-column chunk a
+    CTA of a 1024-wide layer; past that, fewer CTAs a tile, each reading
+    every weight for more rows: clusters of 8 over 128-row tiles.  Then
+    the fewest chunks a CTA that cover the widest layer, and the most
+    weight stages, up to MLP_STAGES, that fit.  Rows, tiles and cluster
+    change with B and the card; the K order does not."""
+    widths = tuple(int(w) for w in widths)
+    if not 1 <= len(widths) - 1 <= MAX_LAYERS or min(widths) < 1:
+        raise ValueError(f"widths {widths}: want 1..{MAX_LAYERS} layers of "
+                         "positive widths")
+    if rows < 1:
+        raise ValueError(f"rows {rows}: want at least 1")
+    if max_cluster < MLP_CLUSTERS[-1]:
+        raise ValueError(f"the card schedules no cluster of "
+                         f"{MLP_CLUSTERS[-1]} CTAs for this kernel "
+                         f"(largest {max_cluster})")
+    wide = max_cluster >= 16 and -(-rows // 64) <= n_sm // 16
+    cluster, nwg = (16, 1) if wide else (8, 2 if rows > 64 else 1)
+    nb = max(-(-w // (CHUNK * cluster)) for w in widths)
+    if nb > MLP_MAX_NB:
+        raise ValueError(f"a layer of width {max(widths)} needs {nb} chunks "
+                         f"of {CHUNK} columns a CTA in a cluster of "
+                         f"{cluster}; the kernel takes {MLP_MAX_NB} (widths "
+                         f"up to {MLP_MAX_NB * CHUNK * cluster})")
+    stages = None
+    for n in (nwg, 1):
+        fits = [s for s in range(2, MLP_STAGES + 1)
+                if _mlp_smem(int8, n, nb, s) <= smem_limit]
+        if fits:
+            nwg, stages = n, fits[-1]
+            break
+    if stages is None:
+        raise ValueError(f"widths {widths} need "
+                         f"{_mlp_smem(int8, 1, nb, 2)} B of shared memory; "
+                         f"the card has {smem_limit}")
+    k_order = tuple(tuple(range(-(-w // CHUNK))) for w in widths[:-1])
+    return MlpPlan(nwg, cluster, nb, stages, -(-rows // (64 * nwg)),
+                   _mlp_smem(int8, nwg, nb, stages), k_order)
+
+
+_ACTIVE_CLUSTERS: dict = {}
+
+
+def _active_clusters(dev: torch.device, int8: bool, plan: MlpPlan) -> int:
+    """Clusters of ``plan``'s shape the card holds at once
+    (cudaOccupancyMaxActiveClusters), asked once a device and shape."""
+    key = (dev.index, int8, plan.nwg, plan.nb, plan.cluster, plan.smem)
+    if key not in _ACTIVE_CLUSTERS:
+        lib = _build.load()
+        fn = (lib.cst_mlp_forward_clusters_int8 if int8
+              else lib.cst_mlp_forward_clusters_bf16)
+        with torch.cuda.device(dev):
+            n = fn(plan.nwg, plan.nb, plan.cluster, plan.smem)
+        if n < 0:
+            _build.check(-n, "mlp_forward_clusters")
+        _ACTIVE_CLUSTERS[key] = n
+    return _ACTIVE_CLUSTERS[key]
+
+
+def _mlp_plan(rows: int, mlp: PackedMLP, dev: torch.device) -> MlpPlan:
+    """The plan on ``dev``: the largest cluster the card schedules for it,
+    asked of the card, never found by a failed launch."""
+    props = torch.cuda.get_device_properties(dev)
+    int8 = mlp.w.dtype == torch.int8
+    for max_cluster in MLP_CLUSTERS:
+        plan = plan_mlp_forward(rows, mlp.widths,
+                                props.shared_memory_per_block_optin,
+                                props.multi_processor_count, max_cluster,
+                                int8)
+        if _active_clusters(dev, int8, plan) > 0:
+            return plan
+    raise ValueError(f"the card schedules no cluster for widths "
+                     f"{mlp.widths} at B={rows}")
+
+
+def _launch_wgmma(x: torch.Tensor, mlp: PackedMLP, relu_tail: int,
+                  passes: int = 3, plan: MlpPlan | None = None
+                  ) -> torch.Tensor:
+    """The tensor-core kernel on checked CUDA tensors; ``passes`` (bf16
+    weights only) is how many of the activations' three bf16 parts enter
+    the products: 3 is kernel 2's float32 arithmetic, 1 and 2 exist for the
+    card's planted-fault check.  ``plan`` replaces ``_mlp_plan``'s (the
+    benchmark's sweep)."""
+    out = torch.empty((x.shape[0], mlp.widths[-1]), dtype=torch.float32,
+                      device=x.device)
+    if x.shape[0] == 0:
+        return out
+    plan = plan or _mlp_plan(x.shape[0], mlp, x.device)
+    int8 = mlp.w.dtype == torch.int8
+    # the layers' activations between the CTAs of a cluster, through L2:
+    # two buffers of every row tile's chunks
+    n_chunks = max(-(-w // CHUNK) for w in mlp.widths[:-1])
+    act = torch.empty(2 * plan.tiles_m * n_chunks
+                      * _mlp_chunk_bytes(int8, plan.nwg) // 2,
+                      dtype=torch.bfloat16, device=x.device)
+    widths = (ctypes.c_int * len(mlp.widths))(*mlp.widths)
+    lib = _build.load()
+    tail = (x.shape[0], relu_tail, plan.nwg, plan.nb, plan.cluster,
+            plan.stages)
+    with torch.cuda.device(x.device):
+        if int8:
+            code = lib.cst_fused_mlp_forward_int8(
+                x.data_ptr(), mlp.dev_w.data_ptr(), mlp.dev_scale.data_ptr(),
+                mlp.dev_b.data_ptr(), out.data_ptr(), act.data_ptr(), widths,
+                len(mlp.widths) - 1, *tail, _stream(x.device))
+            entry = "fused_mlp_forward_int8"
+        else:
+            code = lib.cst_fused_mlp_forward_bf16(
+                x.data_ptr(), mlp.dev_w.data_ptr(), mlp.dev_b.data_ptr(),
+                out.data_ptr(), act.data_ptr(), widths, len(mlp.widths) - 1,
+                *tail, passes, _stream(x.device))
+            entry = "fused_mlp_forward_bf16"
     _build.check(code, entry)
     return out
 
@@ -357,9 +635,11 @@ def _check_mlp(x: torch.Tensor, mlp: PackedMLP, weight_dtypes,
                         f"{weight_dtypes}")
     if not 0 <= relu_tail <= mlp.widths[-1]:
         raise ValueError(f"relu_tail {relu_tail} outside 0..{mlp.widths[-1]}")
-    for name, t in (("w", mlp.w), ("b", mlp.b), ("scale", mlp.scale)):
+    for name, t in (("w", mlp.w), ("b", mlp.b), ("scale", mlp.scale),
+                    ("dev_w", mlp.dev_w), ("dev_b", mlp.dev_b),
+                    ("dev_scale", mlp.dev_scale)):
         if t is not None:
-            _check(t, name, t.dtype, (None,), x.device)
+            _check(t, name, t.dtype, tuple(None for _ in t.shape), x.device)
     _check(x, "x", torch.float32, (None, mlp.widths[0]), x.device)
 
 
@@ -367,13 +647,16 @@ def fused_mlp_forward(x: torch.Tensor, mlp: PackedMLP,
                       relu_tail: int = 0) -> torch.Tensor:
     """(B, d_in) float32 -> (B, d_out) float32 through an MLP packed with
     float32 or bf16 weights; relu on the last ``relu_tail`` outputs (the
-    ClimSim surface scalars)."""
+    ClimSim surface scalars).  bf16 weights run the tensor-core kernel
+    (float32 activations split into three bf16 parts, so the products are
+    float32's), float32 weights the FMA kernel."""
     _check_mlp(x, mlp, (torch.float32, torch.bfloat16), relu_tail)
     if not _on_cuda(x, "fused_mlp_forward"):
         return fused_mlp_forward_plain(x, mlp, relu_tail)
-    entry = ("fused_mlp_forward_bf16" if mlp.w.dtype == torch.bfloat16
-             else "fused_mlp_forward_f32")
-    out = _launch_mlp(entry, x, mlp, relu_tail)
+    if mlp.w.dtype == torch.bfloat16:
+        out = _launch_wgmma(x, mlp, relu_tail)
+    else:
+        out = _launch_mlp("fused_mlp_forward_f32", x, mlp, relu_tail)
     LAUNCHES["fused_mlp_forward"] += 1
     return out
 
@@ -386,7 +669,7 @@ def fused_mlp_forward_int8(x: torch.Tensor, mlp: PackedMLP,
         raise ValueError("an int8-packed MLP needs its scales")
     if not _on_cuda(x, "fused_mlp_forward_int8"):
         return fused_mlp_forward_int8_plain(x, mlp, relu_tail)
-    out = _launch_mlp("fused_mlp_forward_int8", x, mlp, relu_tail)
+    out = _launch_wgmma(x, mlp, relu_tail)
     LAUNCHES["fused_mlp_forward_int8"] += 1
     return out
 

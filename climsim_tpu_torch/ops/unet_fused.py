@@ -196,6 +196,13 @@ def plan_gn_silu_conv3(bsz: int, l: int, c: int, cout: int, smem_limit: int,
     else:
         (nwg, nt, s), forced = _tiling(bsz, l, c, cout, smem_limit, n_sm), []
     stages = _stages(s, l, c, g, nt, smem_limit, *forced * 2)
+    # where the slab of s samples and two weight stages overflow shared
+    # memory, fewer samples a tile, then fewer columns: at one sample and
+    # one box this is the plan of B = 1, so a shape planned at B = 1 plans
+    # at every B (the K order depends on C alone)
+    while stages is None and not forced and (s > 1 or nt > 1):
+        s, nt = (s - 1, nt) if s > 1 else (s, nt // 2)
+        stages = _stages(s, l, c, g, nt, smem_limit)
     if stages is None:
         need = _smem_bytes(s, l, c, g, nt, forced[0] if forced else 2)
         raise ValueError(f"C={c} at L={l} needs {need} B of shared memory; "
@@ -226,16 +233,18 @@ def _shape_error(bsz: int, l: int, c: int, cout: int,
     return None
 
 
-def check_kernel_shapes(chains, device) -> None:
+def check_kernel_shapes(chains, device, batch: int = 1) -> None:
     """Raise unless the kernel takes every (L, C, Cout) of ``chains`` (a
-    model's ``fused_chains()``) on ``device``: a trainer checks its network
+    model's ``fused_chains()``) on ``device``, at B = 1 and at ``batch``,
+    the largest batch the caller will run: a trainer checks its network
     before the first step, not by a failure in the middle of one."""
     dev = torch.device(device)
     for l, c, cout in chains:
-        err = _shape_error(1, l, c, cout, dev)
-        if err:
-            raise ValueError(f"fused chain (L={l}, C={c}, Cout={cout}): "
-                             + err)
+        for b in sorted({1, max(batch, 1)}):
+            err = _shape_error(b, l, c, cout, dev)
+            if err:
+                raise ValueError(f"fused chain (L={l}, C={c}, Cout={cout}) "
+                                 f"at B={b}: " + err)
 
 
 def fused_gn_silu_conv3(x: torch.Tensor, gamma: torch.Tensor,

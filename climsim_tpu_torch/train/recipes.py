@@ -231,12 +231,12 @@ def unet_trainer(spec: VarSpec, stats: NormStats, sample_batch, rng,
     penalties, a ``schedules.build`` schedule; the v5 transform is
     ``v5_online_config()``.  With ``fused_gn_conv`` in ``model_kw`` on the
     card, every fused chain's shape is checked against the kernel's limits
-    before the first step."""
+    before the first step, at B = 1 and at ``sample_batch``'s batch size."""
     from ..models.unet import ClimSimUNet
 
     model = ClimSimUNet(spec, compute_dtype=compute_dtype,
                         generator=_generator(rng), **(model_kw or {}))
-    _check_fused(model, device)
+    _check_fused(model, device, sample_batch)
     cfg = cfg or (T.v5_online_config() if spec.name == "v5"
                   else T.TransformConfig())
     sched = schedules.build(schedule_name, steps_per_epoch, init_lr=lr,
@@ -248,11 +248,14 @@ def unet_trainer(spec: VarSpec, stats: NormStats, sample_batch, rng,
                    **kw)
 
 
-def _check_fused(model, device) -> None:
+def _check_fused(model, device, sample_batch=None) -> None:
+    """Every fused chain against kernel 5's plan on the card, at B = 1 and
+    at ``sample_batch``'s batch size (the trainer's batch)."""
     if model.fused_gn_conv and torch.device(device).type == "cuda":
         from ..ops.unet_fused import check_kernel_shapes
 
-        check_kernel_shapes(model.fused_chains(), device)
+        batch = 1 if sample_batch is None else len(sample_batch[0])
+        check_kernel_shapes(model.fused_chains(), device, batch)
 
 
 def classifier_labels(x_raw, y_raw, spec: VarSpec, threshold_class1=1e-9,
@@ -280,10 +283,10 @@ def unet_classifier_trainer(spec: VarSpec, stats: NormStats, sample_batch,
     accuracy in ``aux``, Adam at a constant ``lr``."""
     from ..models.unet import ClimSimUNet
 
-    del sample_batch, steps_per_epoch
+    del steps_per_epoch
     model = ClimSimUNet(spec, classifier=True, compute_dtype=compute_dtype,
                         generator=_generator(rng), **(model_kw or {}))
-    _check_fused(model, device)
+    _check_fused(model, device, sample_batch)
     cfg = cfg or T.v5_online_config()
     in_t = T.make_input_transform(spec, stats, cfg, device)
 

@@ -20,6 +20,17 @@ from test_torch_unet_train import _H100
 
 CHAINS = unet_v5_chains()
 BATCHES = (1, 7, 16, 384, 1024)
+# the fused chains of a unet_v5 at model_channels=256 (BIG_KW), written out
+# so that collecting the tests builds no model; the test below holds them
+# to the model's own
+BIG_KW = dict(model_channels=256, channel_mult=(1, 2, 2, 2), num_blocks=4,
+              attn_resolutions=(8,), fused_gn_conv=True)
+BIG_CHAINS = {
+    (64, 256, 256): 13, (32, 256, 256): 1, (32, 256, 512): 1,
+    (32, 512, 512): 13, (16, 512, 512): 15, (8, 512, 512): 18,
+    (8, 1024, 512): 5, (16, 1024, 512): 5, (32, 1024, 512): 4,
+    (32, 768, 512): 1, (64, 512, 512): 1, (64, 768, 256): 1,
+    (64, 512, 256): 4}
 RAGGED = ((60, 64, 48), (15, 128, 80))
 LIMIT, N_SM = _H100.shared_memory_per_block_optin, _H100.multi_processor_count
 
@@ -134,3 +145,71 @@ def test_chain_bound_is_bytes_at_the_served_batch():
         assert by == "bytes"
         total += n * ms
     assert total == pytest.approx(0.4765, abs=5e-4)
+
+
+def test_big_chains_are_the_models():
+    from climsim_tpu_torch import get_varspec
+    from climsim_tpu_torch.models.unet import ClimSimUNet
+
+    m = ClimSimUNet(get_varspec("v5"), **BIG_KW)
+    assert m.fused_chains(1024) == BIG_CHAINS
+
+
+def test_f1_the_wide_chains_plan_at_the_trainers_batch():
+    """The five (8, 1024, 512) chains of the 256-channel unet_v5: eight
+    samples a tile would need 233,888 B of shared memory at B = 1024, so
+    the plan takes fewer (it raised here before)."""
+    assert BIG_CHAINS[(8, 1024, 512)] == 5
+    p = plan(1024, 8, 1024, 512)
+    assert p.smem <= LIMIT and 1 <= p.samples < 8
+    assert PU._smem_bytes(8, 8, 1024, 32, p.nt, 2) > LIMIT
+
+
+@pytest.mark.parametrize("shape", [*CHAINS, *RAGGED, *BIG_CHAINS], ids=str)
+def test_a_shape_planned_at_b1_plans_at_every_batch(shape):
+    l, c, cout = shape
+    k_order = plan(1, l, c, cout).k_order
+    for b in (7, 384, 1024, 6144):
+        p = plan(b, l, c, cout)
+        assert p.k_order == k_order
+        assert p.smem <= LIMIT and 2 <= p.stages
+        assert (p.nwg, p.nt) in PU._TILES
+        assert 1 <= p.samples <= b and p.samples * l <= p.rows
+        assert p.tiles_m == -(-b // p.samples)
+
+
+@pytest.mark.parametrize("b", (1024, 6144))
+@pytest.mark.parametrize("shape", list(BIG_CHAINS), ids=str)
+def test_the_stepped_down_grid_covers_every_row_and_column_once(shape, b):
+    l, c, cout = shape
+    p = plan(b, l, c, cout)
+    rows = np.zeros(b * l, np.int32)
+    for t in range(p.tiles_m):
+        rows[t * p.samples * l:min((t + 1) * p.samples, b) * l] += p.tiles_n
+    assert (rows == -(-cout // p.n_tile)).all()
+    assert p.tiles_n * p.n_tile >= cout > (p.tiles_n - 1) * p.n_tile
+
+
+def test_check_kernel_shapes_checks_the_trainers_batch(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: _H100())
+    PU.check_kernel_shapes(BIG_CHAINS, "cuda", batch=1024)
+    PU.check_kernel_shapes(BIG_CHAINS, "cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        PU.check_kernel_shapes({(64, 2048, 64): 1}, "cuda", batch=1024)
+
+
+def test_the_trainer_checks_its_batch(monkeypatch):
+    """unet_trainer hands its sample batch's size to the check: a chain
+    the kernel takes at B = 1 only would be refused at build time."""
+    from climsim_tpu_torch.train import recipes
+
+    seen = []
+    monkeypatch.setattr(PU, "check_kernel_shapes",
+                        lambda chains, dev, batch=1: seen.append(batch))
+    model = type("M", (), {"fused_gn_conv": True,
+                           "fused_chains": lambda self: BIG_CHAINS})()
+    x = np.zeros((1024, 4), np.float32)
+    recipes._check_fused(model, "cuda", (x, x))
+    recipes._check_fused(model, "cuda")
+    assert seen == [1024, 1]
