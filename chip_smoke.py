@@ -12,8 +12,10 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    width 557 and the v5 width 1405 for the input transform, and the v1
    trainer's 124 at its config up to its batch of 32768; the full
    557 -> 1024 x 4 -> 368 MLP_v2rh for the fused MLPs, also at B = 50,
-   and ragged widths), and times both with CUDA events at B = 384 and
-   6144.  Kernels 2 and 3 (one tensor-core kernel, its plan printed):
+   ragged widths, and hidden widths of 1536 at B = 384 and 6144), and
+   times both with CUDA events at B = 384 and 6144.  Kernels 2 and 3
+   (one tensor-core kernel, its plan printed, its plan's shared memory
+   held against the kernel's own layout):
    a row's bits alone and inside its batch (50 in 384, 7 in 6144) must
    be equal, kernel 2 with one bf16 pass (a planted fault) must fail the
    tolerance, and they are timed as CUDA-graph replays beside a cuBLAS
@@ -359,16 +361,13 @@ def int8_chain(torch, K, x, mlp, run):
     TOL["fused_mlp_forward"] at any link, max abs err)."""
     layers = list(mlp.layers())
     h, worst, err = x, 0.0, 0.0
-    n_w = n_b = 0
     for i, (q, b, s) in enumerate(layers):
-        n_w, n_b = n_w + q.numel(), n_b + b.numel()
         # a last layer's relu_tail that covers every output is the relu
         # between layers
         tail = 8 if i == len(layers) - 1 else q.shape[1]
-        got = run(x, K.PackedMLP(mlp.widths[:i + 2], mlp.w[:n_w],
-                                 mlp.b[:n_b], mlp.scale[:n_b]), tail)
-        want = K.fused_mlp_forward_int8_plain(
-            h, K.PackedMLP(tuple(q.shape), q.reshape(-1), b, s), tail)
+        got = run(x, K.pack_layers(layers[:i + 1]), tail)
+        want = K.fused_mlp_forward_int8_plain(h, K.pack_layers([(q, b, s)]),
+                                              tail)
         require(bool(torch.isfinite(got).all()), "non-finite output")
         worst = max(worst, outside(got, want, *TOL["fused_mlp_forward"]))
         err = max(err, errors(got, want)[0])
@@ -382,13 +381,12 @@ def check_int8(torch, K, name, x, mlp):
     the plain version, which flips may put outside the tolerance."""
     share, chain_err = int8_chain(torch, K, x, mlp, K.fused_mlp_forward_int8)
     deq = [(q.float() * s).numpy(force=True) for q, _, s in mlp.layers()]
-    f32 = K.pack_mlp(deq, [b for _, b, _ in mlp.layers()], torch.float32,
-                     x.device)
+    f32 = list(K.pack_mlp(deq, [b for _, b, _ in mlp.layers()],
+                          torch.float32, x.device).layers())
 
     def float32_activations(h, net, relu_tail):
         return K.fused_mlp_forward_plain(
-            h, K.PackedMLP(net.widths, f32.w[:net.w.numel()], net.b),
-            relu_tail)
+            h, K.pack_layers(f32[:len(net.widths) - 1]), relu_tail)
 
     control, _ = int8_chain(torch, K, x, mlp, float32_activations)
     got = K.fused_mlp_forward_int8(x, mlp, 8)
@@ -557,6 +555,42 @@ def kernel_checks(torch, K, T, specs, model, columns):
         p = K.pack_mlp(rw, rb, "int8", dev)
         check_int8(torch, K, "fused_mlp_forward_int8[ragged]", x, p)
     print(f"  ragged widths {ragged}: bf16, f32, int8 match", flush=True)
+    # hidden widths past 1024: past one wave of clusters 8 CTAs cannot
+    # cover such a layer, so the plan keeps clusters of 16 over 128-row
+    # tiles, two chunks a CTA
+    wide = (spec.input_len, 1536, 1536, 1536, 1536, spec.output_len)
+    wide_w = [rng.standard_normal((i, o)).astype(np.float32) / np.sqrt(i)
+              for i, o in zip(wide[:-1], wide[1:])]
+    wide_b = [(0.1 * rng.standard_normal(o)).astype(np.float32)
+              for o in wide[1:]]
+    wide_plans = {}
+    for b in (384, 6144):
+        x = xn[:b].contiguous()
+        p = K.pack_mlp(wide_w, wide_b, torch.bfloat16, dev)
+        check_close(torch, f"fused_mlp_forward[{wide}]",
+                    K.fused_mlp_forward(x, p, 8),
+                    K.fused_mlp_forward_plain(x, p, 8),
+                    *TOL["fused_mlp_forward"])
+        plan = K._mlp_plan(b, p, dev)
+        wide_plans[b] = (plan.cluster, plan.rows, plan.nb)
+        p = K.pack_mlp(wide_w, wide_b, "int8", dev)
+        check_int8(torch, K, f"fused_mlp_forward_int8[{wide}]", x, p)
+    require(wide_plans[6144] == (16, 128, 2), f"widths {wide} at B=6144 "
+            f"planned {wide_plans[6144]}, want cluster 16 x 128 rows")
+    print(f"  widths {wide}: bf16, int8 match; plans (cluster, rows, chunks "
+          f"a CTA) {wide_plans}", flush=True)
+    # the plan's shared memory is the kernel's own layout
+    lib = K._build.load()
+    for int8 in (False, True):
+        for nwg in (1, 2):
+            for nb in range(1, K.MLP_MAX_NB + 1):
+                for st in range(2, K.MLP_STAGES + 1):
+                    got = lib.cst_mlp_forward_smem(int(int8), nwg, nb, st)
+                    want = K._mlp_smem(int8, nwg, nb, st)
+                    require(got == want, f"_mlp_smem({int8}, {nwg}, {nb}, "
+                            f"{st}) = {want}, the kernel takes {got}")
+    print("  plan_mlp_forward's shared memory equals the kernel's layout",
+          flush=True)
     # device time (CUDA-graph replays, warm L2), in turns plain, kernel,
     # kernel, plain; beside it a cuBLAS bf16 chain of the same five
     # products, a yardstick the port never calls

@@ -38,6 +38,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -75,8 +76,9 @@ def random_mlp(seed: int, widths=WIDTHS):
 def load_old(root: str):
     """Build the kernel library of the checkout at ``root`` (in a child
     process, from that checkout's own ``ops/_build.py``) and return
-    ``fn(x, mlp, relu_tail) -> out`` on its fused-MLP entries, bf16 and
-    int8, with their argument lists before the tensor-core kernel."""
+    ``fn(x, flat, relu_tail) -> out`` on its fused-MLP entries, bf16 and
+    int8, with their argument lists before the tensor-core kernel; ``flat``
+    is ``flat_pack``'s."""
     import torch
 
     root = str(Path(root).resolve())
@@ -96,24 +98,38 @@ def load_old(root: str):
     bf16.restype = int8.restype = I
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def run(x, mlp, relu_tail):
+    def run(x, flat, relu_tail):
         rows = x.shape[0]
-        out = torch.empty(rows, mlp.widths[-1], device=x.device)
-        widths = (I * len(mlp.widths))(*mlp.widths)
-        tail = (widths, len(mlp.widths) - 1, rows, relu_tail,
+        out = torch.empty(rows, flat.widths[-1], device=x.device)
+        widths = (I * len(flat.widths))(*flat.widths)
+        tail = (widths, len(flat.widths) - 1, rows, relu_tail,
                 16 if rows >= 16 * n_sm else 4,
                 torch.cuda.current_stream().cuda_stream)
-        if mlp.w.dtype == torch.int8:
-            code = int8(x.data_ptr(), mlp.w.data_ptr(), mlp.scale.data_ptr(),
-                        mlp.b.data_ptr(), out.data_ptr(), *tail)
+        if flat.w.dtype == torch.int8:
+            code = int8(x.data_ptr(), flat.w.data_ptr(), flat.scale.data_ptr(),
+                        flat.b.data_ptr(), out.data_ptr(), *tail)
         else:
-            code = bf16(x.data_ptr(), mlp.w.data_ptr(), mlp.b.data_ptr(),
+            code = bf16(x.data_ptr(), flat.w.data_ptr(), flat.b.data_ptr(),
                         out.data_ptr(), *tail)
         if code != 0:
             raise RuntimeError(f"the old kernel returned CUDA error {code}")
         return out
 
     return run
+
+
+def flat_pack(torch, mlp):
+    """``mlp``'s buffers in the layout the kernels took before the
+    tensor-core kernel: every layer's (d_in, d_out) weights row-major, its
+    biases and its scales, each concatenated, unpadded."""
+    layers = list(mlp.layers())
+
+    def cat(i):
+        return (None if layers[0][i] is None else
+                torch.cat([t[i].reshape(-1) for t in layers]).contiguous())
+
+    return SimpleNamespace(widths=mlp.widths, w=cat(0), b=cat(1),
+                           scale=cat(2))
 
 
 def outside(torch, got, want, rtol=TOL[0], atol=TOL[1]) -> float:
@@ -171,6 +187,7 @@ def main(argv=None) -> int:
     rows_out, bad = [], []
     for w, dt in (("bf16", torch.bfloat16), ("int8", "int8")):
         mlp = K.pack_mlp(ws, bs, dt, dev)
+        flat = flat_pack(torch, mlp)
         new = K.fused_mlp_forward_int8 if w == "int8" else K.fused_mlp_forward
         plain = (K.fused_mlp_forward_int8_plain if w == "int8"
                  else K.fused_mlp_forward_plain)
@@ -181,7 +198,7 @@ def main(argv=None) -> int:
             got = new(x, mlp, RELU_TAIL)
             share = {"new": outside(torch, got, want)}
             if old:
-                share["old"] = outside(torch, old(x, mlp, RELU_TAIL), want)
+                share["old"] = outside(torch, old(x, flat, RELU_TAIL), want)
             if w == "bf16":
                 bad += [f"{k} bf16 kernel at B={b}: {v:.3%} outside {TOL}"
                         for k, v in share.items() if v > 0]
@@ -190,11 +207,11 @@ def main(argv=None) -> int:
                 return new(x, mlp, RELU_TAIL)
 
             if old:
-                o1 = time_ms(torch, lambda: old(x, mlp, RELU_TAIL),
+                o1 = time_ms(torch, lambda: old(x, flat, RELU_TAIL),
                              args.iters)
                 n1 = time_ms(torch, new_fn, args.iters)
                 n2 = time_ms(torch, new_fn, args.iters)
-                o2 = time_ms(torch, lambda: old(x, mlp, RELU_TAIL),
+                o2 = time_ms(torch, lambda: old(x, flat, RELU_TAIL),
                              args.iters)
                 t = {"new": (n1 + n2) / 2, "old": (o1 + o2) / 2}
             else:

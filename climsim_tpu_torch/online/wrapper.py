@@ -170,13 +170,16 @@ def make_v2rh_wrapper(model: Callable, stats: NormStats,
 def make_fast_mlp_wrapper(model, stats: NormStats,
                           spec: VarSpec | None = None,
                           weights_dtype=torch.bfloat16,
-                          device="cuda") -> Callable:
+                          device="cuda", max_batch: int = 6144) -> Callable:
     """Latency-oriented v2_rh wrapper: the input transform kernel, then the
     whole ``OnlineMLP`` in one fused-MLP kernel launch.
 
     ``weights_dtype`` is torch.float32, torch.bfloat16 or ``"int8"``
     (weight-only, per-output-channel scales); the weights are read from
-    ``model`` and packed once, here.  Returns fn(x_raw) -> (B, 368).
+    ``model`` and packed once, here, where the kernel's plan is checked at
+    one row and at ``max_batch`` rows (the server's): a network the kernel
+    cannot take raises now, not at a request.  Returns fn(x_raw) -> (B,
+    368).
 
     As in the reference, this path does not apply ``OnlineMLP``'s
     ``output_prune``: it serves the plain network.
@@ -186,6 +189,7 @@ def make_fast_mlp_wrapper(model, stats: NormStats,
         input_clip=True, input_clip_rhonly=True), device)
     ws, bs = K.mlp_params_to_matrices(model.state_dict())
     mlp = K.pack_mlp(ws, bs, weights_dtype, device)
+    K.check_mlp_forward(mlp, device, (1, max_batch))
     forward = (K.fused_mlp_forward_int8 if weights_dtype == "int8"
                else K.fused_mlp_forward)
     n_relu = len(spec.output_scalar_vars)

@@ -50,6 +50,8 @@ _SIGNATURES = {
     # nwg, nb, cluster, smem
     "cst_mlp_forward_clusters_bf16": ([_I, _I, _I, _I], _I),
     "cst_mlp_forward_clusters_int8": ([_I, _I, _I, _I], _I),
+    # int8, nwg, nb, stages
+    "cst_mlp_forward_smem": ([_I, _I, _I, _I], _I),
     # y, t, qc, qi, consts, out, rows, dt, stream
     "cst_fused_constraint_head": (
         [_P, _P, _P, _P, _P, _P, _I, _F, _P], _I),

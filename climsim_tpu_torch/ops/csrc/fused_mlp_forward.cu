@@ -7,9 +7,10 @@
 // bf16 weights (the served path) run the tensor-core kernel of
 // mlp_forward_wgmma.cuh: float32 activations split exactly into three
 // bf16 parts, three bf16 wgmma passes into float32 sums, so the products
-// are float32's; weights by TMA, read once a row tile by a cluster that
-// splits every layer's columns; bound by the weights' bytes from device
-// memory (8.2 MB for the 557 -> 1024 x 4 -> 368 coupling MLP).
+// are float32's (the sums are the tensor cores'); weights by TMA, read
+// once a row tile by a cluster that splits every layer's columns; bound
+// by the weights' bytes from device memory (8.2 MB for the 557 -> 1024 x
+// 4 -> 368 coupling MLP).
 //
 // float32 weights (no served path) stay on the FMA kernel of
 // mlp_forward.cuh: TB rows a block, activations in shared memory, float32
@@ -29,11 +30,12 @@ extern "C" int cst_fused_mlp_forward_f32(const float* x, const float* w,
                                 relu_tail, tile_rows, stream);
 }
 
-// w: the pack's device layout (PackedMLP.dev_w, bf16), bias its padded
-// biases (dev_b); the plan (ops/kernels.py plan_mlp_forward): 64 nwg rows
-// a tile, clusters of `cluster` CTAs owning at most nb 64-column chunks of
-// a layer, `stages` weight stages.  passes: how many of the activations'
-// bf16 parts (hi, mid, lo) enter the products; 3 is float32's arithmetic.
+// w: the pack's padded device layout (PackedMLP.w, bf16), bias its
+// padded biases (PackedMLP.b); the plan (ops/kernels.py plan_mlp_forward):
+// 64 nwg rows a tile, clusters of `cluster` CTAs owning at most nb
+// 64-column chunks of a layer, `stages` weight stages.  passes: how many
+// of the activations' bf16 parts (hi, mid, lo) enter the products; 3
+// forms float32's products.
 extern "C" int cst_fused_mlp_forward_bf16(const float* x, const void* w,
                                           const float* bias, float* out,
                                           void* act, const int* widths,
@@ -52,4 +54,11 @@ extern "C" int cst_fused_mlp_forward_bf16(const float* x, const void* w,
 extern "C" int cst_mlp_forward_clusters_bf16(int nwg, int nb, int cluster,
                                              int smem) {
   return cst::mlpw::active_clusters<false>(nwg, nb, cluster, smem);
+}
+
+// The dynamic shared memory a CTA of the tensor-core kernel takes
+// (smem_layout's total), for ops/kernels.py _mlp_smem to be held against.
+extern "C" int cst_mlp_forward_smem(int int8, int nwg, int nb, int stages) {
+  return static_cast<int>(
+      cst::mlpw::smem_layout(int8 != 0, nwg, nb, stages).total);
 }

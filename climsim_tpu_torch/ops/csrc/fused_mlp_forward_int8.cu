@@ -16,8 +16,8 @@
 // the swizzled bf16 box wgmma reads.
 #include "mlp_forward_wgmma.cuh"
 
-// q: the pack's device layout (PackedMLP.dev_w, int8); scale and bias: its
-// padded scales and biases (dev_scale, dev_b); the plan as in
+// q: the pack's padded device layout (PackedMLP.w, int8); scale and bias:
+// its padded scales and biases (PackedMLP.scale, .b); the plan as in
 // cst_fused_mlp_forward_bf16.
 extern "C" int cst_fused_mlp_forward_int8(const float* x, const int8_t* q,
                                           const float* scale,

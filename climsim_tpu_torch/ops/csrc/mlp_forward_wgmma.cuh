@@ -2,7 +2,7 @@
 // from fused_mlp_forward.cu) and 3 (int8 weights, fused_mlp_forward_int8.cu).
 //
 // What it computes is the FMA kernel's (mlp_forward.cuh), with the same
-// products:
+// products (each exact in float32):
 //  * kernel 3: y = bf16(h) @ bf16(q) summed in float32, h = y * scale + b
 //    with two roundings, relu.  The activations are rounded to bf16 (round
 //    to nearest even) when they are published, and an int8 weight widens
@@ -16,6 +16,12 @@
 //    non-finite h goes whole into hi (mid = lo = 0), so inf w and NaN come
 //    out as in float32.  Exact for |h| >= 2**-110; below that lo may lose
 //    a residue under bf16's subnormal spacing.
+// The sums are not the FMA kernel's: they are the tensor cores' float32
+// accumulation, in another order, and its rounding has not been shown to
+// be IEEE float32's.  Kernel 2 stays within the plain version's tolerance;
+// kernel 3's bf16 roundings of the activations flip against the plain
+// version more often than the FMA kernel's did (bench_mlp_forward prints
+// both kernels' share of outputs outside the tolerance).
 //
 // Bound on the H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): the 4.1 M
 // weights of the 557 -> 1024 x 4 -> 368 network are 8.2 MB (bf16) or 4.1

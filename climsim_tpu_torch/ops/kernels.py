@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -214,80 +214,79 @@ def _padded(width: int) -> int:
 class PackedMLP:
     """A relu MLP's parameters in the layout of the fused-MLP kernels.
 
-    ``w`` holds every layer's (d_in, d_out) row-major weights, one layer
-    after the other, as float32, bfloat16 or int8; ``b`` every layer's
-    float32 bias; ``scale`` every layer's float32 per-output-channel scale
-    (int8 only).  ``widths`` is (d_in, h_1, ..., d_out).
-
-    For bf16 and int8 weights the pack also holds the device layout of the
-    tensor-core kernel (``csrc/mlp_forward_wgmma.cuh``): ``dev_w`` stacks
-    every layer's weights, each zero-padded to (Kp, Np) = (d_in, d_out)
-    rounded up to CHUNK, in one (sum Kp, max Np) matrix; ``dev_b`` and
-    ``dev_scale`` every layer's Np values, zero past d_out.  So no weight
-    box the kernel reads has a ragged edge.  ``layers()`` and the plain
-    versions read the unpadded views.
+    ``widths`` is (d_in, h_1, ..., d_out).  float32 weights (the FMA
+    kernel): ``w`` holds every layer's (d_in, d_out) row-major weights, one
+    layer after the other, and ``b`` every layer's bias.  bf16 and int8
+    weights (the tensor-core kernel, ``csrc/mlp_forward_wgmma.cuh``): ``w``
+    stacks every layer's weights, each zero-padded to (Kp, Np) = (d_in,
+    d_out) rounded up to CHUNK, in one (sum Kp, max Np) matrix, and ``b``
+    and ``scale`` (int8: per output channel, float32) hold every layer's
+    Np values, zero past d_out; so no weight box the kernel reads has a
+    ragged edge.  ``layers()`` yields the unpadded views of either.
     """
 
     widths: tuple[int, ...]
     w: torch.Tensor
     b: torch.Tensor
     scale: torch.Tensor | None = None
-    dev_w: torch.Tensor | None = field(default=None, init=False, repr=False,
-                                       compare=False)
-    dev_b: torch.Tensor | None = field(default=None, init=False, repr=False,
-                                       compare=False)
-    dev_scale: torch.Tensor | None = field(default=None, init=False,
-                                           repr=False, compare=False)
+
+    @property
+    def padded(self) -> bool:
+        """Whether the buffers are the tensor-core kernel's padded layout."""
+        return self.w.dtype != torch.float32
 
     def __post_init__(self):
-        n_w = sum(i * o for i, o in zip(self.widths[:-1], self.widths[1:]))
-        n_b = sum(self.widths[1:])
-        if (self.w.numel() != n_w or self.b.numel() != n_b
+        if self.padded:
+            kp = [_padded(d) for d in self.widths]
+            w_ok = tuple(self.w.shape) == (sum(kp[:-1]), max(kp[1:]))
+            n_b = sum(kp[1:])
+        else:
+            w_ok = self.w.numel() == sum(
+                i * o for i, o in zip(self.widths[:-1], self.widths[1:]))
+            n_b = sum(self.widths[1:])
+        if (not w_ok or self.b.numel() != n_b
                 or (self.scale is not None and self.scale.numel() != n_b)):
             raise ValueError(f"buffers do not match widths {self.widths}")
-        if self.w.dtype in (torch.bfloat16, torch.int8):
-            for name, t in zip(("dev_w", "dev_b", "dev_scale"),
-                               self._device_layout()):
-                object.__setattr__(self, name, t)
 
-    def _device_layout(self):
-        kp = [_padded(d) for d in self.widths]
-        wmax = max(kp[1:])
-        dw = self.w.new_zeros(sum(kp[:-1]), wmax)
-        db = self.b.new_zeros(sum(kp[1:]))
-        ds = None if self.scale is None else self.scale.new_zeros(db.numel())
+    def layers(self):
+        """Yield (w (d_in, d_out), b, scale or None) views per layer."""
         ro = bo = 0
-        for i, (w, b, s) in enumerate(self.layers()):
-            din, dout = w.shape
-            dw[ro:ro + din, :dout] = w
-            db[bo:bo + dout] = b
-            if s is not None:
-                ds[bo:bo + dout] = s
-            ro, bo = ro + kp[i], bo + kp[i + 1]
-        return dw, db, ds
-
-    def layers(self, padded: bool = False):
-        """Yield (w (d_in, d_out), b, scale or None) views per layer; with
-        ``padded``, the (Kp, Np) blocks of the device layout instead."""
-        if padded:
-            if self.dev_w is None:
-                raise ValueError("float32 packs have no device layout")
-            kp = [_padded(d) for d in self.widths]
-            ro = bo = 0
-            for din, dout in zip(kp[:-1], kp[1:]):
-                s = None if self.dev_scale is None else \
-                    self.dev_scale[bo:bo + dout]
-                yield (self.dev_w[ro:ro + din, :dout],
-                       self.dev_b[bo:bo + dout], s)
-                ro, bo = ro + din, bo + dout
-            return
-        wo = bo = 0
         for din, dout in zip(self.widths[:-1], self.widths[1:]):
             s = None if self.scale is None else self.scale[bo:bo + dout]
-            yield (self.w[wo:wo + din * dout].view(din, dout),
-                   self.b[bo:bo + dout], s)
-            wo += din * dout
-            bo += dout
+            if self.padded:
+                yield self.w[ro:ro + din, :dout], self.b[bo:bo + dout], s
+                ro, bo = ro + _padded(din), bo + _padded(dout)
+            else:
+                yield (self.w[ro:ro + din * dout].view(din, dout),
+                       self.b[bo:bo + dout], s)
+                ro, bo = ro + din * dout, bo + dout
+
+
+def pack_layers(layers, device=None) -> PackedMLP:
+    """A PackedMLP of (w (d_in, d_out), b, scale or None) triples that chain,
+    such as another pack's ``layers()``, taken as they are: float32, bf16
+    or int8 weights, no rounding and no quantization.  ``device``: that of
+    the first weight if None."""
+    layers = list(layers)
+    w0 = layers[0][0]
+    device = w0.device if device is None else device
+    widths = (w0.shape[0],) + tuple(w.shape[1] for w, _, _ in layers)
+    if w0.dtype == torch.float32:
+        return PackedMLP(widths, torch.cat([w.reshape(-1) for w, _, _ in
+                                            layers]).to(device),
+                         torch.cat([b for _, b, _ in layers]).to(device))
+    kp = [_padded(d) for d in widths]
+    w = w0.new_zeros(sum(kp[:-1]), max(kp[1:]), device=device)
+    b = torch.zeros(sum(kp[1:]), dtype=torch.float32, device=device)
+    scale = None if layers[0][2] is None else torch.zeros_like(b)
+    ro = bo = 0
+    for i, (wi, bi, si) in enumerate(layers):
+        w[ro:ro + widths[i], :widths[i + 1]] = wi
+        b[bo:bo + widths[i + 1]] = bi
+        if scale is not None:
+            scale[bo:bo + widths[i + 1]] = si
+        ro, bo = ro + kp[i], bo + kp[i + 1]
+    return PackedMLP(widths, w, b, scale)
 
 
 def pack_mlp(weights, biases, weights_dtype=torch.bfloat16,
@@ -310,17 +309,15 @@ def pack_mlp(weights, biases, weights_dtype=torch.bfloat16,
             raise ValueError(f"layer {i}: weight {tuple(w.shape)} and bias "
                              f"{tuple(b.shape)} do not chain from "
                              f"width {widths[i]}")
-    scale = None
+    scales = [None] * len(ws)
     if weights_dtype == "int8":
-        qs, scales = quantize_weights_int8(ws)
-        w = torch.cat([q.reshape(-1) for q in qs])
-        scale = torch.cat(scales).to(device)
+        ws, scales = quantize_weights_int8(ws)
     elif weights_dtype in (torch.float32, torch.bfloat16):
-        w = torch.cat([w.to(weights_dtype).reshape(-1) for w in ws])
+        ws = [w.to(weights_dtype) for w in ws]
     else:
         raise ValueError(f"weights_dtype {weights_dtype!r}: want "
                          "torch.float32, torch.bfloat16 or 'int8'")
-    return PackedMLP(widths, w.to(device), torch.cat(bs).to(device), scale)
+    return pack_layers(zip(ws, bs, scales), device)
 
 
 def _relu_tail(h: torch.Tensor, relu_tail: int) -> torch.Tensor:
@@ -331,44 +328,29 @@ def _relu_tail(h: torch.Tensor, relu_tail: int) -> torch.Tensor:
                      dim=1)
 
 
-def _plain_chain(x, mlp, relu_tail, padded, layer):
+def _plain_chain(x, mlp, relu_tail, layer):
     """``layer(h, w, b, s)`` through the network, relu between layers and
-    on the last ``relu_tail`` outputs.  ``padded`` reads the weights, biases
-    and scales from the device layout's zero-padded blocks and keeps the
-    activations at their padded widths, zero past each layer's width (as
-    the kernel does); each product takes the blocks' real rows and columns,
-    so that a CPU product sums as many terms, in the same order, as the
-    unpadded one."""
+    on the last ``relu_tail`` outputs."""
     h = x
-    if padded:
-        h = torch.nn.functional.pad(x, (0, _padded(x.shape[1]) - x.shape[1]))
-    layers = list(mlp.layers(padded))
+    layers = list(mlp.layers())
     for i, (w, b, s) in enumerate(layers):
-        din, dout = mlp.widths[i], mlp.widths[i + 1]
-        if padded:
-            y = h.new_zeros(h.shape[0], w.shape[1])
-            y[:, :dout] = layer(h[:, :din], w[:din, :dout], b[:dout],
-                                None if s is None else s[:dout])
-        else:
-            y = layer(h, w, b, s)
+        y = layer(h, w, b, s)
         h = torch.relu(y) if i < len(layers) - 1 else y
-    return _relu_tail(h[:, :mlp.widths[-1]], relu_tail)
+    return _relu_tail(h, relu_tail)
 
 
 def fused_mlp_forward_plain(x: torch.Tensor, mlp: PackedMLP,
-                            relu_tail: int = 0,
-                            padded: bool = False) -> torch.Tensor:
-    return _plain_chain(x, mlp, relu_tail, padded,
+                            relu_tail: int = 0) -> torch.Tensor:
+    return _plain_chain(x, mlp, relu_tail,
                         lambda h, w, b, s: h @ w.float() + b)
 
 
 def fused_mlp_forward_int8_plain(x: torch.Tensor, mlp: PackedMLP,
-                                 relu_tail: int = 0,
-                                 padded: bool = False) -> torch.Tensor:
+                                 relu_tail: int = 0) -> torch.Tensor:
     # bf16 x bf16 products are exact in float32: the float32 product of the
     # rounded operands is the bf16 dot with float32 accumulation
     return _plain_chain(
-        x, mlp, relu_tail, padded,
+        x, mlp, relu_tail,
         lambda h, q, b, s: (h.to(torch.bfloat16).float() @ q.float()) * s + b)
 
 
@@ -465,9 +447,6 @@ class MlpPlan:
     stages: int         # weight stages in flight
     tiles_m: int        # row tiles (clusters)
     smem: int           # dynamic shared memory a CTA, bytes
-    # a layer at a time, the K chunks (CHUNK deep) in the order every
-    # output sums them, ascending: they depend on the widths only
-    k_order: tuple
 
     @property
     def rows(self) -> int:
@@ -476,11 +455,6 @@ class MlpPlan:
     @property
     def grid(self) -> int:
         return self.tiles_m * self.cluster
-
-    def owned(self, width: int, rank: int) -> tuple:
-        """The output chunks of a layer of ``width`` that CTA ``rank``
-        owns, in its slots 0, 1, ..."""
-        return tuple(range(rank, -(-width // CHUNK), self.cluster))
 
 
 def _mlp_chunk_bytes(int8: bool, nwg: int) -> int:
@@ -493,7 +467,8 @@ def _mlp_smem(int8: bool, nwg: int, nb: int, stages: int) -> int:
     """``smem_layout(...).total`` of the kernel: the weight ring (int8: the
     raw boxes, then four widened bf16 stages); the activation ring, a chunk
     a stage; the layer table; four barriers a stage (int8: and two a
-    widened stage); the base's 1024-byte alignment."""
+    widened stage); the base's 1024-byte alignment.  ``chip_smoke.py``
+    holds it against the library's own (``cst_mlp_forward_smem``)."""
     box = CHUNK * CHUNK * (1 if int8 else 2)
     conv = 4 * nb * CHUNK * CHUNK * 2 if int8 else 0
     return (stages * nb * box + conv + stages * _mlp_chunk_bytes(int8, nwg)
@@ -514,10 +489,12 @@ def plan_mlp_forward(rows: int, widths: tuple, smem_limit: int, n_sm: int,
     while the 64-row tiles fit in the clusters of 16 the SMs hold at once
     (n_sm // 16), clusters of 16 CTAs a 64-row tile, one 64-column chunk a
     CTA of a 1024-wide layer; past that, fewer CTAs a tile, each reading
-    every weight for more rows: clusters of 8 over 128-row tiles.  Then
+    every weight for more rows: clusters of 8 over 128-row tiles, or of
+    16 where 8 CTAs cannot cover the widest layer (widths past 1024).  Then
     the fewest chunks a CTA that cover the widest layer, and the most
     weight stages, up to MLP_STAGES, that fit.  Rows, tiles and cluster
-    change with B and the card; the K order does not."""
+    change with B and the card; the order in which every output sums its
+    K chunks (ascending) does not."""
     widths = tuple(int(w) for w in widths)
     if not 1 <= len(widths) - 1 <= MAX_LAYERS or min(widths) < 1:
         raise ValueError(f"widths {widths}: want 1..{MAX_LAYERS} layers of "
@@ -528,9 +505,15 @@ def plan_mlp_forward(rows: int, widths: tuple, smem_limit: int, n_sm: int,
         raise ValueError(f"the card schedules no cluster of "
                          f"{MLP_CLUSTERS[-1]} CTAs for this kernel "
                          f"(largest {max_cluster})")
-    wide = max_cluster >= 16 and -(-rows // 64) <= n_sm // 16
-    cluster, nwg = (16, 1) if wide else (8, 2 if rows > 64 else 1)
-    nb = max(-(-w // (CHUNK * cluster)) for w in widths)
+
+    def chunks_a_cta(cluster):
+        return max(-(-w // (CHUNK * cluster)) for w in widths)
+
+    one_wave = -(-rows // 64) <= n_sm // 16
+    cluster = 16 if max_cluster >= 16 and (
+        one_wave or chunks_a_cta(8) > MLP_MAX_NB) else 8
+    nwg = 1 if (cluster == 16 and one_wave) or rows <= 64 else 2
+    nb = chunks_a_cta(cluster)
     if nb > MLP_MAX_NB:
         raise ValueError(f"a layer of width {max(widths)} needs {nb} chunks "
                          f"of {CHUNK} columns a CTA in a cluster of "
@@ -547,9 +530,8 @@ def plan_mlp_forward(rows: int, widths: tuple, smem_limit: int, n_sm: int,
         raise ValueError(f"widths {widths} need "
                          f"{_mlp_smem(int8, 1, nb, 2)} B of shared memory; "
                          f"the card has {smem_limit}")
-    k_order = tuple(tuple(range(-(-w // CHUNK))) for w in widths[:-1])
     return MlpPlan(nwg, cluster, nb, stages, -(-rows // (64 * nwg)),
-                   _mlp_smem(int8, nwg, nb, stages), k_order)
+                   _mlp_smem(int8, nwg, nb, stages))
 
 
 _ACTIVE_CLUSTERS: dict = {}
@@ -587,12 +569,27 @@ def _mlp_plan(rows: int, mlp: PackedMLP, dev: torch.device) -> MlpPlan:
                      f"{mlp.widths} at B={rows}")
 
 
+def check_mlp_forward(mlp: PackedMLP, device, batches) -> None:
+    """Raise, with the reason, where the tensor-core kernel has no plan on
+    ``device`` for ``mlp`` at one of ``batches``, so that a server finds
+    out when it packs the weights, not at a request.  A plan takes one
+    shape for the batches that fill no more than one wave of clusters and
+    another past that, so the smallest and the largest batch a caller runs
+    check every batch between.  Nothing to check on the CPU or for float32
+    weights."""
+    device = torch.device(device)
+    if device.type != "cuda" or not mlp.padded:
+        return
+    for b in batches:
+        _mlp_plan(b, mlp, device)
+
+
 def _launch_wgmma(x: torch.Tensor, mlp: PackedMLP, relu_tail: int,
                   passes: int = 3, plan: MlpPlan | None = None
                   ) -> torch.Tensor:
     """The tensor-core kernel on checked CUDA tensors; ``passes`` (bf16
     weights only) is how many of the activations' three bf16 parts enter
-    the products: 3 is kernel 2's float32 arithmetic, 1 and 2 exist for the
+    the products: 3 forms kernel 2's float32 products, 1 and 2 exist for the
     card's planted-fault check.  ``plan`` replaces ``_mlp_plan``'s (the
     benchmark's sweep)."""
     out = torch.empty((x.shape[0], mlp.widths[-1]), dtype=torch.float32,
@@ -614,13 +611,13 @@ def _launch_wgmma(x: torch.Tensor, mlp: PackedMLP, relu_tail: int,
     with torch.cuda.device(x.device):
         if int8:
             code = lib.cst_fused_mlp_forward_int8(
-                x.data_ptr(), mlp.dev_w.data_ptr(), mlp.dev_scale.data_ptr(),
-                mlp.dev_b.data_ptr(), out.data_ptr(), act.data_ptr(), widths,
+                x.data_ptr(), mlp.w.data_ptr(), mlp.scale.data_ptr(),
+                mlp.b.data_ptr(), out.data_ptr(), act.data_ptr(), widths,
                 len(mlp.widths) - 1, *tail, _stream(x.device))
             entry = "fused_mlp_forward_int8"
         else:
             code = lib.cst_fused_mlp_forward_bf16(
-                x.data_ptr(), mlp.dev_w.data_ptr(), mlp.dev_b.data_ptr(),
+                x.data_ptr(), mlp.w.data_ptr(), mlp.b.data_ptr(),
                 out.data_ptr(), act.data_ptr(), widths, len(mlp.widths) - 1,
                 *tail, passes, _stream(x.device))
             entry = "fused_mlp_forward_bf16"
@@ -635,9 +632,7 @@ def _check_mlp(x: torch.Tensor, mlp: PackedMLP, weight_dtypes,
                         f"{weight_dtypes}")
     if not 0 <= relu_tail <= mlp.widths[-1]:
         raise ValueError(f"relu_tail {relu_tail} outside 0..{mlp.widths[-1]}")
-    for name, t in (("w", mlp.w), ("b", mlp.b), ("scale", mlp.scale),
-                    ("dev_w", mlp.dev_w), ("dev_b", mlp.dev_b),
-                    ("dev_scale", mlp.dev_scale)):
+    for name, t in (("w", mlp.w), ("b", mlp.b), ("scale", mlp.scale)):
         if t is not None:
             _check(t, name, t.dtype, tuple(None for _ in t.shape), x.device)
     _check(x, "x", torch.float32, (None, mlp.widths[0]), x.device)

@@ -64,7 +64,8 @@ def main(argv=None):
         weights_dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
                          "int8": "int8"}[args.weights]
         wrap = make_fast_mlp_wrapper(model, load_asset_norms("v2_rh"), spec,
-                                     weights_dtype, device=args.device)
+                                     weights_dtype, device=args.device,
+                                     max_batch=args.max_batch)
         n_features, what = spec.input_len, f"weights={args.weights}"
     else:
         model = build_model("unet", get_varspec("v5"), **UNET_V5,
