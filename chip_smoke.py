@@ -13,7 +13,14 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    trainer's 124 at its config up to its batch of 32768; the full
    557 -> 1024 x 4 -> 368 MLP_v2rh for the fused MLPs, also at B = 50,
    ragged widths, and hidden widths of 1536 at B = 384 and 6144), and
-   times both with CUDA events at B = 384 and 6144.  Kernels 2 and 3
+   times both with CUDA events at B = 384 and 6144.  Kernel 1 must be
+   bit-equal to plain everywhere, and on x[1:] of 6145 v2_rh rows (a start
+   off a 16-byte boundary), and so must its pipelined path (bulk-copied
+   row tiles, which its plan takes past half the L2) forced at B = 7,
+   6144, v5 1024 and v1 32768; it is timed by device time (CUDA-graph
+   replays) at v2_rh B = 1 (the launch floor), 384 and 6144, v1 B = 32768
+   and v5 B = 1024, each beside its bound, with the wrapper's host cost a
+   call (back-to-back calls) at 384 and 6144.  Kernels 2 and 3
    (one tensor-core kernel, its plan printed, its plan's shared memory
    held against the kernel's own layout):
    a row's bits alone and inside its batch (50 in 384, 7 in 6144) must
@@ -35,7 +42,11 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    the plan takes fewer samples a tile (bit-equal to another tiling of
    them); then times every chain shape at
    B = 384 and 1024 beside its bound (CUDA-graph replays: device time);
-   fused_constraint_head at B = 1, 7, 384, 6144; times both.
+   fused_constraint_head within HEAD_TOL at B = 1, 7, 384, 6144 (whether
+   bit-equal is printed), and with t, qc and qi as views of a (B, 1525)
+   row at B = 7 and 6144, bit-equal to contiguous copies, its pipelined
+   path forced there bit-equal to the direct one; timed as kernel 1 is,
+   at B = 1, 384 and 6144.
 6. Serves the full-width U-Net v5 (the unet_v5 preset, 21,231,125
    parameters, random flax-layout weights from --seed with every conv at
    full xavier scale, moved across by the porter) through the v5 coupling
@@ -118,6 +129,7 @@ FULL_HIDDEN = (1024, 1024, 1024, 1024)
 KERNEL_ROWS = (1, 7, 384, 6144)
 MLP_ROWS = (1, 7, 50, 384, 6144)   # kernels 2 and 3, 50: a ragged request
 TIMED_ROWS = (384, 6144)
+IO_TIMED_ROWS = (1, 384, 6144)   # kernels 1 (v2_rh) and 4, device time
 N_LOOP = 1000   # sequential requests a weight type: p99 has 10 beyond it
 N_TRACE = 100   # served requests a weight type under --profile
 # Tolerances (rtol, atol) of the JAX package's tests for the same
@@ -441,6 +453,7 @@ def kernel_checks(torch, K, T, specs, model, columns):
     dev = torch.device("cuda")
     res = {n: {"max_abs_err": 0.0, "ms": {}, "plain_ms": {}}
            for n in SOURCES}
+    res["fused_input_transform"] = {"max_abs_err": 0.0}
     spec, stats = specs["v2_rh"]
 
     def record(name, b, err):
@@ -465,16 +478,50 @@ def kernel_checks(torch, K, T, specs, model, columns):
             x = torch.from_numpy(with_nonfinite(columns[label][:b])).to(dev)
             got = K.fused_input_transform(x, consts)
             want = K.fused_input_transform_plain(x, consts)
-            err = check_close(torch, f"transform {label}", got, want,
-                              *TOL["fused_input_transform"])
-            record("fused_input_transform", b, err)
-    for b in TIMED_ROWS:
-        x = torch.from_numpy(columns["v2_rh"][:b]).to(dev)
-        k, p = compare_timed(
-            torch, lambda: K.fused_input_transform(x, v2_consts),
-            lambda: K.fused_input_transform_plain(x, v2_consts), 200)
-        res["fused_input_transform"]["ms"][b] = k
-        res["fused_input_transform"]["plain_ms"][b] = p
+            require_equal(torch, f"transform {label} B={b}", got, want)
+            record("fused_input_transform", b, errors(got, want))
+    # an x that starts mid-row (4 bytes past a 16-byte boundary): the
+    # kernel's ordinary-load path, and the ragged last tile (6144 rows of
+    # 557 floats at 4 rows a tile: none; 6145 - 1 in the plan's tiles)
+    full = torch.from_numpy(with_nonfinite(
+        columns["v2_rh_6145"])).to(dev)
+    x = full[1:]
+    require(x.data_ptr() % 16 != 0, "x[1:] is 16-byte aligned")
+    got = K.fused_input_transform(x, v2_consts)
+    require_equal(torch, "transform v2_rh x[1:] of 6145 rows", got,
+                  K.fused_input_transform_plain(x, v2_consts))
+    require_equal(torch, "transform v2_rh x[1:] against its copy", got,
+                  K.fused_input_transform(x.clone(), v2_consts))
+    print("  fused_input_transform    x[1:] of 6145 v2_rh rows (unaligned): "
+          "bit-equal to plain and to its contiguous copy", flush=True)
+    # the pipelined path (row tiles by bulk copies), which the plan takes
+    # past half the L2, forced at the main path's shapes and a ragged 7
+    for label, consts, b in (("v2_rh", v2_consts, 7),
+                             ("v2_rh", v2_consts, 6144),
+                             ("v5", v5_consts, 1024),
+                             ("v1", v1_consts, 32768)):
+        x = torch.from_numpy(with_nonfinite(columns[label][:b])).to(dev)
+        plan = K.plan_input_transform(b, x.shape[1], *K._device_limits(0),
+                                      direct=False)
+        require_equal(torch, f"transform {label} B={b} pipelined",
+                      K._launch_transform(x, consts, plan),
+                      K.fused_input_transform_plain(x, consts))
+        print(f"  fused_input_transform    {label} B={b} pipelined "
+              f"({plan.rows} rows a tile, {plan.stages} stages, {plan.grid} "
+              "CTAs): "
+              "bit-equal to plain", flush=True)
+    res["fused_input_transform"]["bit_equal"] = (
+        "plain at every checked shape, direct and pipelined, and x[1:] of "
+        "6145 v2_rh rows")
+    cases = [(f"v2_rh B={b}", transform_case(torch, K, columns["v2_rh"][:b],
+                                             v2_consts), b in TIMED_ROWS)
+             for b in IO_TIMED_ROWS]
+    cases += [("v1 B=32768", transform_case(torch, K, columns["v1"][:32768],
+                                            v1_consts), False),
+              ("v5 B=1024", transform_case(torch, K, columns["v5"][:1024],
+                                           v5_consts), False)]
+    res["fused_input_transform"]["times"] = io_times(
+        torch, "fused_input_transform", cases)
 
     # -- kernels 2 and 3: the full-width MLP on normalized columns --------
     ws, bs = K.mlp_params_to_matrices(model.state_dict())
@@ -627,6 +674,8 @@ def kernel_checks(torch, K, T, specs, model, columns):
                 "cluster": plan.cluster, "rows": plan.rows, "nb": plan.nb,
                 "stages": plan.stages, "grid": plan.grid}
     for name, r in res.items():
+        if name == "fused_input_transform":
+            continue        # timed by io_times, printed there
         for b in TIMED_ROWS:
             print(f"  {name:24s} B={b:5d} kernel {r['ms'][b]:.4f} ms  "
                   f"plain {r['plain_ms'][b]:.4f} ms"
@@ -774,35 +823,123 @@ def gn_checks(torch, PU, seed):
 
 
 def head_checks(torch, K, stats5, seed):
-    """fused_constraint_head against its plain version at B in KERNEL_ROWS,
-    timed at TIMED_ROWS."""
+    """fused_constraint_head against its plain version at B in KERNEL_ROWS
+    (within HEAD_TOL; whether bit-equal is printed), on t, qc and qi as
+    strided views of a raw (B, 1525) v4 row (bit-equal to the kernel on
+    contiguous copies) at B = 7 and 6144; timed at IO_TIMED_ROWS."""
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     consts = K.constraint_head_consts(stats5.out_scale, 15, device="cuda")
-    res = {"max_abs_err": 0.0, "ms": {}, "plain_ms": {}}
+    res = {"max_abs_err": 0.0, "bit_equal": []}
 
     def head_args(b):
+        """y, and t, qc, qi as views of a raw (b, 1525) row"""
         def u(*shape):
             return torch.rand(*shape, device="cuda", generator=g)
+        raw = torch.randn(b, 1525, device="cuda", generator=g)
+        raw[:, 0:60] = 250.0 + 40.0 * u(b, 60)
+        raw[:, 120:240] = 1e-5 * u(b, 120)
         return (torch.randn(b, 308, device="cuda", generator=g),
-                250.0 + 40.0 * u(b, 60), 1e-5 * u(b, 60), 1e-5 * u(b, 60),
-                consts, 1200.0)
+                raw[:, 0:60], raw[:, 120:180], raw[:, 180:240], consts,
+                1200.0)
+
+    def contiguous(a):
+        return (a[0], *(v.contiguous() for v in a[1:4]), *a[4:])
 
     for b in KERNEL_ROWS:
-        a = head_args(b)
-        err = check_close(torch, "fused_constraint_head",
-                          K.fused_constraint_head(*a),
-                          K.fused_constraint_head_plain(*a), *HEAD_TOL)
+        a = contiguous(head_args(b))
+        got = K.fused_constraint_head(*a)
+        want = K.fused_constraint_head_plain(*a)
+        err = check_close(torch, "fused_constraint_head", got, want,
+                          *HEAD_TOL)
         res["max_abs_err"] = max(res["max_abs_err"], err[0])
+        if torch.equal(got, want):
+            res["bit_equal"].append(b)
         print(f"  fused_constraint_head    B={b:5d} max_abs_err={err[0]:.3e}"
-              f" max_rel_err={err[1]:.3e}", flush=True)
-    for b in TIMED_ROWS:
+              f" max_rel_err={err[1]:.3e} bit-equal to plain: "
+              f"{torch.equal(got, want)}", flush=True)
+    for b in (7, 6144):
         a = head_args(b)
-        k, p = compare_timed(torch, lambda: K.fused_constraint_head(*a),
-                             lambda: K.fused_constraint_head_plain(*a), 200)
-        res["ms"][b], res["plain_ms"][b] = k, p
-        print(f"  fused_constraint_head    B={b:5d} kernel {k:.4f} ms  "
-              f"plain {p:.4f} ms", flush=True)
+        require(a[1].stride() == (1525, 1), "t is not a view of the row")
+        got = K.fused_constraint_head(*a)
+        require_equal(torch, f"fused_constraint_head B={b} strided", got,
+                      K.fused_constraint_head(*contiguous(a)))
+        check_close(torch, "fused_constraint_head strided", got,
+                    K.fused_constraint_head_plain(*a), *HEAD_TOL)
+        # the pipelined path, which the plan takes past half the L2
+        plan = K.plan_constraint_head(b, *K._device_limits(0), direct=False)
+        require_equal(torch, f"fused_constraint_head B={b} pipelined",
+                      K._launch_head(*a, plan), got)
+        print(f"  fused_constraint_head    B={b:5d} t, qc, qi views of a "
+              "(B, 1525) row: bit-equal to contiguous copies, and pipelined "
+              f"({plan.rows} rows a tile, {plan.grid} CTAs) bit-equal to "
+              "direct", flush=True)
+    res["times"] = io_times(torch, "fused_constraint_head", [
+        (f"B={b}", head_case(torch, K, head_args(b)), b in TIMED_ROWS)
+        for b in IO_TIMED_ROWS])
     return res
+
+
+def require_equal(torch, name, got, want):
+    """Require got bit-equal to want (finite, of one shape)."""
+    require(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != "
+            f"{tuple(want.shape)}")
+    require(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    require(torch.equal(got, want), f"{name}: not bit-equal; max abs err "
+            f"{errors(got, want)[0]:.3e}")
+
+
+def transform_case(torch, K, cols, consts):
+    """(kernel call, plain call, (bytes, operations)) of kernel 1 on the
+    numpy columns ``cols``: x read and out written once, the seven
+    constant rows read once; about six operations an element."""
+    x = torch.from_numpy(cols).to("cuda")
+    b, d = x.shape
+    return (lambda: K.fused_input_transform(x, consts),
+            lambda: K.fused_input_transform_plain(x, consts),
+            (8 * b * d + 4 * 7 * d, 6 * b * d))
+
+
+def head_case(torch, K, a):
+    """(kernel call, plain call, (bytes, operations)) of kernel 4 on the
+    arguments ``a``: y, t, qc, qi read and out written once (3424 B a row),
+    the (2, 308) constants once; about four operations an output."""
+    b = a[0].shape[0]
+    return (lambda: K.fused_constraint_head(*a),
+            lambda: K.fused_constraint_head_plain(*a),
+            (4 * b * (308 + 3 * 60 + 368) + 4 * 2 * 308, 4 * b * 368))
+
+
+def io_times(torch, name, cases):
+    """label -> {"ms", "plain_ms", "bound_ms", "bound_by"} of kernel 1 or 4
+    at each of ``cases`` (label, (kernel, plain, (bytes, operations)),
+    host): device time, CUDA-graph replays (the host's time a call left
+    out), in turns plain, kernel, kernel, plain; the bound at the same
+    shape; where ``host`` is set, also "host_ms", the wrapper's host cost a
+    call (back-to-back calls, compare_timed: the card waits on the host)."""
+    from climsim_tpu_torch.bench_gn_conv3 import time_ms as graph_ms
+
+    out = {}
+    for label, (kern, plain, work), host in cases:
+        p1 = graph_ms(torch, plain, 20)
+        k1 = graph_ms(torch, kern, 50)
+        k2 = graph_ms(torch, kern, 50)
+        p2 = graph_ms(torch, plain, 20)
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        bound_ms, by = bound(*work, "f32")
+        r = out[label] = {"ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": by}
+        if host:
+            r["host_ms"] = compare_timed(torch, kern, plain, 200)[0]
+        print(f"  {name:24s} {label:10s} device {ms * 1e3:8.3f} us  bound "
+              f"{bound_ms * 1e3:7.3f} us ({bound_ms / ms:6.1%} of it)  "
+              f"plain {plain_ms * 1e3:8.3f} us"
+              + (f"  host cost a call {r['host_ms'] * 1e3:7.3f} us"
+                 if host else ""), flush=True)
+    floor = next(v["ms"] for k, v in out.items() if k.endswith(" B=1")
+                 or k == "B=1")
+    print(f"  {name}: the launch floor at the served batch (its own time at "
+          f"B = 1) {floor * 1e3:.3f} us", flush=True)
+    return out
 
 
 def batch_invariance(torch, F, PU, unet_apply_fused, unet, xn):
@@ -1658,19 +1795,30 @@ def mlp_work(widths, b, wbytes):
             2 * b * n_w, n_w, n_b)
 
 
+def io_entry(name, source, replaces, launched, r, at):
+    """The JSON entry of kernel 1 or 4: "ms" and "plain_ms" device times
+    (CUDA-graph replays), "host_ms" the wrapper's host cost a call, and the
+    bound, at the shape ``at``; every timed shape's under "by_shape"."""
+    t = r["times"][at]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launched,
+            "max_abs_err": r["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "host_ms": t["host_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "ms_is": f"device time at {at} (CUDA-graph replays)",
+            "bit_equal": r["bit_equal"], "by_shape": r["times"]}
+
+
 def kernel_bounds():
     """name -> (bound ms, bound_by) at the shapes each kernel's "ms" is
-    timed at."""
+    timed at; kernels 1 and 4 carry theirs at every timed shape
+    (io_times)."""
     b = 384
-    d = 557                                    # the v2_rh width (timed)
-    out = {"fused_input_transform": bound(
-        8 * b * d + 4 * 7 * d, 6 * b * d, "f32")}
+    out = {}
     nbytes, ops, _, n_b = mlp_work(V2RH_WIDTHS, b, 2)
     out["fused_mlp_forward"] = bound(nbytes, ops, "bf16")
     nbytes, ops, _, n_b = mlp_work(V2RH_WIDTHS, b, 1)
     out["fused_mlp_forward_int8"] = bound(nbytes + 4 * n_b, ops, "bf16")
-    out["fused_constraint_head"] = bound(
-        4 * b * (308 + 3 * 60 + 368) + 4 * 2 * 308, 4 * b * 368, "f32")
 
     def chains(bsz, vjp):
         nbytes = ops = 0.0
@@ -1772,6 +1920,17 @@ def main(argv=None) -> int:
                   f"{log[i + 2].split('ptxas info    :')[-1].strip()}")
             require(" 0 bytes spill stores" in log[i + 1],
                     f"the fused MLP <{tmpl}> spills")
+        # kernels 1 and 4 (kernel 1 a columns-a-thread instantiation)
+        if "Function properties for" in line and (
+                "transform_kernel" in line
+                or "constraint_head_kernel" in line):
+            kname = ("constraint_head_kernel" if "constraint_head" in line
+                     else "transform_kernel<" + line.split(
+                         "transform_kernelILi")[1].split("E")[0] + ">")
+            print(f"  ptxas: {kname}: {log[i + 1].strip()}; "
+                  f"{log[i + 2].split('ptxas info    :')[-1].strip()}")
+            require(" 0 bytes spill stores" in log[i + 1],
+                    f"{kname} spills")
         if "C75" in line:   # wgmma serialized by ptxas
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
 
@@ -1784,7 +1943,9 @@ def main(argv=None) -> int:
                "v5": synthetic_inputs(spec5, max(KERNEL_ROWS), grid,
                                       seed=args.seed + 1),
                "v1": synthetic_inputs(specs["v1"][0], max(V1_TRANSFORM_ROWS),
-                                      grid, seed=args.seed + 2)}
+                                      grid, seed=args.seed + 2),
+               "v2_rh_6145": synthetic_inputs(spec, 6145, grid,
+                                              seed=args.seed + 3)}
     model = OnlineMLP(spec, hidden=FULL_HIDDEN)
     model.load_state_dict(port_flax_online_mlp(
         flax_tree(spec, FULL_HIDDEN, args.seed)))
@@ -1973,11 +2134,15 @@ def main(argv=None) -> int:
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = res[name]
+        launched = (launches[name] + launches5[name]
+                    + train["launches"][name] + unet_train["launches"][name])
+        if name == "fused_input_transform":
+            kernels.append(io_entry(name, source, replaces, launched, r,
+                                    "v2_rh B=384"))
+            continue
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": launches[name] + launches5[name]
-            + train["launches"][name] + unet_train["launches"][name],
+            "replaces": replaces, "launches": launched,
             "max_abs_err": r["max_abs_err"],
             **{k: r[k] for k in ("whole_network_max_abs_err",) if k in r},
             "ms": r["ms"][384], "plain_ms": r["plain_ms"][384],
@@ -2004,15 +2169,9 @@ def main(argv=None) -> int:
         "per_shape_plain_ms": gn["per_shape_plain_ms"],
         "per_shape_bound_ms": gn["per_shape_bound_ms"],
         "tiles": gn["plans"], "stepped_plan": gn["stepped"]})
-    kernels.append({
-        "name": "fused_constraint_head", "route": "cuda",
-        "source": UNET_SOURCES["fused_constraint_head"][0],
-        "replaces": UNET_SOURCES["fused_constraint_head"][1],
-        "launches": launches5["fused_constraint_head"],
-        "max_abs_err": head["max_abs_err"],
-        "ms": head["ms"][384], "plain_ms": head["plain_ms"][384],
-        "ms_b6144": head["ms"][6144],
-        "plain_ms_b6144": head["plain_ms"][6144]})
+    kernels.append(io_entry(
+        "fused_constraint_head", *UNET_SOURCES["fused_constraint_head"],
+        launches5["fused_constraint_head"], head, "B=384"))
     for name, (source, replaces) in K6_SOURCES.items():
         d = name.rsplit("_", 1)[1]
         kernels.append({
@@ -2041,7 +2200,8 @@ def main(argv=None) -> int:
         "ms_is": f"forward + backward, the 82 chains of a B={UNET_BATCH} "
                  "step"})
     for k in kernels:
-        k["bound_ms"], k["bound_by"] = bounds[k["name"]]
+        if "bound_ms" not in k:
+            k["bound_ms"], k["bound_by"] = bounds[k["name"]]
         k["library_ms"] = None     # no one PyTorch call computes any of them
     print(json.dumps({"kernels": kernels, "card": card,
                       "training": {

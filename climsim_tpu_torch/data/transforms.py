@@ -174,7 +174,10 @@ def make_input_transform(spec: VarSpec, stats: NormStats,
                          cfg: TransformConfig | None = None,
                          device="cuda"):
     """Build fn raw (B, D_in) -> normalized (B, D_in) float32 on ``device``:
-    the fused input transform over ``input_transform_consts``."""
+    the fused input transform over ``input_transform_consts``.  A width the
+    kernel cannot take raises here, not at a call."""
+    device = torch.device(device)
+    K.check_input_transform(spec.input_len, device)
     consts = input_transform_consts(spec, stats, cfg, device)
 
     def transform(x: torch.Tensor) -> torch.Tensor:

@@ -102,11 +102,12 @@ def make_wrapper(model_apply: Callable, stats: NormStats,
     liq_sl = spec5.input_slices["liq_partition"]
 
     def wrapper(x_raw: torch.Tensor) -> torch.Tensor:
-        x_raw = x_raw.to(device=dev, dtype=cfg.dtype)
-        t_before = x_raw[:, 0:60].contiguous()
+        x_raw = x_raw.to(device=dev, dtype=cfg.dtype).contiguous()
+        # views of the raw row: the head reads them in place
+        t_before = x_raw[:, 0:60]
         if cfg.input_version == "v4":
-            qc_before = x_raw[:, 120:180].contiguous()
-            qi_before = x_raw[:, 180:240].contiguous()
+            qc_before = x_raw[:, 120:180]
+            qi_before = x_raw[:, 180:240]
             x5 = convert_v4_to_v5(x_raw)
         else:  # host already sends v5 features; clouds arrive combined
             qn, liq = x_raw[:, qn_sl], x_raw[:, liq_sl]

@@ -32,8 +32,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PP = ctypes.POINTER(ctypes.c_void_p)  # an array of device pointers
 _SIGNATURES = {
     "cst_error_string": ([_I], ctypes.c_char_p),
-    # x, consts, out, rows, d, stream
-    "cst_fused_input_transform": ([_P, _P, _P, _I, _I, _P], _I),
+    # x, consts, out, plan (TransformPlan.args), stream
+    "cst_fused_input_transform": ([_P, _P, _P, ctypes.POINTER(_I), _P], _I),
     # x, w, bias, out, widths, n_layers, rows, relu_tail, tile_rows, stream
     "cst_fused_mlp_forward_f32": (
         [_P, _P, _P, _P, ctypes.POINTER(_I), _I, _I, _I, _I, _P], _I),
@@ -52,9 +52,10 @@ _SIGNATURES = {
     "cst_mlp_forward_clusters_int8": ([_I, _I, _I, _I], _I),
     # int8, nwg, nb, stages
     "cst_mlp_forward_smem": ([_I, _I, _I, _I], _I),
-    # y, t, qc, qi, consts, out, rows, dt, stream
+    # y, t, qc, qi, consts, out, geometry (HeadPlan.args), dt, stream
     "cst_fused_constraint_head": (
-        [_P, _P, _P, _P, _P, _P, _I, _F, _P], _I),
+        [_P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong), _F, _P],
+        _I),
     # x, gamma, beta, w, bias, out, batch, L, C, Cout, G, eps, nwg, nt,
     # stages, samples, stream
     "cst_fused_gn_silu_conv3": (
@@ -140,8 +141,12 @@ def build_log() -> str:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built and loaded once per process."""
+    """The kernel library, built and loaded once per process (the lock only
+    until it is loaded: every launch asks for it)."""
     global _lib
+    lib = _lib
+    if lib is not None:
+        return lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))

@@ -1,7 +1,8 @@
-// Hopper building blocks shared by the tensor-core kernels
-// (fused_gn_silu_conv3.cu and mlp_forward_wgmma.cuh): mbarriers, TMA loads
-// and their tensor maps, wgmma with A from registers and B from shared
-// memory, and the fences between them.
+// Hopper building blocks shared by the kernels (fused_gn_silu_conv3.cu,
+// mlp_forward_wgmma.cuh, fused_input_transform.cu,
+// fused_constraint_head.cu): mbarriers, 1D bulk copies, TMA loads and their
+// tensor maps, wgmma with A from registers and B from shared memory, and
+// the fences between them.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: no libcuda is linked
@@ -48,6 +49,46 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "}\n" ::"r"(smem_u32(bar)),
       "r"(parity)
       : "memory");
+}
+
+// 1D bulk copies by the copy engine: `bytes` (a multiple of 16, both
+// addresses 16-byte aligned) from global memory into shared memory,
+// completing on `bar`; and from shared memory out to global memory, in the
+// thread's bulk group (bulk_commit, then bulk_wait_read before the shared
+// buffer is written again or the block exits: the writes themselves are
+// done when the grid is).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Every bulk store this thread committed has read its shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Order this thread's ordinary shared-memory accesses before the copy
+// engine's (a bulk store of what it wrote, a bulk load over what it read).
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,

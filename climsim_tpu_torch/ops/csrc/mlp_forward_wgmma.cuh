@@ -172,17 +172,6 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
-// `bytes` from global memory into shared memory by the copy engine,
-// completing on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
 // The three bf16 parts of h (their bits): see the notes.
 __device__ __forceinline__ void split3(float h, uint32_t& p0, uint32_t& p1,
                                        uint32_t& p2) {

@@ -36,7 +36,7 @@ from functools import partial
 import torch
 
 from . import _build
-from .kernels import LAUNCHES, MAX_LAYERS, _check, _on_cuda, _stream, \
+from .kernels import LAUNCHES, MAX_LAYERS, _check, _launch_on, _on_cuda, \
     _tile_rows
 
 
@@ -116,12 +116,11 @@ def fused_mlp_train_fwd(x: torch.Tensor, ws, bs) -> torch.Tensor:
                       device=x.device)
     if x.shape[0] == 0:
         return out
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        code = lib.cst_fused_mlp_train_fwd(
-            x.data_ptr(), _ptrs(ws), _ptrs(bs), out.data_ptr(),
-            (ctypes.c_int * len(widths))(*widths), len(ws), x.shape[0],
-            _tile_rows(x.shape[0], x.device), _stream(x.device))
+    code = _launch_on(
+        x.device, _build.load().cst_fused_mlp_train_fwd, x.data_ptr(),
+        _ptrs(ws), _ptrs(bs), out.data_ptr(),
+        (ctypes.c_int * len(widths))(*widths), len(ws), x.shape[0],
+        _tile_rows(x.shape[0], x.device))
     _build.check(code, "fused_mlp_train_fwd")
     LAUNCHES["fused_mlp_train_fwd"] += 1
     return out
@@ -153,13 +152,12 @@ def fused_mlp_train_bwd(x: torch.Tensor, dy: torch.Tensor, ws, bs,
     h = scratch(rows * sum(hidden))
     dh = scratch(2 * rows * max(hidden, default=0))
     partial = scratch(chunks * (max_w + max(widths[1:])) if chunks > 1 else 0)
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        code = lib.cst_fused_mlp_train_bwd(
-            x.data_ptr(), dy.data_ptr(), _ptrs(ws), _ptrs(bs), _ptrs(dws),
-            _ptrs(dbs), (ctypes.c_int * len(widths))(*widths), len(ws), rows,
-            tile_b, _tile_rows(rows, x.device), h.data_ptr(), dh.data_ptr(),
-            partial.data_ptr(), _stream(x.device))
+    code = _launch_on(
+        x.device, _build.load().cst_fused_mlp_train_bwd, x.data_ptr(),
+        dy.data_ptr(), _ptrs(ws), _ptrs(bs), _ptrs(dws), _ptrs(dbs),
+        (ctypes.c_int * len(widths))(*widths), len(ws), rows, tile_b,
+        _tile_rows(rows, x.device), h.data_ptr(), dh.data_ptr(),
+        partial.data_ptr())
     _build.check(code, "fused_mlp_train_bwd")
     LAUNCHES["fused_mlp_train_bwd"] += 1
     return dws, dbs

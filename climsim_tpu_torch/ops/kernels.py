@@ -53,41 +53,211 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
-    (None matches any size) on ``device``."""
+def _check(t: torch.Tensor, name: str, dtype, shape, device,
+           contiguous: bool = True) -> None:
+    """Raise unless ``t`` is a ``dtype`` tensor of ``shape`` (None matches
+    any size) on ``device``, and contiguous unless told otherwise."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: want a tensor, got {type(t).__name__}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: want {dtype}, got {t.dtype}")
-    if t.dim() != len(shape) or any(
-            want is not None and got != want
-            for got, want in zip(t.shape, shape)):
-        raise ValueError(f"{name}: want shape {shape}, got {tuple(t.shape)}")
+    got = t.shape
+    if len(got) != len(shape):
+        raise ValueError(f"{name}: want shape {shape}, got {tuple(got)}")
+    for g, want in zip(got, shape):
+        if want is not None and g != want:
+            raise ValueError(f"{name}: want shape {shape}, got {tuple(got)}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, want {device}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 
 
 def _on_cuda(x: torch.Tensor, what: str) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (take the plain version); raise for any other device."""
-    if x.device.type == "cuda":
+    if x.is_cuda:
         return True
     if x.device.type == "cpu":
         return False
     raise ValueError(f"{what}: no kernel or plain path for {x.device}")
 
 
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def _launch_on(device: torch.device, entry, *args) -> int:
+    """``entry(*args, stream)``, a library entry called with the raw handle
+    of ``device``'s current stream, with ``device`` the current device
+    during the call: switched to, and back, only where another device is
+    current.  The device and stream are read by the C calls PyTorch's own
+    ``current_device`` and Triton's launcher make (no lazy-init check and
+    no Stream object a call).  Returns the entry's CUDA error code."""
+    idx = device.index
+    if torch._C._cuda_getDevice() == idx:
+        return entry(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return entry(*args, torch._C._cuda_getCurrentRawStream(idx))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(index: int) -> tuple[int, int, int]:
+    """(shared memory a block can opt in to, SMs, L2 bytes) of CUDA device
+    ``index``, read once."""
+    props = torch.cuda.get_device_properties(index)
+    return (props.shared_memory_per_block_optin, props.multi_processor_count,
+            props.L2_cache_size)
+
+
+def _ctas_an_sm(smem: int, smem_limit: int) -> int:
+    """CTAs of ``smem`` bytes of dynamic shared memory that fit an SM (at
+    most two), where an SM holds ``smem_limit`` (the block limit) + 1 KB
+    and every CTA reserves 1 KB of it (an H100: 228 KB an SM, 227 a
+    block)."""
+    return max(1, min(2, (smem_limit + 1024) // (smem + 1024)))
 
 
 # --------------------------------------------------------------------------
 # fused input transform
 # --------------------------------------------------------------------------
 TRANSFORM_ROWS = ("sub", "divinv", "mask", "lo", "hi", "lbd", "is_cloud")
+# The plan of csrc/fused_input_transform.cu: a CTA of up to
+# TRANSFORM_THREADS threads, each owning up to TRANSFORM_MAX_COLS columns;
+# tiles of whole rows, a multiple of 4 (16-byte tiles at any width), about
+# TRANSFORM_TILE_BYTES each; up to TRANSFORM_STAGES input tiles in flight a
+# CTA and two output tiles.
+TRANSFORM_THREADS = 512
+TRANSFORM_MAX_COLS = 3
+TRANSFORM_MAX_WIDTH = TRANSFORM_THREADS * TRANSFORM_MAX_COLS
+TRANSFORM_TILE_BYTES = 16384
+TRANSFORM_STAGES = 4
+TRANSFORM_ROW_THREADS = 256   # fewer threads a row than this: row phases
+TRANSFORM_DIRECT_CTAS = 8     # direct: CTAs an SM the tiles aim at,
+TRANSFORM_DIRECT_ROWS = 8     # and rows a thread at most
+
+
+@dataclass(frozen=True)
+class TransformPlan:
+    """How kernel 1 tiles one (rows, d) call."""
+    rows: int           # rows a tile (pipelined: a multiple of 4)
+    stages: int         # input tiles in flight a CTA
+    grid: int           # CTAs: CTA i takes tiles i, i + grid, ... (direct:
+                        # a tile a CTA, times col_blocks)
+    threads: int        # threads a CTA
+    row_threads: int    # threads a row phase (threads // row_threads phases)
+    cols: int           # columns a thread: j, j + row_threads, ...
+    tiles: int
+    direct: bool        # ordinary loads and stores, a tile a CTA
+    smem: int           # dynamic shared memory a CTA, bytes (0 if direct)
+    col_blocks: int = 1  # direct: CTAs a tile, row_threads columns each
+
+    def args(self, batch: int, d: int) -> ctypes.Array:
+        """The kernel's plan argument (csrc/fused_input_transform.cu
+        Plan)."""
+        return (ctypes.c_int * 12)(
+            batch, d, self.rows, self.stages, self.grid, self.threads,
+            self.row_threads, self.cols, self.smem, int(self.direct),
+            self.tiles, self.threads // self.row_threads)
+
+
+def _transform_smem(rows: int, d: int, stages: int) -> int:
+    """``stages`` input tiles and two output tiles of rows x d float32,
+    then a barrier a stage."""
+    return (stages + 2) * rows * d * 4 + 8 * stages
+
+
+def _check_transform_width(d: int) -> None:
+    if not 1 <= d <= TRANSFORM_MAX_WIDTH:
+        raise ValueError(f"a width of {d}: the input transform kernel takes "
+                         f"1..{TRANSFORM_MAX_WIDTH} columns "
+                         f"({TRANSFORM_MAX_COLS} a thread of "
+                         f"{TRANSFORM_THREADS})")
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_input_transform(rows: int, d: int, smem_limit: int, n_sm: int,
+                         l2_bytes: int, tile_rows: int | None = None,
+                         direct: bool | None = None) -> TransformPlan:
+    """Kernel 1's plan for x (rows, d) on a card with ``smem_limit`` bytes
+    of shared memory a block, ``n_sm`` SMs and ``l2_bytes`` of L2; raises
+    ValueError, with the reason, for a width it cannot take (none at a
+    width it takes at some other batch: the smallest tile and two stages
+    decide).
+
+    Direct (ordinary loads and stores) where x fits half the L2: its
+    callers hand it rows they have just written, which L2 still holds, and
+    there the pipeline only adds the copy engine's round trips
+    (``bench_io_kernels --sweep`` on an H100).  Then one column a thread,
+    a tile's columns over ``col_blocks`` CTAs, a tile a CTA, and rows a
+    tile the fewest that keep the CTAs within TRANSFORM_DIRECT_CTAS an SM,
+    but no more than TRANSFORM_DIRECT_ROWS a thread.  Else pipelined: rows
+    a tile the most (a multiple of 4) within TRANSFORM_TILE_BYTES, at
+    least 4, and no more than spreads the batch over every SM; stages the
+    most, up to TRANSFORM_STAGES, that let two CTAs share an SM, else one;
+    as many CTAs as the SMs hold, no more than tiles.  ``tile_rows`` and
+    ``direct`` replace the rules' choices (the benchmark's sweep)."""
+    _check_transform_width(d)
+    if rows < 1:
+        raise ValueError(f"rows {rows}: want at least 1")
+    cols = -(-d // TRANSFORM_THREADS)
+    row_threads = -(-d // (32 * cols)) * 32
+    threads = row_threads * max(1, TRANSFORM_ROW_THREADS // row_threads)
+    r = max(4, TRANSFORM_TILE_BYTES // (4 * d) // 4 * 4)
+    r = min(r, max(4, -(-rows // (4 * n_sm)) * 4))
+    if direct is False and tile_rows:
+        r = tile_rows
+    if r % 4:
+        raise ValueError(f"tile_rows {r}: a pipelined tile takes a multiple "
+                         "of 4 rows")
+    stages = None
+    for per_sm in (2, 1):
+        fits = [s for s in range(2, TRANSFORM_STAGES + 1)
+                if _transform_smem(r, d, s) <= smem_limit
+                and _ctas_an_sm(_transform_smem(r, d, s), smem_limit)
+                >= per_sm]
+        if fits:
+            stages = fits[-1]
+            break
+    if stages is None:
+        raise ValueError(f"a width of {d} needs {_transform_smem(r, d, 2)} B "
+                         f"of shared memory; the card has {smem_limit}")
+    if direct is None:
+        direct = 4 * rows * d <= l2_bytes // 2      # x, as read
+    col_blocks = 1
+    if direct:
+        cols = 1
+        col_blocks = -(-d // TRANSFORM_ROW_THREADS)
+        row_threads = -(-d // (32 * col_blocks)) * 32   # blocks of one size
+        phases = max(1, TRANSFORM_ROW_THREADS // row_threads)
+        threads = row_threads * phases
+        r = tile_rows or phases * min(
+            TRANSFORM_DIRECT_ROWS,
+            -(-rows * col_blocks // (TRANSFORM_DIRECT_CTAS * n_sm * phases)))
+    tiles = -(-rows // r)
+    return TransformPlan(r, stages, tiles if direct else min(tiles,
+                                                             per_sm * n_sm),
+                         threads, row_threads, cols, tiles, direct,
+                         0 if direct else _transform_smem(r, d, stages),
+                         col_blocks)
+
+
+@functools.lru_cache(maxsize=4096)
+def _transform_args(rows: int, d: int, index: int) -> ctypes.Array:
+    """The plan argument of a (rows, d) call on CUDA device ``index``,
+    built once."""
+    return plan_input_transform(rows, d, *_device_limits(index)).args(rows,
+                                                                       d)
+
+
+def check_input_transform(d: int, device) -> None:
+    """Raise, with the reason, where kernel 1 cannot take a width of ``d``:
+    past TRANSFORM_MAX_WIDTH on any device, and on a CUDA device where the
+    card's shared memory has no plan; so that a transform finds out when
+    it is built, not at a request."""
+    _check_transform_width(d)
+    device = torch.device(device)
+    if device.type == "cuda":
+        limits = _device_limits(torch.cuda.current_device()
+                                if device.index is None else device.index)
+        for rows in (1, 65536):
+            plan_input_transform(rows, d, *limits, direct=False)
 
 
 def transform_consts(*, sub, divinv, mask, lo, hi, lbd, is_cloud,
@@ -113,22 +283,46 @@ def fused_input_transform_plain(x: torch.Tensor,
 def fused_input_transform(x: torch.Tensor,
                           consts: torch.Tensor) -> torch.Tensor:
     """Raw (B, D) float32 -> normalized (B, D) float32; ``consts`` from
-    ``transform_consts``."""
-    _check(consts, "consts", torch.float32, (len(TRANSFORM_ROWS), None),
-           consts.device)
-    _check(x, "x", torch.float32, (None, consts.shape[1]), consts.device)
-    if not _on_cuda(x, "fused_input_transform"):
+    ``transform_consts``.  ``x`` may start anywhere (a view such as x[1:])."""
+    dev = consts.device if isinstance(consts, torch.Tensor) else None
+    if not (type(x) is torch.Tensor and type(consts) is torch.Tensor
+            and x.dtype == consts.dtype == torch.float32
+            and x.dim() == consts.dim() == 2
+            and consts.shape[0] == len(TRANSFORM_ROWS)
+            and x.shape[1] == consts.shape[1] and x.device == dev
+            and x.is_contiguous() and consts.is_contiguous()):
+        # not the common case at a glance: the checks, one by one
+        _check(consts, "consts", torch.float32, (len(TRANSFORM_ROWS), None),
+               dev)
+        _check(x, "x", torch.float32, (None, consts.shape[1]), dev)
+    if not (x.is_cuda or _on_cuda(x, "fused_input_transform")):
         return fused_input_transform_plain(x, consts)
-    out = torch.empty_like(x)
-    if x.shape[0] == 0:
-        return out
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        code = lib.cst_fused_input_transform(
-            x.data_ptr(), consts.data_ptr(), out.data_ptr(), x.shape[0],
-            x.shape[1], _stream(x.device))
+    rows, d = x.shape
+    out = torch.empty_like(x)   # x is contiguous: so is out
+    if rows:
+        idx = dev.index
+        fn = (_build._lib or _build.load()).cst_fused_input_transform
+        args = (x.data_ptr(), consts.data_ptr(), out.data_ptr(),
+                _transform_args(rows, d, idx))
+        # _launch_on's common case, written out: this runs once a request
+        code = (fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+                if torch._C._cuda_getDevice() == idx
+                else _launch_on(dev, fn, *args))
+        if code:
+            _build.check(code, "fused_input_transform")
+        LAUNCHES["fused_input_transform"] += 1
+    return out
+
+
+def _launch_transform(x: torch.Tensor, consts: torch.Tensor,
+                      plan: TransformPlan) -> torch.Tensor:
+    """Kernel 1 on checked CUDA tensors, tiled by ``plan`` (the benchmark's
+    sweep)."""
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    code = _launch_on(x.device, _build.load().cst_fused_input_transform,
+                      x.data_ptr(), consts.data_ptr(), out.data_ptr(),
+                      plan.args(*x.shape))
     _build.check(code, "fused_input_transform")
-    LAUNCHES["fused_input_transform"] += 1
     return out
 
 
@@ -137,6 +331,94 @@ def fused_input_transform(x: torch.Tensor,
 # --------------------------------------------------------------------------
 V5_OUT = 308        # t, q1, qn, u, v (60 each), 8 scalars
 CONTRACT_OUT = 368  # t, q1, qc, qi, u, v (60 each), 8 scalars
+# The plan of csrc/fused_constraint_head.cu: 256 column threads and one
+# thread a (row, level) of a tile of up to HEAD_MAX_ROWS rows (at most
+# HEAD_TILE_ROWS pipelined, HEAD_DIRECT_ROWS direct), up to HEAD_STAGES y
+# tiles in flight a CTA.
+HEAD_MAX_ROWS = 12
+HEAD_TILE_ROWS = 8
+HEAD_DIRECT_ROWS = 4
+HEAD_STAGES = 4
+HEAD_COL_THREADS = 256
+
+
+@dataclass(frozen=True)
+class HeadPlan:
+    """How kernel 4 tiles one call."""
+    rows: int           # rows a tile
+    stages: int         # y tiles in flight a CTA
+    grid: int           # CTAs: CTA i takes tiles i, i + grid, ...
+    threads: int
+    tiles: int
+    direct: bool        # ordinary loads and stores, a tile a CTA
+    smem: int           # dynamic shared memory a CTA, bytes (0 if direct)
+
+    def args(self, batch: int, lds) -> ctypes.Array:
+        """The kernel's geometry argument: the batch, t, qc and qi's row
+        strides, the plan (csrc/fused_constraint_head.cu)."""
+        return (ctypes.c_longlong * 11)(
+            batch, *lds, self.rows, self.stages, self.grid, self.threads,
+            self.smem, int(self.direct), self.tiles)
+
+
+def _head_smem(rows: int, stages: int) -> int:
+    """``stages`` y tiles (rows x 308), two output tiles (rows x 368),
+    float32, then a barrier a stage."""
+    return 4 * rows * (stages * V5_OUT + 2 * CONTRACT_OUT) + 8 * stages
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_constraint_head(rows: int, smem_limit: int, n_sm: int,
+                         l2_bytes: int, tile_rows: int | None = None,
+                         direct: bool | None = None) -> HeadPlan:
+    """Kernel 4's plan for ``rows`` rows, as kernel 1's: direct where its
+    inputs (y, t, qc, qi) fit half the L2 (the model's output and the raw
+    row were just written), a tile a CTA of the fewest rows that spread
+    the batch over two CTAs an SM, at most HEAD_DIRECT_ROWS; else
+    pipelined, tiles of HEAD_TILE_ROWS rows or fewer where that spreads
+    the batch over every SM, the most stages, up to HEAD_STAGES, that let
+    two CTAs share an SM, as many CTAs as the SMs hold, no more than
+    tiles.  ``tile_rows`` and ``direct`` replace the rules' choices (the
+    benchmark's sweep)."""
+    if rows < 1:
+        raise ValueError(f"rows {rows}: want at least 1")
+    if direct is None:
+        direct = 4 * rows * (V5_OUT + 3 * NUM_LEVELS) <= l2_bytes // 2
+    r = tile_rows or (min(HEAD_DIRECT_ROWS, -(-rows // (2 * n_sm)))
+                      if direct else min(HEAD_TILE_ROWS, -(-rows // n_sm)))
+    if not 1 <= r <= HEAD_MAX_ROWS:
+        raise ValueError(f"tile_rows {r}: want 1..{HEAD_MAX_ROWS}")
+    threads = HEAD_COL_THREADS + -(-r * NUM_LEVELS // 32) * 32
+    fits = [s for s in range(2, HEAD_STAGES + 1)
+            if _head_smem(r, s) <= smem_limit]
+    if not fits:
+        raise ValueError(f"the constraint head needs {_head_smem(r, 2)} B "
+                         f"of shared memory; the card has {smem_limit}")
+    two = [s for s in fits if _ctas_an_sm(_head_smem(r, s), smem_limit) > 1]
+    stages = (two or fits)[-1]
+    per_sm = min(_ctas_an_sm(_head_smem(r, stages), smem_limit),
+                 2048 // threads)
+    tiles = -(-rows // r)
+    return HeadPlan(r, stages, tiles if direct else min(tiles, per_sm * n_sm),
+                    threads, tiles, direct,
+                    0 if direct else _head_smem(r, stages))
+
+
+@functools.lru_cache(maxsize=4096)
+def _head_out(rows: int, device: torch.device) -> torch.Tensor:
+    """A (rows, 368) float32 view with stride 0 of one element on
+    ``device``, kept: ``torch.empty_like`` of it is a fresh contiguous
+    output (its input overlaps itself), allocated faster than by
+    ``torch.empty`` with a shape, a dtype and a device to parse."""
+    return torch.empty(1, dtype=torch.float32, device=device).expand(
+        rows, CONTRACT_OUT)
+
+
+@functools.lru_cache(maxsize=4096)
+def _head_args(rows: int, lds: tuple, index: int) -> ctypes.Array:
+    """The geometry argument of a call on CUDA device ``index``, built
+    once."""
+    return plan_constraint_head(rows, *_device_limits(index)).args(rows, lds)
 
 
 def constraint_head_consts(out_scale, strato_lev_out: int,
@@ -163,33 +445,94 @@ def fused_constraint_head_plain(y_norm, t, qc, qi, consts,
                      dim=1)
 
 
+def _level_strides(rows: int, dev, named) -> tuple:
+    """Check t, qc and qi ((rows, 60) float32 on ``dev``, a unit column
+    stride, a row stride of at least 60) and return their row strides (60
+    for a single row, whose stride is never read)."""
+    lds = ()
+    for name, a in named:
+        if not (type(a) is torch.Tensor and a.dtype == torch.float32
+                and a.shape == (rows, NUM_LEVELS) and a.device == dev):
+            _check(a, name, torch.float32, (rows, NUM_LEVELS), dev,
+                   contiguous=False)
+        ld, unit = a.stride()
+        if unit != 1 or (rows > 1 and ld < NUM_LEVELS):
+            raise ValueError(f"{name}: want a unit column stride and a row "
+                             f"stride of at least {NUM_LEVELS}, got strides "
+                             f"{a.stride()}")
+        lds += (ld if rows > 1 else NUM_LEVELS,)
+    return lds
+
+
 def fused_constraint_head(y_norm: torch.Tensor, t: torch.Tensor,
                           qc: torch.Tensor, qi: torch.Tensor,
                           consts: torch.Tensor, dt: float) -> torch.Tensor:
     """Normalized v5 output (B, 308) and t, qc, qi before the step (B, 60),
     all float32 -> the raw (B, 368) coupling contract; ``consts`` from
-    ``constraint_head_consts``, ``dt`` the coupling step in seconds."""
-    _check(consts, "consts", torch.float32, (2, V5_OUT), consts.device)
-    _check(y_norm, "y_norm", torch.float32, (None, V5_OUT), consts.device)
-    for name, a in (("t", t), ("qc", qc), ("qi", qi)):
-        _check(a, name, torch.float32, (y_norm.shape[0], NUM_LEVELS),
-               consts.device)
+    ``constraint_head_consts``, ``dt`` the coupling step in seconds.
+
+    t, qc and qi may be views with any row stride of at least 60 (slices of
+    the raw v4 row, which the kernel reads in place), but a unit column
+    stride; y_norm and consts contiguous."""
+    dev = consts.device if isinstance(consts, torch.Tensor) else None
+    if not (type(y_norm) is torch.Tensor and type(consts) is torch.Tensor
+            and y_norm.dtype == consts.dtype == torch.float32
+            and consts.shape == (2, V5_OUT) and y_norm.dim() == 2
+            and y_norm.shape[1] == V5_OUT and y_norm.device == dev
+            and y_norm.is_contiguous() and consts.is_contiguous()):
+        # not the common case at a glance: the checks, one by one
+        _check(consts, "consts", torch.float32, (2, V5_OUT), dev)
+        _check(y_norm, "y_norm", torch.float32, (None, V5_OUT), dev)
+    rows = y_norm.shape[0]
+    shape = (rows, NUM_LEVELS)
+    if (type(t) is torch.Tensor and type(qc) is torch.Tensor
+            and type(qi) is torch.Tensor
+            and t.dtype == qc.dtype == qi.dtype == torch.float32
+            and t.shape == shape and qc.shape == shape and qi.shape == shape
+            and t.device == dev and qc.device == dev and qi.device == dev):
+        # the common case at a glance; the strides as _level_strides has
+        # them
+        (lt, ut), (lc, uc), (li, ui) = t.stride(), qc.stride(), qi.stride()
+        lds = ((lt, lc, li) if rows > 1 and min(lt, lc, li) >= NUM_LEVELS
+               and ut == uc == ui == 1 else
+               _level_strides(rows, dev, (("t", t), ("qc", qc), ("qi", qi))))
+    else:
+        lds = _level_strides(rows, dev, (("t", t), ("qc", qc), ("qi", qi)))
     if not dt > 0:
         raise ValueError(f"dt {dt}: want a positive step")
-    if not _on_cuda(y_norm, "fused_constraint_head"):
+    if not (y_norm.is_cuda or _on_cuda(y_norm, "fused_constraint_head")):
         return fused_constraint_head_plain(y_norm, t, qc, qi, consts, dt)
-    out = torch.empty((y_norm.shape[0], CONTRACT_OUT), dtype=torch.float32,
+    out = torch.empty_like(_head_out(rows, dev))
+    if rows:
+        idx = dev.index
+        fn = (_build._lib or _build.load()).cst_fused_constraint_head
+        args = (y_norm.data_ptr(), t.data_ptr(), qc.data_ptr(),
+                qi.data_ptr(), consts.data_ptr(), out.data_ptr(),
+                _head_args(rows, lds, idx), dt)
+        # _launch_on's common case, written out: this runs once a request
+        code = (fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+                if torch._C._cuda_getDevice() == idx
+                else _launch_on(dev, fn, *args))
+        if code:
+            _build.check(code, "fused_constraint_head")
+        LAUNCHES["fused_constraint_head"] += 1
+    return out
+
+
+def _launch_head(y_norm, t, qc, qi, consts, dt: float,
+                 plan: HeadPlan) -> torch.Tensor:
+    """Kernel 4 on checked CUDA tensors, tiled by ``plan`` (the benchmark's
+    sweep)."""
+    rows = y_norm.shape[0]
+    out = torch.empty((rows, CONTRACT_OUT), dtype=torch.float32,
                       device=y_norm.device)
-    if y_norm.shape[0] == 0:
-        return out
-    lib = _build.load()
-    with torch.cuda.device(y_norm.device):
-        code = lib.cst_fused_constraint_head(
-            y_norm.data_ptr(), t.data_ptr(), qc.data_ptr(), qi.data_ptr(),
-            consts.data_ptr(), out.data_ptr(), y_norm.shape[0], dt,
-            _stream(y_norm.device))
+    lds = _level_strides(rows, y_norm.device,
+                         (("t", t), ("qc", qc), ("qi", qi)))
+    code = _launch_on(y_norm.device, _build.load().cst_fused_constraint_head,
+                      y_norm.data_ptr(), t.data_ptr(), qc.data_ptr(),
+                      qi.data_ptr(), consts.data_ptr(), out.data_ptr(),
+                      plan.args(rows, lds), dt)
     _build.check(code, "fused_constraint_head")
-    LAUNCHES["fused_constraint_head"] += 1
     return out
 
 
@@ -414,12 +757,10 @@ def _launch_mlp(entry: str, x: torch.Tensor, mlp: PackedMLP,
         raise ValueError(f"{entry}: packed weights must be 16-byte aligned "
                          "(the kernel loads 4 columns at a time)")
     widths = (ctypes.c_int * len(mlp.widths))(*mlp.widths)
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        code = getattr(lib, "cst_" + entry)(
-            x.data_ptr(), mlp.w.data_ptr(), mlp.b.data_ptr(), out.data_ptr(),
-            widths, len(mlp.widths) - 1, x.shape[0], relu_tail, tb,
-            _stream(x.device))
+    code = _launch_on(
+        x.device, getattr(_build.load(), "cst_" + entry), x.data_ptr(),
+        mlp.w.data_ptr(), mlp.b.data_ptr(), out.data_ptr(), widths,
+        len(mlp.widths) - 1, x.shape[0], relu_tail, tb)
     _build.check(code, entry)
     return out
 
@@ -608,19 +949,19 @@ def _launch_wgmma(x: torch.Tensor, mlp: PackedMLP, relu_tail: int,
     lib = _build.load()
     tail = (x.shape[0], relu_tail, plan.nwg, plan.nb, plan.cluster,
             plan.stages)
-    with torch.cuda.device(x.device):
-        if int8:
-            code = lib.cst_fused_mlp_forward_int8(
-                x.data_ptr(), mlp.w.data_ptr(), mlp.scale.data_ptr(),
-                mlp.b.data_ptr(), out.data_ptr(), act.data_ptr(), widths,
-                len(mlp.widths) - 1, *tail, _stream(x.device))
-            entry = "fused_mlp_forward_int8"
-        else:
-            code = lib.cst_fused_mlp_forward_bf16(
-                x.data_ptr(), mlp.w.data_ptr(), mlp.b.data_ptr(),
-                out.data_ptr(), act.data_ptr(), widths, len(mlp.widths) - 1,
-                *tail, passes, _stream(x.device))
-            entry = "fused_mlp_forward_bf16"
+    if int8:
+        code = _launch_on(
+            x.device, lib.cst_fused_mlp_forward_int8, x.data_ptr(),
+            mlp.w.data_ptr(), mlp.scale.data_ptr(), mlp.b.data_ptr(),
+            out.data_ptr(), act.data_ptr(), widths, len(mlp.widths) - 1,
+            *tail)
+        entry = "fused_mlp_forward_int8"
+    else:
+        code = _launch_on(
+            x.device, lib.cst_fused_mlp_forward_bf16, x.data_ptr(),
+            mlp.w.data_ptr(), mlp.b.data_ptr(), out.data_ptr(),
+            act.data_ptr(), widths, len(mlp.widths) - 1, *tail, passes)
+        entry = "fused_mlp_forward_bf16"
     _build.check(code, entry)
     return out
 

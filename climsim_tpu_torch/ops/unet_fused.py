@@ -35,7 +35,7 @@ import torch.nn.functional as F
 
 from ..models.unet import _num_groups
 from . import _build
-from .kernels import LAUNCHES, _check, _on_cuda, _stream
+from .kernels import LAUNCHES, _check, _launch_on, _on_cuda
 
 EPS = 1e-6
 MAX_LEVELS = 64   # a sample fits one warpgroup's 64 rows
@@ -284,13 +284,11 @@ def fused_gn_silu_conv3(x: torch.Tensor, gamma: torch.Tensor,
 def _launch(x, gamma, beta, w, b, out, plan: GnPlan) -> None:
     """The kernel on checked CUDA tensors, tiled by ``plan``."""
     bsz, l, c = x.shape
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        code = lib.cst_fused_gn_silu_conv3(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(),
-            b.data_ptr(), out.data_ptr(), bsz, l, c, w.shape[2],
-            _num_groups(c), EPS, plan.nwg, plan.nt, plan.stages,
-            plan.samples, _stream(x.device))
+    code = _launch_on(
+        x.device, _build.load().cst_fused_gn_silu_conv3, x.data_ptr(),
+        gamma.data_ptr(), beta.data_ptr(), w.data_ptr(), b.data_ptr(),
+        out.data_ptr(), bsz, l, c, w.shape[2], _num_groups(c), EPS, plan.nwg,
+        plan.nt, plan.stages, plan.samples)
     _build.check(code, "fused_gn_silu_conv3")
 
 
