@@ -57,21 +57,28 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    path on the card; the launch counts of kernels 1, 4 and 5 must have
    risen in that run.  Kernel 5 must give a sample the same bits in any
    batch: 50 rows alone and inside 384, 7 alone and inside 1024.
-7. Checks the fused MLP-training kernel (kernel 6) against its plain
-   version on the card, forward and backward, at the v1 widths (124 ->
-   768, 640, 512, 640, 640 -> 128) and the MLP_v2rh widths (557 -> 1024
-   x 4 -> 368), B = 1, 7, 384, 32768, and a hidden width of 2 mod 4 at
-   B = 1, 7: the forward within kernel 2's tolerance; dW and db within
-   K6_GRAD_TOL (rel-L2 and cosine a tensor), with a float32 control that
-   must fail it, two runs bit-equal, and two values of tile_b within the
-   JAX test's tolerance; then times forward, backward and both against
-   plain autograd at B = 32768.
+7. Checks the fused MLP-training kernel (kernel 6: its pack, its forward
+   on kernel 2's tensor-core kernel, its backward's recompute and TMA-fed
+   wgmma GEMM) against its plain version on the card, forward and
+   backward, at the v1 widths (124 -> 768, 640, 512, 640, 640 -> 128) and
+   the MLP_v2rh widths (557 -> 1024 x 4 -> 368), B = 1, 7, 384, 32768,
+   and ragged widths (124, 130, 128, 10) at B = 1, 7: the forward within
+   kernel 2's tolerance; dW and db within K6_GRAD_TOL (rel-L2 and cosine
+   a tensor), with a float32 control that must fail it, two runs
+   bit-equal, and two values of tile_b within the JAX test's tolerance.
+   The pack must be bit-equal to its plain version, the forward with one
+   bf16 pass (a planted fault) must fail the forward tolerance at v1, B =
+   32768, and the plan's GEMM shared memory and partials must be the
+   kernel's own.  Then times the pack, and forward, backward and both (through
+   make_fused_mlp_train) against the plain versions and plain autograd
+   at K6_TIMED, beside the bound, the three-pass floor and a cuBLAS bf16
+   chain of the same products.
 8. Trains through kernel 6: 30 Adam steps on one fixed 32768-row batch at
    the v1 widths; the loss must fall by 10% and follow the same 30 steps
    through the plain version within K6_CURVE_TOL, which the plain
    version with its last layer frozen must fail (the float32 control's
-   curve is printed); both kernels' launch counts must have risen in
-   that run.
+   curve is printed); the pack's, the forward's and the backward's
+   launch counts must have risen in that run, 30 or more each.
 9. The slice's main path: trains the full-width v1 MLP (weights from a
    flax-layout tree made from --seed, moved across by port_flax_mlp)
    through mlp_trainer, DeviceResidentLoader (196,608 rows,
@@ -116,6 +123,7 @@ Without a CUDA device it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -200,6 +208,9 @@ GN_STEPPED = (8, 1024, 512)
 # E[x^2] - mean^2, fails there.
 # Kernel 6, the fused MLP-training kernel (forward and backward).
 K6_SOURCES = {
+    "fused_mlp_train_pack": (
+        "climsim_tpu_torch/ops/csrc/fused_mlp_train_fwd.cu",
+        "climsim_tpu/ops/fused_mlp_train.py:57"),
     "fused_mlp_train_fwd": (
         "climsim_tpu_torch/ops/csrc/fused_mlp_train_fwd.cu",
         "climsim_tpu/ops/fused_mlp_train.py:50"),
@@ -213,9 +224,13 @@ TRAINABLE_SOURCE = ("climsim_tpu_torch/ops/unet_fused.py:145",
 V1_WIDTHS = (124, 768, 640, 512, 640, 640, 128)
 V2RH_WIDTHS = (557, 1024, 1024, 1024, 1024, 368)
 K6_ROWS = (1, 7, 384, 32768)
+# kernel 6 timed (device time, back-to-back calls) at these (widths, B);
+# the first is the one the kernels line reports
+K6_TIMED = (("v1", 32768), ("v2rh", 32768), ("v1", 384), ("v2rh", 384),
+            ("v1", 1), ("v1", 7))
 # (label, widths, batch sizes, whether the float32 control must fail):
-# the two served MLPs, then a hidden width of 2 mod 4 at odd B, where the
-# recompute's saved second layer starts off a 16-byte boundary
+# the two served MLPs, then ragged widths (a hidden width of 2 mod 64, an
+# output of 10) that the padded layers and saves must take at odd B
 K6_NETS = (("v1", V1_WIDTHS, K6_ROWS, True),
            ("v2rh", V2RH_WIDTHS, K6_ROWS, True),
            ("ragged", (124, 130, 128, 10), (1, 7), False))
@@ -1184,34 +1199,127 @@ def kernel6_checks(torch, FT, seed):
                   f"{err[0]:.3e}; bwd rel-L2 max {max(rels):.3e} cos min "
                   f"{min(coss):.8f}; control rel-L2 min {min(ctls):.3e}; "
                   "bit-equal; tile_b ok", flush=True)
-    ws, bs = k6_net(torch, g, V1_WIDTHS)
+    # the pack against its plain version, and the planted fault: the
+    # forward with the activations' hi part alone (one bf16 pass) must fail
+    # the forward tolerance at v1, B = 32768
+    nets = {"v1": k6_net(torch, g, V1_WIDTHS),
+            "v2rh": k6_net(torch, g, V2RH_WIDTHS)}
+    ws, bs = nets["v1"]
     x = torch.randn(32768, V1_WIDTHS[0], device="cuda", generator=g)
-    dy = torch.randn(32768, V1_WIDTHS[-1], device="cuda", generator=g) / 32768
-    res["ms"], res["plain_ms"] = {}, {}
-    res["ms"]["fwd"], res["plain_ms"]["fwd"] = compare_timed(
-        torch, lambda: FT.fused_mlp_train_fwd(x, ws, bs),
-        lambda: FT.fused_mlp_train_fwd_plain(x, ws, bs), 5)
-    res["ms"]["bwd"], res["plain_ms"]["bwd"] = compare_timed(
-        torch, lambda: FT.fused_mlp_train_bwd(x, dy, ws, bs),
-        lambda: FT.fused_mlp_train_bwd_plain(x, dy, ws, bs), 5)
-    wg = [w.clone().requires_grad_() for w in ws]
-    bg = [b.clone().requires_grad_() for b in bs]
-    fused = FT.make_fused_mlp_train(V1_WIDTHS)
+    pack = FT.pack_train_params(ws, bs)
+    want = FT.pack_train_params_plain(ws, bs)
+    require(torch.equal(pack.w, want.w) and torch.equal(pack.b, want.b),
+            "fused_mlp_train_pack differs from its plain version")
+    res["pack_ms"], res["pack_plain_ms"] = compare_timed(
+        torch, lambda: FT.pack_train_params(ws, bs),
+        lambda: FT.pack_train_params_plain(ws, bs), 20)
+    plan = FT._train_plan(32768, V1_WIDTHS, K6_TILE_B[0], x.device)
+    yp = FT.fused_mlp_train_fwd_plain(x, ws, bs)
+    faults = {}
+    for passes in (1, 3):
+        y1 = FT._launch_forward(x, pack, plan, passes)
+        faults[passes] = outside(y1, yp, *TOL["fused_mlp_forward"])
+    print(f"  kernel 6 forward v1 B=32768 with the hi part alone: "
+          f"{faults[1]:.4%} outside {TOL['fused_mlp_forward']} (three "
+          f"passes: {faults[3]:.4%}); pack bit-equal to plain", flush=True)
+    require(faults[3] == 0 and faults[1] > 0, "kernel 6's forward with one "
+            "bf16 pass passes the tolerance: the check cannot see the split")
+    res["one_pass_fault_outside"] = faults[1]
+    lib = FT._build.load()
+    for bn in FT.GEMM_BN:
+        for st in range(2, FT.GEMM_MAX_STAGES + 1):
+            require(lib.cst_mlp_train_gemm_smem(bn, st) == FT._gemm_smem(bn, st),
+                    f"_gemm_smem({bn}, {st}) is not the kernel's layout")
+    require(lib.cst_fused_mlp_train_partials(
+        (ctypes.c_int * len(V1_WIDTHS))(*V1_WIDTHS), len(V1_WIDTHS) - 1,
+        32768, plan.args()) == plan.partial,
+        "plan_mlp_train's partials are not the kernel's count")
+    # device time (CUDA events around back-to-back calls), in turns plain,
+    # kernel, kernel, plain; beside them a cuBLAS bf16 chain of the same
+    # products, one pass (a yardstick the port never calls): the forward's,
+    # and the backward's dW and dh products on bf16 operands
+    res["ms"], res["plain_ms"], res["cublas_chain_ms"] = {}, {}, {}
+    res["bounds"] = {}
+    for label, b in K6_TIMED:
+        widths = dict(v1=V1_WIDTHS, v2rh=V2RH_WIDTHS)[label]
+        ws, bs = nets[label]
+        x = torch.randn(b, widths[0], device="cuda", generator=g)
+        dy = torch.randn(b, widths[-1], device="cuda", generator=g) / b
+        iters = 5 if b > 384 else 20
+        t, tp, tc = {}, {}, {}
+        t["fwd"], tp["fwd"] = compare_timed(
+            torch, lambda: FT.fused_mlp_train_fwd(x, ws, bs),
+            lambda: FT.fused_mlp_train_fwd_plain(x, ws, bs), iters)
+        t["bwd"], tp["bwd"] = compare_timed(
+            torch, lambda: FT.fused_mlp_train_bwd(x, dy, ws, bs),
+            lambda: FT.fused_mlp_train_bwd_plain(x, dy, ws, bs), iters)
+        wg = [w.clone().requires_grad_() for w in ws]
+        bg = [c.clone().requires_grad_() for c in bs]
 
-    def step(apply):
-        def run():
-            y = apply(x, wg, bg)
-            y.backward(dy)
-        return run
+        def step(apply):
+            def run():
+                apply(x, wg, bg).backward(dy)
+            return run
 
-    res["ms"]["fwd_bwd"], res["plain_ms"]["fwd_bwd_autograd"] = \
-        compare_timed(torch, step(fused), step(FT.fused_mlp_train_fwd_plain),
-                      5)
-    for k, v in res["ms"].items():
-        print(f"  kernel 6 v1 B=32768 {k}: kernel {v:.3f} ms", flush=True)
-    for k, v in res["plain_ms"].items():
-        print(f"  kernel 6 v1 B=32768 {k}: plain {v:.3f} ms", flush=True)
+        t["fwd_bwd"], tp["fwd_bwd_autograd"] = compare_timed(
+            torch, step(FT.make_fused_mlp_train(widths)),
+            step(FT.fused_mlp_train_fwd_plain), iters)
+        wb = [w.to(torch.bfloat16) for w in ws]
+        bb = [c.to(torch.bfloat16) for c in bs]
+        hs = [h.to(torch.bfloat16) for h in
+              FT._forward_acts(x, ws, bs)[:-1]]
+        dyb = dy.to(torch.bfloat16)
+
+        def fwd_chain():
+            h = x.to(torch.bfloat16)
+            for i, (w, c) in enumerate(zip(wb, bb)):
+                h = h @ w + c
+                if i < len(wb) - 1:
+                    h = torch.relu(h)
+            return h
+
+        def bwd_chain():
+            d = dyb
+            for i in range(len(wb) - 1, -1, -1):
+                hs[i].t() @ d
+                if i:
+                    d = (d @ wb[i].t()) * (hs[i] > 0)
+            return d
+
+        tc["fwd"] = time_ms(torch, fwd_chain, iters)
+        tc["bwd"] = time_ms(torch, bwd_chain, iters)
+        key = f"{label}_B{b}"
+        res["ms"][key], res["plain_ms"][key] = t, tp
+        res["cublas_chain_ms"][key] = tc
+        res["bounds"][key] = k6_bounds(widths, b)
+        print(f"  kernel 6 {label} B={b}: " + ", ".join(
+            f"{k} {v:.4f} ms (plain {tp[k if k != 'fwd_bwd' else 'fwd_bwd_autograd']:.4f})"
+            for k, v in t.items()) + f"; cuBLAS bf16 chain fwd {tc['fwd']:.4f}"
+            f" bwd {tc['bwd']:.4f}; bound / three-pass floor "
+            + ", ".join(f"{k} {v['bound_ms']:.4f} / "
+                        f"{v['three_pass_floor_ms']:.4f}"
+                        for k, v in res["bounds"][key].items()), flush=True)
     return res
+
+
+def k6_bounds(widths, b):
+    """Kernel 6's forward and backward at batch b: the bound (bytes over
+    the memory rate or one bf16 product a multiply-add over the bf16 peak,
+    the larger) and the three-pass floor (the forward's and the
+    recompute's products taken three times: float32 activations against
+    bf16 weights)."""
+    nbytes, ops, n_w, n_b = mlp_work(widths, b, 4)
+    first = widths[0] * widths[1]       # dx is not computed
+    bwd_bytes = 4 * b * (widths[0] + widths[-1]) + 8 * (n_w + n_b)
+    out = {}
+    for name, by, one, three in (
+            ("fwd", nbytes, ops, 3 * ops),
+            ("bwd", bwd_bytes, 2 * b * (3 * n_w - first),
+             2 * b * (5 * n_w - first))):
+        ms, bound_by = bound(by, one, "bf16")
+        out[name] = {"bound_ms": ms, "bound_by": bound_by,
+                     "three_pass_floor_ms": bound(by, three, "bf16")[0]}
+    return out
 
 
 def kernel6_training(torch, FT, K, seed):
@@ -1844,6 +1952,12 @@ def kernel_bounds():
     out["fused_mlp_train_bwd"] = bound(
         4 * b * (V1_WIDTHS[0] + V1_WIDTHS[-1]) + 8 * (n_w + n_b),
         2 * b * (3 * n_w - first), "bf16")
+    # the pack: float32 weights and biases in, the padded bf16 weights and
+    # float32 biases out
+    kp = [-(-w // 64) * 64 for w in V1_WIDTHS]
+    out["fused_mlp_train_pack"] = bound(
+        4 * (n_w + n_b) + 2 * sum(kp[:-1]) * max(kp[1:]) + 4 * sum(kp[1:]),
+        0, "bf16")
     return out
 
 
@@ -1911,15 +2025,30 @@ def main(argv=None) -> int:
                   f"{log[i + 2].split('ptxas info    :')[-1].strip()}")
             require(" 0 bytes spill stores" in log[i + 1],
                     f"fused_gn_silu_conv3 <{tiles}> spills")
-        # kernels 2 and 3's: (int8, rows / 64, chunks a CTA)
+        # kernels 2, 3 and 6's: (int8, rows / 64, chunks a CTA, kernel 6's
+        # float32 sums and saves)
         if "Function properties for" in line and "mlp_wgmma_kernel" in line:
             tmpl = line.split("kernelILb")[1].split("EE")[0].replace(
-                "ELi", ",")
-            print(f"  ptxas: fused MLP <int8, NWG, NB> = <{tmpl}>: "
-                  f"{log[i + 1].strip()}; "
+                "ELi", ",").replace("ELb", ",")
+            print(f"  ptxas: fused MLP <int8, NWG, NB, f32> = "
+                  f"<{tmpl}>: {log[i + 1].strip()}; "
                   f"{log[i + 2].split('ptxas info    :')[-1].strip()}")
             require(" 0 bytes spill stores" in log[i + 1],
                     f"the fused MLP <{tmpl}> spills")
+        # kernel 6's backward GEMM <form (0 dW, 1 dh), BN> and its passes
+        if "Function properties for" in line and any(
+                k in line for k in ("gemm_kernel", "pack_kernel",
+                                    "prep_kernel", "reduce_kernel")):
+            kname = next(k for k in ("gemm_kernel", "pack_kernel",
+                                     "prep_kernel", "reduce_kernel")
+                         if k in line)
+            if kname == "gemm_kernel":
+                kname += "<" + line.split("gemm_kernelILi")[1].split(
+                    "EE")[0].replace("ELi", ",") + ">"
+            print(f"  ptxas: {kname}: {log[i + 1].strip()}; "
+                  f"{log[i + 2].split('ptxas info    :')[-1].strip()}")
+            require(" 0 bytes spill stores" in log[i + 1],
+                    f"{kname} spills")
         # kernels 1 and 4 (kernel 1 a columns-a-thread instantiation)
         if "Function properties for" in line and (
                 "transform_kernel" in line
@@ -2172,22 +2301,47 @@ def main(argv=None) -> int:
     kernels.append(io_entry(
         "fused_constraint_head", *UNET_SOURCES["fused_constraint_head"],
         launches5["fused_constraint_head"], head, "B=384"))
+    main_k6 = "v1_B32768"
     for name, (source, replaces) in K6_SOURCES.items():
         d = name.rsplit("_", 1)[1]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": k6_launches[name],
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": k6_launches[name]}
+        if d == "pack":
+            entry.update({"max_abs_err": 0.0,
+                          "bit_equal": "to its plain version, v1 widths",
+                          "ms": k6["pack_ms"], "plain_ms": k6["pack_plain_ms"],
+                          "ms_is": "v1 widths"})
+            kernels.append(entry)
+            continue
+        entry.update({
             "max_abs_err": k6[f"{d}_max_abs_err"],
-            "ms": k6["ms"][d], "plain_ms": k6["plain_ms"][d],
-            "ms_is": "v1 widths, B=32768",
+            "ms": k6["ms"][main_k6][d], "plain_ms": k6["plain_ms"][main_k6][d],
+            "ms_is": "v1 widths, B=32768 (CUDA events, back-to-back calls)",
+            "bound_ms": k6["bounds"][main_k6][d]["bound_ms"],
+            "bound_by": k6["bounds"][main_k6][d]["bound_by"],
+            "three_pass_floor_ms":
+                k6["bounds"][main_k6][d]["three_pass_floor_ms"],
+            "cublas_chain_ms": k6["cublas_chain_ms"][main_k6][d],
+            "by_shape": {k: {"ms": v[d], "plain_ms": k6["plain_ms"][k][d],
+                             "cublas_chain_ms": k6["cublas_chain_ms"][k][d],
+                             **k6["bounds"][k][d]}
+                         for k, v in k6["ms"].items()},
+            **({"one_pass_fault_outside": k6["one_pass_fault_outside"]}
+               if d == "fwd" else {}),
             **({"max_rel_l2": k6["bwd_max_rel_l2"],
                 "min_cosine": k6["bwd_min_cos"],
                 "control_min_rel_l2": k6["control_min_rel_l2"],
                 "tile_b_max_abs_err": k6["tile_b_max_abs_err"],
-                "fwd_bwd_ms": k6["ms"]["fwd_bwd"],
+                "fwd_bwd_ms": k6["ms"][main_k6]["fwd_bwd"],
                 "fwd_bwd_autograd_plain_ms":
-                    k6["plain_ms"]["fwd_bwd_autograd"],
+                    k6["plain_ms"][main_k6]["fwd_bwd_autograd"],
+                "fwd_bwd_by_shape": {
+                    k: {"ms": v["fwd_bwd"],
+                        "autograd_plain_ms":
+                            k6["plain_ms"][k]["fwd_bwd_autograd"]}
+                    for k, v in k6["ms"].items()},
                 "training_curve_gaps": k6_gaps} if d == "bwd" else {})})
+        kernels.append(entry)
     kernels.append({
         "name": "make_trainable_fused_block", "route": "cuda",
         "source": TRAINABLE_SOURCE[0], "replaces": TRAINABLE_SOURCE[1],

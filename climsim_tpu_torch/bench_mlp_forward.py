@@ -11,12 +11,13 @@ beside its bound, the larger of the bytes it must move (x in, y out, the
 weights, biases and scales once) over 3.35 TB/s and its products over 989
 TFLOP/s bf16 (H100 SXM data sheet, dense).
 
-``--old DIR`` also builds the kernel library of the checkout in DIR (an
-earlier commit, unpacked with ``git archive`` into a git-ignored
-directory), loads it beside this one and times the two in turns, old,
-new, new, old, on the same inputs.  Its entries are taken with the
-argument lists they had before the tensor-core kernel (the plain packed
-layout and a tile height: 16 rows a block from 16 x SMs rows on, else 4).
+``--old DIR`` also imports the port of the checkout in DIR (an earlier
+commit with the tensor-core kernel, unpacked with ``git archive`` into a
+git-ignored directory) beside this one as the package ``cst_old``, whose
+wrappers build and load that checkout's own kernel library, packs the
+same weights with its ``pack_mlp``, times the two in turns, old, new,
+new, old, on the same inputs, and says whether the two give the same
+bits.
 ``--sweep`` times every (cluster, rows a tile, stages) that fits at each
 batch; each must give the plan's output bit for bit (the K order does not
 depend on the tiling): how the plan's rules were settled.
@@ -31,18 +32,15 @@ device it exits non-zero.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import dataclasses
 import json
-import os
 import subprocess
 import sys
-from pathlib import Path
-from types import SimpleNamespace
 
 import numpy as np
 
 from .bench_gn_conv3 import BF16_OPS_S, HBM_BYTES_S, time_ms
+from .bench_io_kernels import load_old
 
 WIDTHS = (557, 1024, 1024, 1024, 1024, 368)   # MLP_v2rh
 RELU_TAIL = 8
@@ -71,65 +69,6 @@ def random_mlp(seed: int, widths=WIDTHS):
     bs = [(0.1 * rng.standard_normal(o)).astype(np.float32)
           for o in widths[1:]]
     return ws, bs
-
-
-def load_old(root: str):
-    """Build the kernel library of the checkout at ``root`` (in a child
-    process, from that checkout's own ``ops/_build.py``) and return
-    ``fn(x, flat, relu_tail) -> out`` on its fused-MLP entries, bf16 and
-    int8, with their argument lists before the tensor-core kernel; ``flat``
-    is ``flat_pack``'s."""
-    import torch
-
-    root = str(Path(root).resolve())
-    res = subprocess.run(
-        [sys.executable, "-c", "from climsim_tpu_torch.ops import _build; "
-         "print(_build.build())"], cwd=root, capture_output=True, text=True,
-        env={**os.environ, "PYTHONPATH": root}, check=False)
-    if res.returncode != 0:
-        raise RuntimeError(f"building {root} failed:\n{res.stdout}"
-                           f"{res.stderr}")
-    lib = ctypes.CDLL(res.stdout.strip().splitlines()[-1])
-    P, I = ctypes.c_void_p, ctypes.c_int
-    bf16 = lib.cst_fused_mlp_forward_bf16
-    bf16.argtypes = [P] * 4 + [ctypes.POINTER(I)] + [I] * 4 + [P]
-    int8 = lib.cst_fused_mlp_forward_int8
-    int8.argtypes = [P] * 5 + [ctypes.POINTER(I)] + [I] * 4 + [P]
-    bf16.restype = int8.restype = I
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-
-    def run(x, flat, relu_tail):
-        rows = x.shape[0]
-        out = torch.empty(rows, flat.widths[-1], device=x.device)
-        widths = (I * len(flat.widths))(*flat.widths)
-        tail = (widths, len(flat.widths) - 1, rows, relu_tail,
-                16 if rows >= 16 * n_sm else 4,
-                torch.cuda.current_stream().cuda_stream)
-        if flat.w.dtype == torch.int8:
-            code = int8(x.data_ptr(), flat.w.data_ptr(), flat.scale.data_ptr(),
-                        flat.b.data_ptr(), out.data_ptr(), *tail)
-        else:
-            code = bf16(x.data_ptr(), flat.w.data_ptr(), flat.b.data_ptr(),
-                        out.data_ptr(), *tail)
-        if code != 0:
-            raise RuntimeError(f"the old kernel returned CUDA error {code}")
-        return out
-
-    return run
-
-
-def flat_pack(torch, mlp):
-    """``mlp``'s buffers in the layout the kernels took before the
-    tensor-core kernel: every layer's (d_in, d_out) weights row-major, its
-    biases and its scales, each concatenated, unpadded."""
-    layers = list(mlp.layers())
-
-    def cat(i):
-        return (None if layers[0][i] is None else
-                torch.cat([t[i].reshape(-1) for t in layers]).contiguous())
-
-    return SimpleNamespace(widths=mlp.widths, w=cat(0), b=cat(1),
-                           scale=cat(2))
 
 
 def outside(torch, got, want, rtol=TOL[0], atol=TOL[1]) -> float:
@@ -187,8 +126,11 @@ def main(argv=None) -> int:
     rows_out, bad = [], []
     for w, dt in (("bf16", torch.bfloat16), ("int8", "int8")):
         mlp = K.pack_mlp(ws, bs, dt, dev)
-        flat = flat_pack(torch, mlp)
         new = K.fused_mlp_forward_int8 if w == "int8" else K.fused_mlp_forward
+        if old:
+            old_mlp = old.pack_mlp(ws, bs, dt, dev)
+            old_fn = (old.fused_mlp_forward_int8 if w == "int8"
+                      else old.fused_mlp_forward)
         plain = (K.fused_mlp_forward_int8_plain if w == "int8"
                  else K.fused_mlp_forward_plain)
         for b in batches:
@@ -198,7 +140,10 @@ def main(argv=None) -> int:
             got = new(x, mlp, RELU_TAIL)
             share = {"new": outside(torch, got, want)}
             if old:
-                share["old"] = outside(torch, old(x, flat, RELU_TAIL), want)
+                old_out = old_fn(x, old_mlp, RELU_TAIL)
+                share["old"] = outside(torch, old_out, want)
+                same = torch.equal(torch.nan_to_num(old_out),
+                                   torch.nan_to_num(got))
             if w == "bf16":
                 bad += [f"{k} bf16 kernel at B={b}: {v:.3%} outside {TOL}"
                         for k, v in share.items() if v > 0]
@@ -207,11 +152,11 @@ def main(argv=None) -> int:
                 return new(x, mlp, RELU_TAIL)
 
             if old:
-                o1 = time_ms(torch, lambda: old(x, flat, RELU_TAIL),
+                o1 = time_ms(torch, lambda: old_fn(x, old_mlp, RELU_TAIL),
                              args.iters)
                 n1 = time_ms(torch, new_fn, args.iters)
                 n2 = time_ms(torch, new_fn, args.iters)
-                o2 = time_ms(torch, lambda: old(x, flat, RELU_TAIL),
+                o2 = time_ms(torch, lambda: old_fn(x, old_mlp, RELU_TAIL),
                              args.iters)
                 t = {"new": (n1 + n2) / 2, "old": (o1 + o2) / 2}
             else:
@@ -222,6 +167,8 @@ def main(argv=None) -> int:
                    "plan": {"cluster": plan.cluster, "rows": plan.rows,
                             "nb": plan.nb, "stages": plan.stages,
                             "grid": plan.grid, "smem": plan.smem}}
+            if old:
+                row["bit_equal_to_old"] = same
             if args.sweep:
                 row["sweep_ms"] = {}
                 for p in sweep_plans(K, b, mlp, props, w == "int8"):
@@ -239,7 +186,8 @@ def main(argv=None) -> int:
             rows_out.append(row)
             print(f"{w} B={b:5d}: " + "  ".join(
                 f"{k} {v:.4f} ms" for k, v in t.items())
-                + (f"  new/old {t['new'] / t['old']:.4f}" if old else "")
+                + (f"  new/old {t['new'] / t['old']:.4f}  bit-equal to old "
+                   f"{same}" if old else "")
                 + "  outside " + " ".join(f"{k} {v:.4%}"
                                           for k, v in share.items())
                 + f"  bound {bound:.5f} ms ({by})  plan cluster "

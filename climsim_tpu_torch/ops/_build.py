@@ -61,14 +61,26 @@ _SIGNATURES = {
     "cst_fused_gn_silu_conv3": (
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
         _I),
-    # x, w[], b[], out, widths, n_layers, rows, tile_rows, stream
+    # w[], b[], widths, n_layers, packed w, packed b, stream
+    "cst_fused_mlp_train_pack": (
+        [_PP, _PP, ctypes.POINTER(_I), _I, _P, _P, _P], _I),
+    # x, packed w, packed b, out, act, widths, n_layers, rows, nwg, nb,
+    # cluster, stages, passes, stream
     "cst_fused_mlp_train_fwd": (
-        [_P, _PP, _PP, _P, ctypes.POINTER(_I), _I, _I, _I, _P], _I),
-    # x, dy, w[], b[], dw[], db[], widths, n_layers, rows, tile_b,
-    # tile_rows, h, dh, partial, stream
+        [_P, _P, _P, _P, _P, ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _I,
+         _P], _I),
+    # x, dy, packed w, packed b, dw[], db[], widths, n_layers, rows, plan
+    # (TrainPlan.args), act, save, xb, dh0, dh1, partial, partial floats,
+    # stream
     "cst_fused_mlp_train_bwd": (
-        [_P, _P, _PP, _PP, _PP, _PP, ctypes.POINTER(_I), _I, _I, _I, _I, _P,
-         _P, _P, _P], _I),
+        [_P, _P, _P, _P, _PP, _PP, ctypes.POINTER(_I), _I, _I,
+         ctypes.POINTER(_I), _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P],
+        _I),
+    # widths, n_layers, rows, plan
+    "cst_fused_mlp_train_partials": (
+        [ctypes.POINTER(_I), _I, _I, ctypes.POINTER(_I)], ctypes.c_longlong),
+    # bn, stages
+    "cst_mlp_train_gemm_smem": ([_I, _I], _I),
 }
 
 _lock = threading.Lock()

@@ -2,283 +2,299 @@
 // (kernel 6).
 //
 // Replaces climsim_tpu/ops/fused_mlp_train.py _bwd_kernel (:64, the
-// pl.pallas_call at :177).  Given x (B, d_0) and dy (B, d_n):
-//   recompute the forward (the device code of the forward, mlp_train.cuh);
-//   for layer i from the last down, with dh = dy first:
-//     dW_i = bf16(h_{i-1})^T . bf16(dh)     (h_{-1} = x), float32 sums
-//     db_i = sum over rows of dh            float32, not rounded
-//     dh  <- (bf16(dh) . bf16(W_i)^T) * [h_{i-1} > 0]
-// The roundings are those of :87-106; no gradient for x (:190).
+// pl.pallas_call at :177).  Given x (B, d_0), dy (B, d_n) and the forward's
+// bf16 pack:
+//   recompute the forward (kernel 2's device code and plan, as the
+//   forward ran it), keeping each hidden h_l rounded to bf16;
+//   for layer l from the last down, with dh = dy first:
+//     dW_l = bf16(h_{l-1})^T bf16(dh)     (h_{-1} = x), float32 sums
+//     db_l = sum over rows of dh          float32, not rounded
+//     dh  <- (bf16(dh) bf16(W_l)^T) * [h_{l-1} > 0]
+// The roundings are those of :87-106 (RN); no gradient for x (:190).
 //
-// Bound on the H100: at B = 32,768 the v1 MLP's backward is ~340 GFLOP
-// (the recompute's 114 on the float32 FMA pipes, ~227 of bf16 products)
-// against ~0.5 GB of saved activations written and read.  Both operands of
-// every backward product are bf16, so those run on the tensor cores
-// (warp-level WMMA, 16x16x16 bf16 tiles, float32 sums; no wgmma, no TMA
-// yet), and the recompute on the FMA pipes bounds the whole.
+// Bound on the H100: the products.  At B = 32,768 the v1 MLP's backward
+// is 113.6 GFLOP of dW and 107.4 of dh products (bf16 x bf16), and its
+// recompute 113.6 GFLOP whose float32 activations take three bf16 passes:
+// 561.8 GFLOP, 0.568 ms at 989 TFLOP/s.  The bytes (the saved h written
+// and read, 210 MB at v1; the dh products' bf16 in and out) take ~0.2 ms.
 //
 // Where the TPU differs, and what the design does:
-//  * The Pallas kernel keeps a tile's recomputed activations in VMEM.  A
-//    227 KB block holds ~32 rows of the v1 widths, too few for a batch
-//    tile whose dW products feed the tensor cores.  So the recompute
-//    writes every hidden layer's activations to a scratch in device
-//    memory (B x 3,200 floats for v1: 419 MB at B = 32,768), and the
-//    backward runs layer by layer over the whole batch: a dW product, a
-//    column sum, a dh product, each a kernel over the (M, N) tiles.
+//  * The Pallas kernel keeps a batch tile's recomputed activations in
+//    VMEM; a 227 KB block holds too few rows for products that feed the
+//    tensor cores.  So the recompute (kernel 2 with its save epilogue)
+//    writes every hidden layer's RN-bf16(h) to device memory, row-major
+//    at its width padded to 64 (B x 3,200 x 2 bytes at v1), and the
+//    backward runs layer by layer over the whole batch: the dW and dh
+//    products are one TMA-fed wgmma GEMM (mlp_train_wgmma.cuh) that reads
+//    those matrices as they lie.  The relu mask is read back as saved > 0:
+//    it differs from float32's h > 0 only for 0 < h <= 2^-134, which bf16
+//    rounds to 0 (XLA's CPU flushes such h to zero in the relu itself).
 //  * The Pallas kernel adds each batch tile's dW into a VMEM accumulator
 //    across a sequential grid (pl.when(first), :92-100).  GPU blocks run
-//    in no order, so a block of the dW product takes tile_b batch rows
-//    and writes its partial sum to device memory; a second kernel adds
-//    the ceil(B / tile_b) partials of each element in chunk order.  db
-//    the same way.  No float atomics: every sum has one fixed order, and
-//    two runs give the same bits.
-#include <mma.h>
-
-#include "mlp_train.cuh"
+//    in no order, so the dW product splits the batch into the plan's S
+//    chunks (whole multiples of tile_b and of 64 rows, S sized to fill
+//    the SMs), each block writing its float32 partial; reduce_kernel adds
+//    the S partials of every element in chunk order.  db: prep_kernel (dy,
+//    which it also rounds to bf16 once) and the dh products' epilogue
+//    write per-row-tile column sums, added in a fixed order by the same
+//    pass.
+//    No float atomics: every sum has one fixed order, and two runs give
+//    the same bits.
+#include "mlp_forward_wgmma.cuh"
+#include "mlp_train_wgmma.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using cst::mlpt::kBM;
 
-constexpr int kThreads = 256;  // 8 warps: 4 (rows) x 2 (columns)
-constexpr int kBM = 64;        // output rows a block
-constexpr int kBN = 64;        // output columns a block
-constexpr int kBK = 32;        // depth a stage
-constexpr int kLdA = kBK + 8;  // bf16 row strides: 16-byte multiples,
-constexpr int kLdB = kBN + 8;  // rows shifted across banks
-constexpr int kLdC = kBN + 4;  // float
-constexpr int kPerThread = kBM * kBK / kThreads;  // 8 values of each operand
+int padded(int w) { return cst::mlpw::kChunk * cst::mlpw::chunks(w); }
+int ceil_div(long long a, long long b) {
+  return static_cast<int>((a + b - 1) / b);
+}
 
-static_assert(kBM * kBK == kBK * kBN, "both operand tiles hold 2048 values");
-
-// C = sum over k of bf16(A(m, k)) * bf16(B(k, n)) with float32 sums, for
-// an M x N output, A(m, k) = a[m * a_m + k * a_k] and B(k, n) = b[k * b_k +
-// n * b_n] (float32 in device memory; kAk / kBn say which stride is 1, so
-// neighbouring threads load neighbouring addresses).  Block (x, y, z)
-// computes rows 64x.., columns 64y.. over k in [z kc, min(K, (z + 1) kc))
-// into c + z c_z (row stride ldc).  With mask, C(m, n) becomes 0 where
-// mask[m * ldc + n] > 0 fails (the relu derivative; NaN fails too).
-template <bool kAk, bool kBn>
-__global__ void __launch_bounds__(kThreads)
-    bf16_gemm_kernel(const float* __restrict__ a, long long a_m,
-                     long long a_k, const float* __restrict__ b,
-                     long long b_k, long long b_n, int M, int N, int K,
-                     int kc, float* __restrict__ c, long long c_z, int ldc,
-                     const float* __restrict__ mask) {
-  __shared__ __align__(32) __nv_bfloat16 as[kBM * kLdA];
-  __shared__ __align__(32) __nv_bfloat16 bs[kBK * kLdB];
-  __shared__ __align__(32) float cs[kBM * kLdC];
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int k_beg = blockIdx.z * kc;
-  const int k_end = min(K, k_beg + kc);
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp & 3;   // 16-row slab
-  const int wn = warp >> 2;  // 32-column half
-
-  // this thread's (row, depth) of the A tile and (depth, column) of the B
-  // tile for its i-th value
-  auto a_at = [](int i, int& m, int& k) {
-    const int idx = threadIdx.x + i * kThreads;
-    if (kAk) {
-      m = idx / kBK;
-      k = idx % kBK;
-    } else {
-      m = idx % kBM;
-      k = idx / kBM;
+// Tile blockIdx.x (R rows): x and dy rounded to bf16 (nearest even) at
+// their padded widths, zeros past the widths; and the tile's column sums
+// of dy, rows ascending, into colsum[blockIdx.x * dn + c].
+__global__ void prep_kernel(const float* __restrict__ x, int d0, int p0,
+                            __nv_bfloat16* __restrict__ xb,
+                            const float* __restrict__ dy, int dn, int pn,
+                            __nv_bfloat16* __restrict__ dyb,
+                            float* __restrict__ colsum, int rows, int R) {
+  const long long r0 = static_cast<long long>(blockIdx.x) * R;
+  const long long r1 = min(static_cast<long long>(rows), r0 + R);
+  for (int c = threadIdx.x; c < p0; c += blockDim.x) {
+    for (long long r = r0; r < r1; ++r)
+      xb[r * p0 + c] = __float2bfloat16_rn(c < d0 ? x[r * d0 + c] : 0.0f);
+  }
+  for (int c = threadIdx.x; c < pn; c += blockDim.x) {
+    float s = 0.0f;
+    for (long long r = r0; r < r1; ++r) {
+      const float v = c < dn ? dy[r * dn + c] : 0.0f;
+      s += v;
+      dyb[r * pn + c] = __float2bfloat16_rn(v);
     }
-  };
-  auto b_at = [](int i, int& k, int& n) {
-    const int idx = threadIdx.x + i * kThreads;
-    if (kBn) {
-      k = idx / kBN;
-      n = idx % kBN;
-    } else {
-      k = idx % kBK;
-      n = idx / kBK;
-    }
-  };
-  float ra[kPerThread], rb[kPerThread];
-  auto load = [&](int k0) {  // global -> registers, zero past the edges
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      int m, k, n;
-      a_at(i, m, k);
-      ra[i] = m0 + m < M && k0 + k < k_end
-                  ? a[(m0 + m) * a_m + (k0 + k) * a_k]
-                  : 0.0f;
-      b_at(i, k, n);
-      rb[i] = n0 + n < N && k0 + k < k_end
-                  ? b[(k0 + k) * b_k + (n0 + n) * b_n]
-                  : 0.0f;
-    }
-  };
-  auto store = [&]() {  // registers -> shared memory, rounded to bf16
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      int m, k, n;
-      a_at(i, m, k);
-      as[m * kLdA + k] = __float2bfloat16_rn(ra[i]);
-      b_at(i, k, n);
-      bs[k * kLdB + n] = __float2bfloat16_rn(rb[i]);
-    }
-  };
+    if (c < dn) colsum[blockIdx.x * static_cast<long long>(dn) + c] = s;
+  }
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
-  if (k_beg < k_end) load(k_beg);
-  for (int k0 = k_beg; k0 < k_end; k0 += kBK) {
-    store();
-    __syncthreads();
-    // the next stage's loads are in flight while this one's products run
-    if (k0 + kBK < k_end) load(k0 + kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          fa;
-      wmma::load_matrix_sync(fa, as + wm * 16 * kLdA + kk, kLdA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            fb;
-        wmma::load_matrix_sync(fb, bs + kk * kLdB + wn * 32 + j * 16, kLdB);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
+struct ReduceLayer {
+  float* dw;        // (nw,) out
+  float* db;        // (nb,) out
+  const float* pw;  // S slices of nw
+  const float* pb;  // T rows of ldb
+  long long nw;
+  int nb, S, T, ldb;
+};
+struct ReduceArgs {
+  ReduceLayer l[cst::kMaxLayers];
+  // layer l's threads from start[l]: one a dW element (nw rounded up to
+  // 32), then a warp a db element
+  long long start[cst::kMaxLayers + 1];
+  int n_layers;
+};
+
+__host__ __device__ long long warps(long long n) {
+  return (n + 31) / 32 * 32;
+}
+
+// Every dW element the sum of its S partials in ascending order, one
+// thread each; every db element the sum of its T row-tile sums by a warp:
+// lane k adds tiles k, k + 32, ... ascending, then a fixed shuffle tree
+// (a few hundred tiles at B = 32,768: one thread each was a serial chain
+// of loads).  Every range starts on a warp, so a warp's lanes share one
+// element.
+__global__ void reduce_kernel(const __grid_constant__ ReduceArgs a) {
+  const long long n = a.start[a.n_layers];
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    int l = 0;
+    while (i >= a.start[l + 1]) ++l;
+    const ReduceLayer& L = a.l[l];
+    const long long j = i - a.start[l];
+    const long long nw = warps(L.nw);
+    if (j < nw) {
+      if (j < L.nw) {
+        float s = L.pw[j];
+        for (int z = 1; z < L.S; ++z) s += L.pw[z * L.nw + j];
+        L.dw[j] = s;
       }
+    } else {
+      const int c = static_cast<int>((j - nw) >> 5);
+      const int lane = static_cast<int>(j & 31);
+      float s = 0.0f;
+      for (int t = lane; t < L.T; t += 32)
+        s += L.pb[static_cast<long long>(t) * L.ldb + c];
+      for (int x = 16; x > 0; x >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, x);
+      if (lane == 0) L.db[c] = s;
     }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    wmma::store_matrix_sync(cs + wm * 16 * kLdC + wn * 32 + j * 16, acc[j],
-                            kLdC, wmma::mem_row_major);
-  }
-  __syncthreads();
-  float* cz = c + blockIdx.z * c_z;
-  for (int i = threadIdx.x; i < kBM * kBN; i += kThreads) {
-    const int m = m0 + i / kBN;
-    const int n = n0 + i % kBN;
-    if (m >= M || n >= N) continue;
-    const long long at = static_cast<long long>(m) * ldc + n;
-    float v = cs[(i / kBN) * kLdC + i % kBN];
-    if (mask != nullptr && !(mask[at] > 0.0f)) v = 0.0f;
-    cz[at] = v;
   }
 }
 
-// q[z * n + col] = sum of dh[r * n + col] over r in [z kc, min(rows,
-// (z + 1) kc)), r ascending.
-__global__ void column_sums_kernel(const float* __restrict__ dh, int rows,
-                                   int n, int kc, float* __restrict__ q) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= n) return;
-  const int r_end = min(rows, (blockIdx.y + 1) * kc);
-  float s = 0.0f;
-  for (int r = blockIdx.y * kc; r < r_end; ++r) {
-    s += dh[static_cast<long long>(r) * n + col];
-  }
-  q[static_cast<long long>(blockIdx.y) * n + col] = s;
+bool map_bf16(CUtensorMap* map, const void* base, long long rows, int cols) {
+  return cst::encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base,
+                        static_cast<uint64_t>(rows),
+                        static_cast<uint64_t>(cols), 64, 64,
+                        CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// out[i] = p[i] + p[stride + i] + ... + p[(chunks - 1) stride + i], in
-// that order.
-__global__ void sum_partials_kernel(const float* __restrict__ p,
-                                    long long stride, int chunks,
-                                    long long n, float* __restrict__ out) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = p[i];
-  for (int z = 1; z < chunks; ++z) s += p[z * stride + i];
-  out[i] = s;
-}
-
-int last_error() { return static_cast<int>(cudaGetLastError()); }
-
-unsigned blocks(long long n, int per) {
-  return static_cast<unsigned>((n + per - 1) / per);
-}
+constexpr int kPlanHead = 5;   // nwg, nb, cluster, stages, prep rows
+constexpr int kPlanLayer = 5;  // dW bn, stages, kc; dh bn, stages
 
 }  // namespace
 
-// x: (rows, d_0), dy: (rows, d_n) float32; w[l], b[l] as for the forward;
-// dw[l]: (d_l, d_{l+1}) and db[l]: (d_{l+1},) float32 out.  Scratch (the
-// caller allocates; ops/fused_mlp_train.py sizes it): h, rows x (d_1 + ...
-// + d_{n-1}) floats; dh, 2 x rows x max(d_1 .. d_{n-1}); partial,
-// chunks x (max_l d_l d_{l+1} + max_l d_{l+1}) with chunks = ceil(rows /
-// tile_b) (unused when chunks == 1).  tile_rows: the forward's rows a
-// block (4 or 16).
-extern "C" int cst_fused_mlp_train_bwd(
-    const float* x, const float* dy, const float* const* w,
-    const float* const* b, float* const* dw, float* const* db,
-    const int* widths, int n_layers, int rows, int tile_b, int tile_rows,
-    float* h, float* dh, float* partial, void* stream) {
-  cst::Layers p;
-  cst::Widths wd;
-  int e = cst::train_layers(w, b, widths, n_layers, &p, &wd);
-  if (e != 0) return e;
-  const int chunks = rows < 1 || tile_b < 1 ? 0 : (rows + tile_b - 1) / tile_b;
-  if (chunks < 1 || chunks > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// The float32 partials the backward needs for `plan` (the wrapper holds its
+// own count, ops/fused_mlp_train.py, against it); minus 1 for a bad plan.
+extern "C" long long cst_fused_mlp_train_partials(const int* widths,
+                                                  int n_layers, int rows,
+                                                  const int* plan) {
+  if (n_layers < 1 || n_layers > cst::kMaxLayers || rows < 1) return -1;
+  long long n = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    const int kc = plan[kPlanHead + kPlanLayer * l + 2];
+    if (kc < 1 || kc % cst::mlpt::kBK) return -1;
+    const int S = ceil_div(rows, kc);
+    n += static_cast<long long>(S) * widths[l] * widths[l + 1];
+    if (l == n_layers - 1) {
+      if (plan[4] < 1) return -1;
+      n += static_cast<long long>(ceil_div(rows, plan[4])) * widths[l + 1];
+    } else {
+      n += static_cast<long long>(ceil_div(rows, kBM)) * padded(widths[l + 1]);
+    }
   }
+  return n;
+}
+
+// The dynamic shared memory a block of the backward's GEMM takes
+// (gemm_layout's total), for ops/fused_mlp_train.py _gemm_smem to be held
+// against.
+extern "C" int cst_mlp_train_gemm_smem(int bn, int stages) {
+  return static_cast<int>(cst::mlpt::gemm_layout(bn, stages).total);
+}
+
+// x: (rows, d_0), dy: (rows, d_n) float32; wp, bp: the forward's pack
+// (cst_fused_mlp_train_pack); dw[l]: (d_l, d_{l+1}) and db[l]: (d_{l+1},)
+// float32 out.  plan (ops/fused_mlp_train.py TrainPlan.args): kernel 2's
+// nwg, nb, cluster, stages; the prep tile's rows; then a layer: the dW
+// product's bn, stages and rows a split-K chunk, the dh product's bn and
+// stages.  Scratch (the caller allocates, TrainPlan sizes it): act, kernel
+// 2's; save, bf16 rows x (P(d_1) + ... + P(d_{n-1})), P = padded to 64;
+// xb, bf16 rows x P(d_0); dh0, dh1, bf16 rows x max P(d_1 .. d_n) each;
+// partial, `partial_floats` floats (cst_fused_mlp_train_partials).
+extern "C" int cst_fused_mlp_train_bwd(
+    const float* x, const float* dy, const void* wp, const float* bp,
+    float* const* dw, float* const* db, const int* widths, int n_layers,
+    int rows, const int* plan, void* act, void* save, void* xb, void* dh0,
+    void* dh1, float* partial, long long partial_floats, void* stream) {
+  const long long need =
+      cst_fused_mlp_train_partials(widths, n_layers, rows, plan);
+  if (need < 0 || need > partial_floats)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (cst::encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorNotSupported);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_layers > 1) {
-    e = cst::launch_train_forward<true>(x, p, wd, rows, tile_rows, nullptr,
-                                        h, s);
+  const int L = n_layers;
+  int e;
+  // the pack: layer l's rows from roff[l], the widest padded d_out wide
+  int roff[cst::kMaxLayers + 1] = {}, pack_cols = 0;
+  for (int l = 0; l < L; ++l) {
+    roff[l + 1] = roff[l] + padded(widths[l]);
+    pack_cols = padded(widths[l + 1]) > pack_cols ? padded(widths[l + 1])
+                                                  : pack_cols;
+  }
+  // 1. the recompute: the hidden layers, every output relu'd and saved
+  if (L > 1) {
+    e = cst::mlpw::launch<false, true>(
+        x, wp, nullptr, bp, nullptr, act, widths, L - 1, rows, widths[L - 1],
+        plan[0], plan[1], plan[2], plan[3], 3, stream, save, pack_cols);
     if (e != 0) return e;
   }
-  long long max_w = 0, max_h = 0;
-  long long hoff[cst::kMaxLayers] = {};  // hidden layer l at h + hoff[l]
-  for (int l = 0; l < n_layers; ++l) {
-    const long long nw = static_cast<long long>(wd.w[l]) * wd.w[l + 1];
-    max_w = nw > max_w ? nw : max_w;
-    if (l + 1 < n_layers) {
-      max_h = wd.w[l + 1] > max_h ? wd.w[l + 1] : max_h;
-      if (l + 1 < cst::kMaxLayers) {
-        hoff[l + 1] = hoff[l] + static_cast<long long>(rows) * wd.w[l + 1];
-      }
+  // layer l's offsets: its saved input (l >= 1), its partials
+  long long soff[cst::kMaxLayers] = {};
+  for (int l = 1; l < L; ++l)
+    soff[l] = soff[l - 1] + static_cast<long long>(rows) * padded(widths[l]);
+  long long pw[cst::kMaxLayers], pb[cst::kMaxLayers];
+  ReduceArgs red{};
+  red.n_layers = L;
+  long long off = 0;
+  for (int l = 0; l < L; ++l) {
+    const int* q = plan + kPlanHead + kPlanLayer * l;
+    ReduceLayer& R = red.l[l];
+    R.dw = dw[l];
+    R.db = db[l];
+    R.nw = static_cast<long long>(widths[l]) * widths[l + 1];
+    R.nb = widths[l + 1];
+    R.S = ceil_div(rows, q[2]);
+    const bool last = l == L - 1;
+    R.T = ceil_div(rows, last ? plan[4] : kBM);
+    R.ldb = last ? widths[l + 1] : padded(widths[l + 1]);
+    pw[l] = off;
+    off += R.S * R.nw;
+    pb[l] = off;
+    off += static_cast<long long>(R.T) * R.ldb;
+    R.pw = partial + pw[l];
+    R.pb = partial + pb[l];
+    red.start[l + 1] = red.start[l] + warps(R.nw) + 32LL * R.nb;
+  }
+  // 2. x and dy to bf16, db of the last layer's row-tile sums
+  const int pn = padded(widths[L]);
+  __nv_bfloat16* bufs[2] = {static_cast<__nv_bfloat16*>(dh0),
+                            static_cast<__nv_bfloat16*>(dh1)};
+  prep_kernel<<<ceil_div(rows, plan[4]), 256, 0, s>>>(
+      x, widths[0], padded(widths[0]), static_cast<__nv_bfloat16*>(xb), dy,
+      widths[L], pn, bufs[0], partial + pb[L - 1], rows, plan[4]);
+  if ((e = static_cast<int>(cudaGetLastError())) != 0) return e;
+  CUtensorMap wmap;
+  if (!map_bf16(&wmap, wp, roff[L], pack_cols))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // 3. layer by layer, the last first
+  int cur = 0;
+  for (int l = L - 1; l >= 0; --l) {
+    const int* q = plan + kPlanHead + kPlanLayer * l;
+    const int pin = padded(widths[l]), pout = padded(widths[l + 1]);
+    const __nv_bfloat16* hin =
+        l == 0 ? static_cast<const __nv_bfloat16*>(xb)
+               : static_cast<const __nv_bfloat16*>(save) + soff[l - 1];
+    CUtensorMap hmap, dmap;
+    if (!map_bf16(&hmap, hin, rows, pin) ||
+        !map_bf16(&dmap, bufs[cur], rows, pout))
+      return static_cast<int>(cudaErrorInvalidValue);
+    // dW_l: M = d_l, N = d_{l+1}, K = rows in S chunks of q[2] rows
+    cst::mlpt::GemmArgs g{};
+    g.M = widths[l];
+    g.N = widths[l + 1];
+    g.K = rows;
+    g.kc = q[2];
+    g.stages = q[1];
+    g.out = partial + pw[l];
+    const dim3 gw(ceil_div(g.M, kBM) * ceil_div(g.N, q[0]),
+                  ceil_div(rows, q[2]));
+    e = cst::mlpt::gemm<cst::mlpt::kDw>(q[0], hmap, dmap, g, gw, s);
+    if (e != 0) return e;
+    if (l > 0) {
+      // dh_{l-1}: M = rows, N = P(d_l), K = P(d_{l+1}); B = W_l^T from
+      // the pack; masked by the saved h_{l-1}
+      cst::mlpt::GemmArgs h{};
+      h.M = rows;
+      h.N = pin;
+      h.K = pout;
+      h.stages = q[4];
+      h.boff = roff[l];
+      h.dh = bufs[cur ^ 1];
+      h.mask = hin;
+      h.colsum = partial + pb[l - 1];
+      const dim3 gd(ceil_div(pin, q[3]), ceil_div(rows, kBM));
+      if (gd.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+      e = cst::mlpt::gemm<cst::mlpt::kDh>(q[3], dmap, wmap, h, gd, s);
+      if (e != 0) return e;
+      cur ^= 1;
     }
   }
-  float* q = chunks > 1 ? partial + chunks * max_w : nullptr;  // db partials
-  const float* cur = dy;                // dh of layer i, (rows, d_{i+1})
-  for (int i = n_layers - 1; i >= 0; --i) {
-    const int din = wd.w[i];
-    const int dout = wd.w[i + 1];
-    const float* prev = i == 0 ? x : h + hoff[i - 1];  // (rows, din)
-    // dW_i: M = din, N = dout, K = rows; A(m, k) = prev[k, m], B(k, n) =
-    // dh[k, n]
-    const dim3 gw(blocks(din, kBM), blocks(dout, kBN), chunks);
-    bf16_gemm_kernel<false, true><<<gw, kThreads, 0, s>>>(
-        prev, 1, din, cur, dout, 1, din, dout, rows, tile_b,
-        chunks == 1 ? dw[i] : partial, static_cast<long long>(din) * dout,
-        dout, nullptr);
-    if ((e = last_error()) != 0) return e;
-    const dim3 gb(blocks(dout, 256), chunks);
-    column_sums_kernel<<<gb, 256, 0, s>>>(cur, rows, dout, tile_b,
-                                          chunks == 1 ? db[i] : q);
-    if ((e = last_error()) != 0) return e;
-    if (chunks > 1) {
-      const long long nw = static_cast<long long>(din) * dout;
-      sum_partials_kernel<<<blocks(nw, 256), 256, 0, s>>>(partial, nw, chunks,
-                                                          nw, dw[i]);
-      if ((e = last_error()) != 0) return e;
-      sum_partials_kernel<<<blocks(dout, 256), 256, 0, s>>>(q, dout, chunks,
-                                                            dout, db[i]);
-      if ((e = last_error()) != 0) return e;
-    }
-    if (i > 0) {
-      // dh_{i-1}: M = rows, N = din, K = dout; A(m, k) = dh[m, k], B(k, n)
-      // = W_i[n, k]; masked by h_{i-1} > 0
-      float* next = dh + (cur == dh ? rows * max_h : 0);
-      const dim3 gd(blocks(rows, kBM), blocks(din, kBN), 1);
-      bf16_gemm_kernel<true, false><<<gd, kThreads, 0, s>>>(
-          cur, dout, 1, p.w[i], 1, dout, rows, din, dout, dout, next, 0, din,
-          prev);
-      if ((e = last_error()) != 0) return e;
-      cur = next;
-    }
-  }
-  return 0;
+  // 4. the partials, in order
+  const long long n = red.start[L];
+  const long long blocks = (n + 255) / 256;
+  reduce_kernel<<<static_cast<unsigned>(blocks < 8192 ? blocks : 8192), 256,
+                  0, s>>>(red);
+  return static_cast<int>(cudaGetLastError());
 }

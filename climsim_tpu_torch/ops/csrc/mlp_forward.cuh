@@ -1,8 +1,7 @@
 // The FMA relu-MLP forward: fused_mlp_forward.cu's float32-weight entry,
-// which no served path uses, and, through accumulate(), the forward of the
-// training kernel (mlp_train.cuh).  The served bf16 and int8 entries run
-// the tensor-core kernel of mlp_forward_wgmma.cuh; this file keeps the
-// float32 path and accumulate() as they were.
+// which no served path uses.  The served bf16 and int8 entries and kernel
+// 6 run the tensor-core kernel of mlp_forward_wgmma.cuh; this file keeps
+// the float32 path and its accumulate() as they were.
 //
 // One launch runs the whole network.  All layers' weights sit in one
 // contiguous buffer, layer after layer, each (d_in, d_out) row-major; the

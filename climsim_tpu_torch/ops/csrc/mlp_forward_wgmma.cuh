@@ -74,6 +74,30 @@
 //    past a layer's width are set to zero in the epilogue (a zero-padded
 //    weight column times an inf activation would give NaN) and the last
 //    layer stores its real columns only.
+//  * kF32 (kernel 6, fused_mlp_train_{fwd,bwd}.cu; a template parameter,
+//    so kernels 2 and 3 compile without it): the tensor cores' float32
+//    accumulation truncates, and over a layer's ~100 products into one
+//    accumulator that left kernel 6's hidden activations ~1e-5 of their
+//    scale low on an H100, ten times float32's error: enough to flip the
+//    backward's bf16 roundings and relu masks against the reference.  So
+//    the products of a 16-deep k step of one output chunk (its three
+//    passes lo, mid, hi, smallest first) go into a fresh accumulator,
+//    which is then added into the float32 sums in registers, rounded to
+//    nearest (__fadd_rn); one fixed order still.  With it the hidden
+//    activations were closer to float64's than float32's own.
+//    The float32 sums take registers a CTA of two warpgroups and two
+//    chunks does not have under the 168 a thread its launch allows: so
+//    kF32's producer is a whole warpgroup (one warp issues, three idle)
+//    that gives its registers up (setmaxnreg) to the consumers, 232 each.
+//    And a wait that would never end traps.
+//  * kF32 also gives kernel 6's recompute (fused_mlp_train_bwd.cu) its
+//    saves: where `save` is given, every layer's output after its relu is
+//    written, rounded to bf16 (nearest even), row-major at the layer's
+//    width padded to 64 (zeros past the width); where `out` is not, no
+//    float32 output is.  The recompute passes the hidden layers only, with
+//    relu_tail the last one's whole width.  So the forward and the
+//    recompute run one instantiation, and their relu masks agree bit for
+//    bit.
 #pragma once
 
 #include <algorithm>
@@ -100,9 +124,12 @@ constexpr int kWidenWarps = 3;  // int8: producer warps that widen
 __host__ __device__ constexpr int consumer_threads(int nwg) {
   return 128 * nwg;
 }
-__host__ __device__ constexpr int cta_threads(bool int8, int nwg) {
-  return 128 * nwg + 32 * (int8 ? 1 + kWidenWarps : 1);
+__host__ __device__ constexpr int cta_threads(bool int8, int nwg,
+                                              bool f32 = false) {
+  return 128 * nwg + 32 * (int8 || f32 ? 1 + kWidenWarps : 1);
 }
+constexpr int kF32ProducerRegs = 40;   // kF32: a thread, after setmaxnreg
+constexpr int kF32ConsumerRegs = 232;
 
 struct Layout {
   size_t conv, act, table, bars, total;
@@ -139,6 +166,8 @@ struct Args {
   const float* bias;    // every layer's padded biases
   float* out;           // (rows, w[n_layers]) float32
   __nv_bfloat16* act;   // scratch: [2][row tiles][act_chunks] chunks
+  __nv_bfloat16* save;  // kF32, or null: layer l's (rows, 64 chunks(w[l +
+                        // 1])) at rows * (the padded widths before it)
   Widths wd;            // the real widths
   int rows, relu_tail, stages, passes, act_chunks;
 };
@@ -155,7 +184,8 @@ struct LayerRow {
   int roff;  // first row in the stacked weight matrix
   int boff;  // first padded bias
   int g0;    // this CTA's first stage of the layer
-  int pad[3];
+  int pad;
+  long long soff;  // kF32: the layer's first saved element
 };
 
 __device__ __forceinline__ uint32_t cluster_rank() {
@@ -262,11 +292,11 @@ __device__ __forceinline__ void widen_boxes(const unsigned char* raw,
   }
 }
 
-template <bool kInt8, int NWG, int NB>
-__global__ void __launch_bounds__(cta_threads(kInt8, NWG), 1)
+template <bool kInt8, int NWG, int NB, bool kF32>
+__global__ void __launch_bounds__(cta_threads(kInt8, NWG, kF32), 1)
     mlp_wgmma_kernel(const __grid_constant__ CUtensorMap wmap, const Args a) {
   constexpr int kCons = consumer_threads(NWG);
-  constexpr int kThreads = cta_threads(kInt8, NWG);
+  constexpr int kThreads = cta_threads(kInt8, NWG, kF32);
   constexpr int kRows = 64 * NWG;
   constexpr int kBox = kInt8 ? kInt8Box : kBf16Box;
   constexpr int kParts = kInt8 ? 1 : 3;   // bf16 planes of an activation
@@ -287,6 +317,13 @@ __global__ void __launch_bounds__(cta_threads(kInt8, NWG), 1)
   uint64_t* aempty = afull + stages;
   uint64_t* cfull = aempty + stages;  // int8 only
   uint64_t* cempty = cfull + kConvStages;
+  auto wait = [](uint64_t* bar, uint32_t parity) {
+    if constexpr (kF32) {
+      mbar_wait_or_trap(bar, parity);
+    } else {
+      mbar_wait(bar, parity);
+    }
+  };
 
   const Widths& wd = a.wd;
   const int L = wd.n_layers;
@@ -313,6 +350,7 @@ __global__ void __launch_bounds__(cta_threads(kInt8, NWG), 1)
       row.roff = roff;
       row.boff = boff;
       row.g0 = g;
+      if constexpr (kF32) row.soff = static_cast<long long>(a.rows) * boff;
       roff += kChunk * row.nk;
       boff += kChunk * nout;
       g += row.n > 0 ? row.nk : 0;
@@ -363,8 +401,7 @@ __global__ void __launch_bounds__(cta_threads(kInt8, NWG), 1)
       const int s = ww.g % stages;
       if (issuer) {
         if (lane == 0) {
-          if (ww.g >= stages)
-            mbar_wait(wempty + s, ((ww.g / stages) - 1) & 1);
+          if (ww.g >= stages) wait(wempty + s, ((ww.g / stages) - 1) & 1);
           mbar_expect_tx(wfull + s, row.n * kBox);
           for (int j = 0; j < row.n; ++j)
             tma_load_2d(smem + (s * NB + j) * kBox, &wmap, wfull + s,
@@ -420,6 +457,14 @@ __global__ void __launch_bounds__(cta_threads(kInt8, NWG), 1)
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
   cluster_sync();
 
+  if constexpr (kF32) {
+    // the producer warpgroup's registers to the consumers (see the notes)
+    if (producer) {
+      setmaxnreg_dec<kF32ProducerRegs>();
+    } else {
+      setmaxnreg_inc<kF32ConsumerRegs>();
+    }
+  }
   if (producer) {
     // 2a. the producer, layer by layer: this layer's activations, the
     // weights up to `stages` (widening: kConvStages) into the next layer,
@@ -435,8 +480,7 @@ __global__ void __launch_bounds__(cta_threads(kInt8, NWG), 1)
           if (ww.g <= wa.g) produce_w(wa.g + 1);
           if (lane == 0) {
             const int s = wa.g % stages;
-            if (wa.g >= stages)
-              mbar_wait(aempty + s, ((wa.g / stages) - 1) & 1);
+            if (wa.g >= stages) wait(aempty + s, ((wa.g / stages) - 1) & 1);
             // the layer before's global writes, for the copy engine
             asm volatile("fence.proxy.async.global;\n" ::: "memory");
             mbar_expect_tx(afull + s, kChunkBytes);
@@ -464,10 +508,13 @@ __global__ void __launch_bounds__(cta_threads(kInt8, NWG), 1)
     const bool last = l == L - 1;
     if (n > 0) {
       float acc[NB][32];
+      float tmp[32];  // kF32: a k step's products of a chunk
 #pragma unroll
       for (int j = 0; j < NB; ++j)
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc[j][i] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) tmp[i] = 0.0f;
       for (int i = 0; i < nk; ++i) {
         const int g = row.g0 + i;
         const int s = g % stages;
@@ -477,49 +524,90 @@ __global__ void __launch_bounds__(cta_threads(kInt8, NWG), 1)
           mbar_wait(cfull + cs, (g / kConvStages) & 1);
           b0 = smem_u32(conv + cs * NB * kBf16Box);
         } else {
-          mbar_wait(wfull + s, (g / stages) & 1);
+          wait(wfull + s, (g / stages) & 1);
           b0 = smem_u32(smem + s * NB * kBox);
         }
-        mbar_wait(afull + s, (g / stages) & 1);
-        uint4 A[4][kParts];
-        const unsigned char* ab = act + s * kChunkBytes + a_off;
+        wait(afull + s, (g / stages) & 1);
+        if constexpr (kF32) {
+          // chunk by chunk, a k step at a time: lo, mid, hi into tmp (the
+          // first product overwrites it), then tmp into the float32 sums;
+          // the step's A registers live until its products are done
+          static_assert(!kInt8, "kF32 takes bf16 weights");
+          const unsigned char* ab = act + s * kChunkBytes + a_off;
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
+          for (int j = 0; j < NB; ++j) {
 #pragma unroll
-          for (int p = 0; p < kParts; ++p)
-            A[kk][p] = *reinterpret_cast<const uint4*>(ab + kk * 512 +
+            for (int kk = 0; kk < 4; ++kk) {
+              uint4 A[kParts];
+#pragma unroll
+              for (int p = 0; p < kParts; ++p)
+                A[p] = *reinterpret_cast<const uint4*>(ab + kk * 512 +
                                                        p * kPlane * 2);
+              const uint64_t desc = b_desc(b0 + j * kBf16Box + kk * 2048);
+              const uint32_t lo[4] = {A[2].x, A[2].y, A[2].z, A[2].w};
 #pragma unroll
-        for (int j = 0; j < NB; ++j)
+              for (int r = 0; r < 32; ++r) fence_reg(tmp[r]);
+              wgmma_fence();
+              wgmma_m64n64k16_set(tmp, lo, desc);
+              wgmma_a(tmp, A[1], desc);
+              wgmma_a(tmp, A[0], desc);
+              wgmma_commit();
+              wgmma_wait_all();
 #pragma unroll
-          for (int r = 0; r < 32; ++r) fence_reg(acc[j][r]);
-        wgmma_fence();
-        // no branch around a product: ptxas serializes wgmma on divergent
-        // paths.  Chunks past n read a slot nothing was loaded to, and are
-        // never stored
+              for (int r = 0; r < 32; ++r) {
+                fence_reg(tmp[r]);
+                acc[j][r] = __fadd_rn(acc[j][r], tmp[r]);
+              }
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int p = 0; p < kParts; ++p)
-#pragma unroll
-            for (int j = 0; j < NB; ++j)
-              wgmma_a(acc[j], A[kk][p],
-                      b_desc(b0 + j * kBf16Box + kk * 2048));
-        wgmma_commit();
-        wgmma_wait_all();
-#pragma unroll
-        for (int j = 0; j < NB; ++j)
-#pragma unroll
-          for (int r = 0; r < 32; ++r) fence_reg(acc[j][r]);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int p = 0; p < kParts; ++p) {
-            fence_reg(A[kk][p].x);
-            fence_reg(A[kk][p].y);
-            fence_reg(A[kk][p].z);
-            fence_reg(A[kk][p].w);
+              for (int p = 0; p < kParts; ++p) {
+                fence_reg(A[p].x);
+                fence_reg(A[p].y);
+                fence_reg(A[p].z);
+                fence_reg(A[p].w);
+              }
+            }
           }
+        } else {
+          uint4 A[4][kParts];
+          const unsigned char* ab = act + s * kChunkBytes + a_off;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int p = 0; p < kParts; ++p)
+              A[kk][p] = *reinterpret_cast<const uint4*>(ab + kk * 512 +
+                                                         p * kPlane * 2);
+#pragma unroll
+          for (int j = 0; j < NB; ++j)
+#pragma unroll
+            for (int r = 0; r < 32; ++r) fence_reg(acc[j][r]);
+          wgmma_fence();
+          // no branch around a product: ptxas serializes wgmma on divergent
+          // paths.  Chunks past n read a slot nothing was loaded to, and are
+          // never stored
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int p = 0; p < kParts; ++p)
+#pragma unroll
+              for (int j = 0; j < NB; ++j)
+                wgmma_a(acc[j], A[kk][p],
+                        b_desc(b0 + j * kBf16Box + kk * 2048));
+          wgmma_commit();
+          wgmma_wait_all();
+#pragma unroll
+          for (int j = 0; j < NB; ++j)
+#pragma unroll
+            for (int r = 0; r < 32; ++r) fence_reg(acc[j][r]);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int p = 0; p < kParts; ++p) {
+              fence_reg(A[kk][p].x);
+              fence_reg(A[kk][p].y);
+              fence_reg(A[kk][p].z);
+              fence_reg(A[kk][p].w);
+            }
+        }
         if (lane == 0) {
           mbar_arrive(aempty + s);
           if constexpr (kInt8) {
@@ -559,7 +647,7 @@ __global__ void __launch_bounds__(cta_threads(kInt8, NWG), 1)
             const bool relu = !last || gc >= dout - a.relu_tail;
             if (relu && y < 0.0f) y = 0.0f;
             v[m] = gc < dout ? y : 0.0f;
-            if (last && gc < dout) {
+            if (last && gc < dout && (!kF32 || a.out != nullptr)) {
               const long long r = row0 + ra + 8 * ((m >> 1) & 1);
               if (r < a.rows) a.out[r * dout + gc] = y;
             }
@@ -568,6 +656,24 @@ __global__ void __launch_bounds__(cta_threads(kInt8, NWG), 1)
             publish8<kParts>(act_chunk((l + 1) & 1, cj) +
                                  ((warp * 4 + kk) * 32 + lane) * 8,
                              kPlane, v, a.passes);
+          if (kF32 && a.save != nullptr) {
+            // v[4 b + 2 h + e]: row ra + 8 h, column 16 kk + 8 b + 2 (lane
+            // % 4) + e of the chunk; two columns a 4-byte store
+            const int ld = kChunk * chunks(dout);
+            __nv_bfloat16* sp = a.save + row.soff;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const long long r = row0 + ra + 8 * h;
+              if (r >= a.rows) continue;
+#pragma unroll
+              for (int b = 0; b < 2; ++b) {
+                const int m = 4 * b + 2 * h;
+                *reinterpret_cast<__nv_bfloat162*>(
+                    sp + r * ld + col0 + 16 * kk + 8 * b + 2 * (lane & 3)) =
+                    __floats2bfloat162_rn(v[m], v[m + 1]);
+              }
+            }
+          }
         }
       }
     }
@@ -579,11 +685,11 @@ __global__ void __launch_bounds__(cta_threads(kInt8, NWG), 1)
   }
 }
 
-template <bool kInt8, int NWG, int NB>
+template <bool kInt8, int NWG, int NB, bool kF32>
 int launch_kernel(const CUtensorMap* map, const Args* a, int cluster,
                   int tiles_m, size_t smem, cudaStream_t stream,
                   int* active) {
-  auto kernel = mlp_wgmma_kernel<kInt8, NWG, NB>;
+  auto kernel = mlp_wgmma_kernel<kInt8, NWG, NB, kF32>;
   // once a device: the shared memory opt-in, and clusters of 16 (past the
   // portable 8)
   static bool opted[kMaxDevices] = {};
@@ -605,7 +711,7 @@ int launch_kernel(const CUtensorMap* map, const Args* a, int cluster,
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(tiles_m * cluster));
-  cfg.blockDim = dim3(cta_threads(kInt8, NWG));
+  cfg.blockDim = dim3(cta_threads(kInt8, NWG, kF32));
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -625,14 +731,14 @@ int launch_kernel(const CUtensorMap* map, const Args* a, int cluster,
 
 // Launch (or, with `active`, count the clusters the card holds at once of)
 // the instantiation for (nwg, nb).
-template <bool kInt8>
+template <bool kInt8, bool kF32 = false>
 int dispatch(int nwg, int nb, const CUtensorMap* map, const Args* a,
              int cluster, int tiles_m, size_t smem, cudaStream_t stream,
              int* active) {
 #define CST_MLPW(NWG, NB)                                                  \
   if (nwg == NWG && nb == NB)                                              \
-    return launch_kernel<kInt8, NWG, NB>(map, a, cluster, tiles_m, smem,   \
-                                         stream, active);
+    return launch_kernel<kInt8, NWG, NB, kF32>(map, a, cluster, tiles_m,   \
+                                               smem, stream, active);
   CST_MLPW(1, 1)
   CST_MLPW(1, 2)
   CST_MLPW(2, 1)
@@ -658,21 +764,28 @@ int active_clusters(int nwg, int nb, int cluster, int smem) {
 // device layout, (sum of the padded d_in, the widest padded d_out), bf16
 // or int8, 16-byte aligned; act: scratch of 2 x (row tiles) x (the most K
 // chunks of a layer) activation chunks (chunk_bytes each), 16-byte
-// aligned.
-template <bool kInt8>
+// aligned; save (kF32 only, or null): rows x (the layers' padded output
+// widths) bf16, 4-byte aligned, beside or in place of `out`; w_cols: the
+// pack's columns where it holds more layers than these (0: the widest
+// padded d_out of these).
+template <bool kInt8, bool kF32 = false>
 int launch(const float* x, const void* w, const float* scale,
            const float* bias, float* out, void* act, const int* widths,
            int n_layers, int rows, int relu_tail, int nwg, int nb,
-           int cluster, int stages, int passes, void* stream) {
+           int cluster, int stages, int passes, void* stream,
+           void* save = nullptr, int w_cols = 0) {
+  static_assert(!(kInt8 && kF32), "kF32 is kernel 6's");
   if (n_layers < 1 || n_layers > kMaxLayers || rows < 1 || nwg < 1 ||
       nwg > 2 || nb < 1 || nb > kMaxNb || cluster < 1 ||
       (cluster != 8 && cluster != 16) || stages < 2 ||
       stages > kMaxStages || passes < 1 || passes > 3 || relu_tail < 0 ||
-      act == nullptr) {
+      act == nullptr || (out == nullptr && (!kF32 || save == nullptr)) ||
+      (!kF32 && save != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Args a{x, scale, bias, out, static_cast<__nv_bfloat16*>(act), {}, rows,
-         relu_tail, stages, passes, 0};
+  Args a{x, scale, bias, out, static_cast<__nv_bfloat16*>(act),
+         static_cast<__nv_bfloat16*>(save), {}, rows, relu_tail, stages,
+         passes, 0};
   a.wd.n_layers = n_layers;
   long long ktot = 0;
   int wmax = 0;
@@ -687,8 +800,9 @@ int launch(const float* x, const void* w, const float* scale,
     }
     if (i > 0 && padded > wmax) wmax = padded;
   }
-  if (relu_tail > widths[n_layers])
+  if (relu_tail > widths[n_layers] || (w_cols != 0 && w_cols < wmax))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (w_cols != 0) wmax = w_cols;
   const long long tiles_m = (rows + 64LL * nwg - 1) / (64LL * nwg);
   if (tiles_m * cluster > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -703,10 +817,10 @@ int launch(const float* x, const void* w, const float* scale,
                        : CU_TENSOR_MAP_SWIZZLE_128B)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return dispatch<kInt8>(nwg, nb, &map, &a, cluster,
-                         static_cast<int>(tiles_m),
-                         smem_layout(kInt8, nwg, nb, stages).total,
-                         static_cast<cudaStream_t>(stream), nullptr);
+  return dispatch<kInt8, kF32>(nwg, nb, &map, &a, cluster,
+                                static_cast<int>(tiles_m),
+                                smem_layout(kInt8, nwg, nb, stages).total,
+                                static_cast<cudaStream_t>(stream), nullptr);
 }
 
 }  // namespace mlpw

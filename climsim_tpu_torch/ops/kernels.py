@@ -15,8 +15,9 @@ that the coupling sidecar runs:
 
 The U-Net's GroupNorm -> silu -> conv3 kernel is in ``ops/unet_fused.py``,
 the counterpart module of ``climsim_tpu.ops.unet_fused``, and the fused
-MLP-training kernel's forward and backward are in ``ops/fused_mlp_train.py``;
-they count their launches here too.
+MLP-training kernel's pack, forward and backward are in
+``ops/fused_mlp_train.py`` (its forward is the tensor-core kernel of kernel
+2 below); they count their launches here too.
 
 Each public function checks its arguments, then takes the plain version
 for a tensor on the CPU and launches its kernel for a tensor on a CUDA
@@ -44,8 +45,8 @@ from . import _build
 
 LAUNCHES = {"fused_input_transform": 0, "fused_mlp_forward": 0,
             "fused_mlp_forward_int8": 0, "fused_constraint_head": 0,
-            "fused_gn_silu_conv3": 0, "fused_mlp_train_fwd": 0,
-            "fused_mlp_train_bwd": 0}
+            "fused_gn_silu_conv3": 0, "fused_mlp_train_pack": 0,
+            "fused_mlp_train_fwd": 0, "fused_mlp_train_bwd": 0}
 
 
 def reset_launches() -> None:
