@@ -1140,6 +1140,8 @@ def kernel6_checks(torch, FT, seed):
     """Kernel 6 forward and backward against their plain versions for each
     of K6_NETS, the control, bit-equality and tile_b; then the times at
     B = 32768, v1 widths."""
+    from climsim_tpu_torch.bench_mlp_train import bounds_ms as k6_bounds
+
     g = torch.Generator(device="cuda").manual_seed(seed + 2)
     res = {"fwd_max_abs_err": 0.0, "bwd_max_abs_err": 0.0,
            "bwd_max_rel_l2": 0.0, "bwd_min_cos": 1.0,
@@ -1300,26 +1302,6 @@ def kernel6_checks(torch, FT, seed):
                         f"{v['three_pass_floor_ms']:.4f}"
                         for k, v in res["bounds"][key].items()), flush=True)
     return res
-
-
-def k6_bounds(widths, b):
-    """Kernel 6's forward and backward at batch b: the bound (bytes over
-    the memory rate or one bf16 product a multiply-add over the bf16 peak,
-    the larger) and the three-pass floor (the forward's and the
-    recompute's products taken three times: float32 activations against
-    bf16 weights)."""
-    nbytes, ops, n_w, n_b = mlp_work(widths, b, 4)
-    first = widths[0] * widths[1]       # dx is not computed
-    bwd_bytes = 4 * b * (widths[0] + widths[-1]) + 8 * (n_w + n_b)
-    out = {}
-    for name, by, one, three in (
-            ("fwd", nbytes, ops, 3 * ops),
-            ("bwd", bwd_bytes, 2 * b * (3 * n_w - first),
-             2 * b * (5 * n_w - first))):
-        ms, bound_by = bound(by, one, "bf16")
-        out[name] = {"bound_ms": ms, "bound_by": bound_by,
-                     "three_pass_floor_ms": bound(by, three, "bf16")[0]}
-    return out
 
 
 def kernel6_training(torch, FT, K, seed):
@@ -1945,15 +1927,10 @@ def kernel_bounds():
 
     out["fused_gn_silu_conv3"] = chains(b, False)
     out["make_trainable_fused_block"] = chains(UNET_BATCH, True)
-    b = 32768
-    nbytes, ops, n_w, n_b = mlp_work(V1_WIDTHS, b, 4)
-    out["fused_mlp_train_fwd"] = bound(nbytes, ops, "bf16")
-    first = V1_WIDTHS[0] * V1_WIDTHS[1]       # dx is not computed
-    out["fused_mlp_train_bwd"] = bound(
-        4 * b * (V1_WIDTHS[0] + V1_WIDTHS[-1]) + 8 * (n_w + n_b),
-        2 * b * (3 * n_w - first), "bf16")
-    # the pack: float32 weights and biases in, the padded bf16 weights and
+    # kernel 6's forward and backward carry theirs (kernel6_checks); the
+    # pack: float32 weights and biases in, the padded bf16 weights and
     # float32 biases out
+    _, _, n_w, n_b = mlp_work(V1_WIDTHS, 1, 4)
     kp = [-(-w // 64) * 64 for w in V1_WIDTHS]
     out["fused_mlp_train_pack"] = bound(
         4 * (n_w + n_b) + 2 * sum(kp[:-1]) * max(kp[1:]) + 4 * sum(kp[1:]),

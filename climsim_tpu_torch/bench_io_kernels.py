@@ -73,10 +73,11 @@ def head_bound_ms(b: int) -> float:
     return (3424 * b + 2464) / HBM_BYTES_S * 1e3
 
 
-def load_old(root: str):
-    """The ``ops.kernels`` module of the checkout at ``root`` (an earlier
-    commit), imported beside this one as the package ``cst_old``: its own
-    wrappers, which build and load its own kernel library at first use."""
+def load_old(root: str, submodule: str = "ops.kernels"):
+    """The ``submodule`` of the port in the checkout at ``root`` (an
+    earlier commit), imported beside this one as the package ``cst_old``:
+    its own wrappers, which build and load its own kernel library at first
+    use."""
     import importlib
     import importlib.util
 
@@ -86,7 +87,7 @@ def load_old(root: str):
     module = importlib.util.module_from_spec(spec)
     sys.modules["cst_old"] = module
     spec.loader.exec_module(module)
-    return importlib.import_module("cst_old.ops.kernels")
+    return importlib.import_module(f"cst_old.{submodule}")
 
 
 def host_ms(fns: dict, calls: int) -> dict:

@@ -17,7 +17,7 @@ git-ignored directory) beside this one as the package ``cst_old``, whose
 wrappers build and load that checkout's own kernel library, packs the
 same weights with its ``pack_mlp``, times the two in turns, old, new,
 new, old, on the same inputs, and says whether the two give the same
-bits.
+bits and how far the old kernel's own two turns lie apart.
 ``--sweep`` times every (cluster, rows a tile, stages) that fits at each
 batch; each must give the plan's output bit for bit (the K order does not
 depend on the tiling): how the plan's rules were settled.
@@ -159,6 +159,7 @@ def main(argv=None) -> int:
                 o2 = time_ms(torch, lambda: old_fn(x, old_mlp, RELU_TAIL),
                              args.iters)
                 t = {"new": (n1 + n2) / 2, "old": (o1 + o2) / 2}
+                turns = {"old": [o1, o2], "new": [n1, n2]}
             else:
                 t = {"new": time_ms(torch, new_fn, args.iters)}
             bound, by = mlp_bound_ms(b, wbytes=1 if w == "int8" else 2)
@@ -169,6 +170,9 @@ def main(argv=None) -> int:
                             "grid": plan.grid, "smem": plan.smem}}
             if old:
                 row["bit_equal_to_old"] = same
+                row["turns_ms"] = turns
+                # how far the old kernel's own two turns lie apart
+                row["old_spread"] = abs(o1 - o2) / t["old"]
             if args.sweep:
                 row["sweep_ms"] = {}
                 for p in sweep_plans(K, b, mlp, props, w == "int8"):
@@ -186,7 +190,8 @@ def main(argv=None) -> int:
             rows_out.append(row)
             print(f"{w} B={b:5d}: " + "  ".join(
                 f"{k} {v:.4f} ms" for k, v in t.items())
-                + (f"  new/old {t['new'] / t['old']:.4f}  bit-equal to old "
+                + (f"  new/old {t['new'] / t['old']:.4f} (old's own turns "
+                   f"{row['old_spread']:.2%} apart)  bit-equal to old "
                    f"{same}" if old else "")
                 + "  outside " + " ".join(f"{k} {v:.4%}"
                                           for k, v in share.items())
@@ -201,6 +206,10 @@ def main(argv=None) -> int:
         slower = [f"{r['weights']} B={r['B']}" for r in rows_out
                   if r["ms"]["new"] > r["ms"]["old"]]
         print(f"batches where new is slower: {slower or 'none'}", flush=True)
+        beyond = [f"{r['weights']} B={r['B']}" for r in rows_out
+                  if r["ms"]["new"] > r["ms"]["old"] * (1 + r["old_spread"])]
+        print(f"slower beyond the old turns' spread: {beyond or 'none'}",
+              flush=True)
     print(json.dumps({"card": card, "rows": rows_out}))
     if bad:
         print("outside tolerance: " + "; ".join(bad), file=sys.stderr)

@@ -8,16 +8,14 @@ through ``make_fused_mlp_train`` (autograd, the pack kept for the
 backward) are timed beside their plain versions (the float32 chain and its
 plain backward; plain autograd for forward + backward), the bound (the
 larger of the bytes over 3.35 TB/s and one bf16 product a multiply-add
-over 989 TFLOP/s, as ``chip_smoke.py`` counts it) and the three-pass floor
+over 989 TFLOP/s; ``chip_smoke.py`` reports it) and the three-pass floor
 (the forward's float32 activations take three bf16 passes, so the
 forward and the backward's recompute count three products a multiply-add).
 The forward is held to the plain version within rtol 2e-4 / atol 1e-4 and
 the gradients within rel-L2 1.6e-3 (``chip_smoke.py``'s tolerances).
 
 Device time: CUDA events around ``--iters`` calls captured in one CUDA
-graph and replayed; where a call cannot be captured, CUDA events around
-``--iters`` back-to-back calls (a step is milliseconds, its host cost tens
-of microseconds).  Each time says which (``timed_by``).
+graph and replayed (``bench_gn_conv3.time_ms``).
 
 ``--old DIR`` imports the port of the checkout in DIR (an earlier commit,
 unpacked with ``git archive`` into a git-ignored directory) beside this
@@ -26,9 +24,9 @@ checkout's own kernel library, and times both in turns, old, new, new,
 old, on the same inputs.  The split of a backward's device time into its
 recompute, dW products, dh products and the db / partial passes comes
 from torch.profiler.  ``--sweep`` times the backward at the largest batch
-of v1 over the dW and dh products' tile widths and split-K chunk counts;
-each must give the plan's gradients within the JAX test's tile_b
-tolerance (rtol 2e-2, atol 1e-4).
+of v1 over the dW and dh products' tile widths and split-K chunk counts
+(``replan`` of the planner's plan); each must give the plan's gradients
+within the JAX test's tile_b tolerance (rtol 2e-2, atol 1e-4).
 
 Prints a line a case, then one JSON line.  Without a CUDA device it exits
 non-zero.
@@ -40,16 +38,16 @@ non-zero.
 from __future__ import annotations
 
 import argparse
-import importlib
-import importlib.util
+import dataclasses
 import json
+import math
 import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 
-from .bench_gn_conv3 import BF16_OPS_S, HBM_BYTES_S
+from .bench_gn_conv3 import BF16_OPS_S, HBM_BYTES_S, time_ms
+from .bench_io_kernels import load_old
 
 NETS = {"v1": (124, 768, 640, 512, 640, 640, 128),
         "v2rh": (557, 1024, 1024, 1024, 1024, 368)}
@@ -59,19 +57,27 @@ TILE_TOL = (2e-2, 1e-4)
 
 
 def bounds_ms(widths, b: int) -> dict:
-    """Forward and backward: (bound ms, "bytes" or "operations") with one
-    bf16 product a multiply-add, and the three-pass floor ms (the
-    forward's and the recompute's products taken three times)."""
+    """Kernel 6's forward and backward at batch ``b``: {"fwd" / "bwd":
+    {"bound_ms", "bound_by", "three_pass_floor_ms"}}.  The bound is the
+    larger of the bytes (x and y or dy in float32, the float32 weights and
+    biases read once, their gradients written once) over the memory rate
+    and one bf16 product a multiply-add over the bf16 peak; the floor takes
+    the forward's and the recompute's products three times (float32
+    activations against bf16 weights).  The backward's products: the
+    recompute of layers 0..L-2 (the last layer's output is not needed),
+    dW of every layer, dh of every layer but the first (dx is not
+    computed)."""
     n_w = sum(i * o for i, o in zip(widths[:-1], widths[1:]))
     n_b = sum(widths[1:])
-    first = widths[0] * widths[1]             # dx is not computed
+    recompute = n_w - widths[-2] * widths[-1]
+    dh = n_w - widths[0] * widths[1]
     fwd_bytes = 4 * b * (widths[0] + widths[-1]) + 4 * (n_w + n_b)
     bwd_bytes = 4 * b * (widths[0] + widths[-1]) + 8 * (n_w + n_b)
     out = {}
     for name, nbytes, ops, floor_ops in (
             ("fwd", fwd_bytes, 2 * b * n_w, 3 * 2 * b * n_w),
-            ("bwd", bwd_bytes, 2 * b * (3 * n_w - first),
-             2 * b * (5 * n_w - first))):
+            ("bwd", bwd_bytes, 2 * b * (recompute + n_w + dh),
+             2 * b * (3 * recompute + n_w + dh))):
         t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / BF16_OPS_S
         out[name] = {"bound_ms": max(t_bytes, t_ops) * 1e3,
                      "bound_by": "bytes" if t_bytes >= t_ops
@@ -81,47 +87,42 @@ def bounds_ms(widths, b: int) -> dict:
     return out
 
 
-def load_old(root: str):
-    """The ``ops.fused_mlp_train`` module of the checkout at ``root``,
-    imported beside this one as the package ``cst_old``: its own wrappers,
-    which build and load its own kernel library at first use."""
-    pkg = Path(root).resolve() / "climsim_tpu_torch"
-    spec = importlib.util.spec_from_file_location(
-        "cst_old", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
-    module = importlib.util.module_from_spec(spec)
-    sys.modules["cst_old"] = module
-    spec.loader.exec_module(module)
-    return importlib.import_module("cst_old.ops.fused_mlp_train")
+def replan(base, smem_limit: int, dw_bn: int | None = None,
+           dh_bn: int | None = None, chunks: int | None = None):
+    """``base`` (a ``plan_mlp_train`` plan) with the dW products at
+    ``dw_bn`` columns (one of GEMM_BN), the dh products at ``dh_bn`` (one
+    of GEMM_DH_BN), or ``chunks`` split-K chunks a dW product (as the
+    planner cuts them: whole multiples of lcm(tile_b, 64) rows), each at
+    the most stages that fit, and the partials' scratch resized: the plans
+    ``--sweep`` times.  None keeps the plan's."""
+    from .ops import fused_mlp_train as FT
 
+    if dw_bn is not None and dw_bn not in FT.GEMM_BN:
+        raise ValueError(f"dw_bn {dw_bn}: want one of {FT.GEMM_BN}")
+    if dh_bn is not None and dh_bn not in FT.GEMM_DH_BN:
+        raise ValueError(f"dh_bn {dh_bn}: want one of {FT.GEMM_DH_BN}")
 
-def time_ms(torch, fn, iters: int) -> tuple[float, str]:
-    """(mean device time of ``fn`` in ms, "graph" or "events")."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
-            for _ in range(iters):
-                fn()
-    except RuntimeError:      # the call cannot be captured
-        graph = None
-    torch.cuda.synchronize()
-    if graph is not None:
-        graph.replay()
-        torch.cuda.synchronize()
-    start.record()
-    if graph is not None:
-        graph.replay()
-    else:
-        for _ in range(iters):
-            fn()
-    end.record()
-    end.synchronize()
-    return (start.elapsed_time(end) / iters,
-            "graph" if graph is not None else "events")
+    def tiled(tile, bn, dw):
+        if tile is None or bn is None:
+            return tile
+        st = FT._gemm_stages(bn, smem_limit, FT._gemm_blocks(dw, bn))
+        return dataclasses.replace(tile, bn=bn, stages=st,
+                                   smem=FT._gemm_smem(bn, st))
+
+    rows, widths = base.batch, base.widths
+    unit = math.lcm(base.tile_b, FT.GEMM_BK)
+    units = -(-rows // unit)
+    dw = [tiled(t, dw_bn, True) for t in base.dw]
+    if chunks is not None:
+        kc = -(-units // max(1, min(units, chunks))) * unit
+        dw = [dataclasses.replace(t, rows=kc, chunks=-(-rows // kc))
+              for t in dw]
+    prods = [i * o for i, o in zip(widths[:-1], widths[1:])]
+    partial = base.partial + sum((t.chunks - o.chunks) * p
+                                 for t, o, p in zip(dw, base.dw, prods))
+    return dataclasses.replace(
+        base, dw=tuple(dw), dh=tuple(tiled(t, dh_bn, False) for t in base.dh),
+        partial=partial)
 
 
 def rel_l2(got, want) -> float:
@@ -190,7 +191,8 @@ def main(argv=None) -> int:
         check=True).stdout.strip()
     print(card, flush=True)
     dev = torch.device("cuda")
-    old = load_old(args.old) if args.old else None
+    old = (load_old(args.old, "ops.fused_mlp_train") if args.old
+           else None)
     batches = [int(v) for v in args.batches.split(",")]
     rng = np.random.default_rng(args.seed)
     rows_out, bad = [], []
@@ -233,16 +235,15 @@ def main(argv=None) -> int:
                     apply(x, wg, bg).backward(dy)
                 return run
 
-            times, how = {}, {}
+            times = {}
             for part, idx in (("fwd", 0), ("bwd", 1), ("fwd_bwd", 2)):
                 order = ["old", "new", "new", "old"] if old else ["new"]
                 acc = {}
                 for who in order:
                     fn = fns[who][idx]
                     fn = step(fn) if part == "fwd_bwd" else fn
-                    t, h = time_ms(torch, fn, args.iters)
-                    acc.setdefault(who, []).append(t)
-                    how[f"{part}_{who}"] = h
+                    acc.setdefault(who, []).append(
+                        time_ms(torch, fn, args.iters))
                 for who, ts in acc.items():
                     times[f"{part}_{who}"] = sum(ts) / len(ts)
             plain = {"fwd": lambda: FT.fused_mlp_train_fwd_plain(x, ws, bs),
@@ -250,9 +251,8 @@ def main(argv=None) -> int:
                                                                   bs),
                      "fwd_bwd_autograd": step(FT.fused_mlp_train_fwd_plain)}
             for k, fn in plain.items():
-                times[f"{k}_plain"], how[f"{k}_plain"] = time_ms(
-                    torch, fn, args.iters)
-            row = {"net": label, "B": b, "ms": times, "timed_by": how,
+                times[f"{k}_plain"] = time_ms(torch, fn, args.iters)
+            row = {"net": label, "B": b, "ms": times,
                    "bounds": bounds_ms(widths, b),
                    "fwd_outside": fwd_out, "grad_max_rel_l2": worst,
                    "bwd_split_ms": split_ms(
@@ -276,21 +276,20 @@ def main(argv=None) -> int:
 
 
 def sweep(torch, FT, x, dy, ws, bs, want, iters) -> dict:
-    """The backward at every (dW width, dh width, chunks) within reach,
-    each held to the plan's gradients within TILE_TOL."""
+    """The backward at every (dW width, dh width, chunks) ``replan``
+    gives, each held to the plan's gradients within TILE_TOL."""
     from .ops.kernels import _device_limits
 
+    limit = _device_limits(x.device.index)[0]
     widths = (x.shape[1],) + tuple(w.shape[1] for w in ws)
-    limit, n_sm, _ = _device_limits(x.device.index)
     base = FT._train_plan(x.shape[0], widths, 128, x.device)
+    pack = FT.pack_train_params(ws, bs)
     out = {}
     for dw_bn in FT.GEMM_BN:
         for dh_bn in FT.GEMM_DH_BN:
             for chunks in (None, 4, 8, 16, 32):
-                p = FT.plan_mlp_train(widths, x.shape[0], 128, limit, n_sm,
-                                      base.forward.cluster, dw_bn, dh_bn,
-                                      chunks)
-                got = FT.fused_mlp_train_bwd(x, dy, ws, bs, plan=p)
+                p = replan(base, limit, dw_bn, dh_bn, chunks)
+                got = FT._launch_backward(x, dy, pack, p)
                 for a, w in zip(got[0] + got[1], want[0] + want[1]):
                     if ((a - w).abs() > TILE_TOL[1]
                             + TILE_TOL[0] * w.abs()).any():
@@ -298,8 +297,8 @@ def sweep(torch, FT, x, dy, ws, bs, want, iters) -> dict:
                             f"sweep dw {dw_bn} dh {dh_bn} chunks {chunks}: "
                             f"outside {TILE_TOL} of the plan's gradients")
                 key = f"dw{dw_bn}_dh{dh_bn}_chunks{chunks or 'plan'}"
-                out[key], _ = time_ms(torch, lambda: FT.fused_mlp_train_bwd(
-                    x, dy, ws, bs, plan=p), iters)
+                out[key] = time_ms(torch, lambda: FT._launch_backward(
+                    x, dy, pack, p), iters)
     best = sorted(out.items(), key=lambda kv: kv[1])[:5]
     print("  sweep best: " + ", ".join(f"{k} {v:.4f}" for k, v in best),
           flush=True)

@@ -37,26 +37,6 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
-// mbar_wait that gives up with a trap (a launch failure the caller sees)
-// after about 2^24 polls, where a wait that never ends would hang.
-__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar,
-                                                  uint32_t parity) {
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n > (1u << 24)) __trap();
-  }
-}
-
 // Wait until the phase of parity `parity` has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   asm volatile(

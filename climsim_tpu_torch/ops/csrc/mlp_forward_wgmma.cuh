@@ -89,7 +89,8 @@
 //    chunks does not have under the 168 a thread its launch allows: so
 //    kF32's producer is a whole warpgroup (one warp issues, three idle)
 //    that gives its registers up (setmaxnreg) to the consumers, 232 each.
-//    And a wait that would never end traps.
+//    Its waits are every instantiation's (mbar_wait): one protocol, one
+//    behaviour where a barrier never completes.
 //  * kF32 also gives kernel 6's recompute (fused_mlp_train_bwd.cu) its
 //    saves: where `save` is given, every layer's output after its relu is
 //    written, rounded to bf16 (nearest even), row-major at the layer's
@@ -317,13 +318,6 @@ __global__ void __launch_bounds__(cta_threads(kInt8, NWG, kF32), 1)
   uint64_t* aempty = afull + stages;
   uint64_t* cfull = aempty + stages;  // int8 only
   uint64_t* cempty = cfull + kConvStages;
-  auto wait = [](uint64_t* bar, uint32_t parity) {
-    if constexpr (kF32) {
-      mbar_wait_or_trap(bar, parity);
-    } else {
-      mbar_wait(bar, parity);
-    }
-  };
 
   const Widths& wd = a.wd;
   const int L = wd.n_layers;
@@ -401,7 +395,8 @@ __global__ void __launch_bounds__(cta_threads(kInt8, NWG, kF32), 1)
       const int s = ww.g % stages;
       if (issuer) {
         if (lane == 0) {
-          if (ww.g >= stages) wait(wempty + s, ((ww.g / stages) - 1) & 1);
+          if (ww.g >= stages)
+            mbar_wait(wempty + s, ((ww.g / stages) - 1) & 1);
           mbar_expect_tx(wfull + s, row.n * kBox);
           for (int j = 0; j < row.n; ++j)
             tma_load_2d(smem + (s * NB + j) * kBox, &wmap, wfull + s,
@@ -480,7 +475,8 @@ __global__ void __launch_bounds__(cta_threads(kInt8, NWG, kF32), 1)
           if (ww.g <= wa.g) produce_w(wa.g + 1);
           if (lane == 0) {
             const int s = wa.g % stages;
-            if (wa.g >= stages) wait(aempty + s, ((wa.g / stages) - 1) & 1);
+            if (wa.g >= stages)
+              mbar_wait(aempty + s, ((wa.g / stages) - 1) & 1);
             // the layer before's global writes, for the copy engine
             asm volatile("fence.proxy.async.global;\n" ::: "memory");
             mbar_expect_tx(afull + s, kChunkBytes);
@@ -524,10 +520,10 @@ __global__ void __launch_bounds__(cta_threads(kInt8, NWG, kF32), 1)
           mbar_wait(cfull + cs, (g / kConvStages) & 1);
           b0 = smem_u32(conv + cs * NB * kBf16Box);
         } else {
-          wait(wfull + s, (g / stages) & 1);
+          mbar_wait(wfull + s, (g / stages) & 1);
           b0 = smem_u32(smem + s * NB * kBox);
         }
-        wait(afull + s, (g / stages) & 1);
+        mbar_wait(afull + s, (g / stages) & 1);
         if constexpr (kF32) {
           // chunk by chunk, a k step at a time: lo, mid, hi into tmp (the
           // first product overwrites it), then tmp into the float32 sums;

@@ -233,10 +233,7 @@ def check_train_widths(widths) -> tuple[int, ...]:
 
 @functools.lru_cache(maxsize=4096)
 def plan_mlp_train(widths: tuple, rows: int, tile_b: int, smem_limit: int,
-                   n_sm: int, max_cluster: int = 16,
-                   dw_bn: int | None = None, dh_bn: int | None = None,
-                   chunks: int | None = None,
-                   forward: MlpPlan | None = None) -> TrainPlan:
+                   n_sm: int, max_cluster: int = 16) -> TrainPlan:
     """Kernel 6's plan for a batch of ``rows`` through ``widths`` on a card
     with ``smem_limit`` bytes of shared memory a block and ``n_sm`` SMs,
     where clusters of up to ``max_cluster`` CTAs schedule; raises
@@ -244,18 +241,15 @@ def plan_mlp_train(widths: tuple, rows: int, tile_b: int, smem_limit: int,
 
     The forward and the recompute: kernel 2's plan
     (``kernels.plan_mlp_forward``) at the full widths.  The backward's
-    products: 128 x 256 tiles for dW and 128 x 64 for dh (``dw_bn``,
-    ``dh_bn`` replace the widths; ``bench_mlp_train --sweep`` on an H100
-    found dh at 64 columns, two blocks an SM, ~0.25 ms ahead of 128 at v1,
-    B = 32768, and dW at 256 the fastest by under 0.09 ms), the most
-    stages that let as many blocks share an SM as the registers allow
-    (``_gemm_blocks``).  ``forward`` replaces
-    the forward's plan (the sweep).
-    A dW product cuts the batch into chunks of whole multiples of
-    lcm(tile_b, 64) rows, as many as make its tiles fill the SMs once
-    (``chunks`` replaces the count), at most one a multiple; the chunks
-    cover the batch once, ascending, and their partials are added in that
-    order.  db sums rows of PREP_ROWS (the last layer's, from dy) and of
+    products: 128 x 256 tiles for dW and 128 x 64 for dh
+    (``bench_mlp_train --sweep`` on an H100 found dh at 64 columns, two
+    blocks an SM, ~0.2 ms ahead of 128 at v1, B = 32768, and dW at 256
+    the fastest by under 0.1 ms), the most stages that let as many blocks
+    share an SM as the registers allow (``_gemm_blocks``).  A dW product
+    cuts the batch into chunks of whole multiples of lcm(tile_b, 64) rows,
+    as many as make its tiles fill the SMs once, at most one a multiple;
+    the chunks cover the batch once, ascending, and their partials are
+    added in that order.  db sums rows of PREP_ROWS (the last layer's, from dy) and of
     128 (the dh products' tiles), then those tiles in a fixed order."""
     widths = check_train_widths(widths)
     if rows < 1:
@@ -265,25 +259,19 @@ def plan_mlp_train(widths: tuple, rows: int, tile_b: int, smem_limit: int,
     if -(-rows // GEMM_BM) > 65535:
         raise ValueError(f"a batch of {rows}: the dh products take at most "
                          f"{65535 * GEMM_BM} rows")
-    fwd = forward or plan_mlp_forward(rows, widths, smem_limit, n_sm,
-                                      max_cluster)
-    if dw_bn is not None and dw_bn not in GEMM_BN:
-        raise ValueError(f"dw_bn {dw_bn}: want one of {GEMM_BN}")
-    if dh_bn is not None and dh_bn not in GEMM_DH_BN:
-        raise ValueError(f"dh_bn {dh_bn}: want one of {GEMM_DH_BN}")
+    fwd = plan_mlp_forward(rows, widths, smem_limit, n_sm, max_cluster)
     n = len(widths) - 1
     unit = math.lcm(tile_b, GEMM_BK)
     units = -(-rows // unit)
     dw, dh = [], []
     partial = 0
     for l in range(n):
-        bn = dw_bn or 256
+        bn = 256
         st = _gemm_stages(bn, smem_limit, _gemm_blocks(True, bn))
         smem = _gemm_smem(bn, st)
         tiles = -(-widths[l] // GEMM_BM) * -(-widths[l + 1] // bn)
         per_sm = min(_ctas_an_sm(smem, smem_limit), _gemm_blocks(True, bn))
-        s = chunks or per_sm * n_sm // tiles
-        s = max(1, min(units, s))
+        s = max(1, min(units, per_sm * n_sm // tiles))
         kc = -(-units // s) * unit
         s = -(-rows // kc)
         dw.append(GemmTile(bn, st, smem, kc, s))
@@ -295,7 +283,7 @@ def plan_mlp_train(widths: tuple, rows: int, tile_b: int, smem_limit: int,
         if l == 0:
             dh.append(None)
         else:
-            bn = dh_bn or 64
+            bn = 64
             st = _gemm_stages(bn, smem_limit, _gemm_blocks(False, bn))
             dh.append(GemmTile(bn, st, _gemm_smem(bn, st)))
     n_chunks = max(-(-w // CHUNK) for w in widths[:-1])
@@ -409,13 +397,32 @@ def _scratch(plan: TrainPlan, device) -> tuple[torch.Tensor, ...]:
             empty(plan.partial, torch.float32))
 
 
+def _launch_backward(x: torch.Tensor, dy: torch.Tensor, pack: PackedMLP,
+                     plan: TrainPlan):
+    """(dW list, db list): the backward kernel on checked CUDA tensors of
+    at least one row, as ``plan`` tiles it."""
+    widths = plan.widths
+    dws = [torch.empty((i, o), dtype=torch.float32, device=x.device)
+           for i, o in zip(widths[:-1], widths[1:])]
+    dbs = [torch.empty(o, dtype=torch.float32, device=x.device)
+           for o in widths[1:]]
+    act, save, xb, dh0, dh1, partial = _scratch(plan, x.device)
+    code = _launch_on(
+        x.device, _build.load().cst_fused_mlp_train_bwd, x.data_ptr(),
+        dy.data_ptr(), pack.w.data_ptr(), pack.b.data_ptr(), _ptrs(dws),
+        _ptrs(dbs), _c_widths(widths), len(widths) - 1, x.shape[0],
+        plan.args(), act.data_ptr(), save.data_ptr(), xb.data_ptr(),
+        dh0.data_ptr(), dh1.data_ptr(), partial.data_ptr(), plan.partial)
+    _build.check(code, "fused_mlp_train_bwd")
+    LAUNCHES["fused_mlp_train_bwd"] += 1
+    return dws, dbs
+
+
 def fused_mlp_train_bwd(x: torch.Tensor, dy: torch.Tensor, ws, bs,
-                        tile_b: int = 128, pack: PackedMLP | None = None,
-                        plan: TrainPlan | None = None):
+                        tile_b: int = 128, pack: PackedMLP | None = None):
     """(dW list, db list) for the loss gradient ``dy`` (B, d_out) of
     ``fused_mlp_train_fwd(x, ws, bs)``.  ``pack``: the forward's (else
-    packed here); ``plan`` replaces ``_train_plan``'s (the benchmark's
-    sweep)."""
+    packed here)."""
     widths = _check_net(x, ws, bs)
     _check(dy, "dy", torch.float32, (x.shape[0], widths[-1]), x.device)
     rows = x.shape[0]
@@ -423,22 +430,11 @@ def fused_mlp_train_bwd(x: torch.Tensor, dy: torch.Tensor, ws, bs,
         raise ValueError(f"tile_b {tile_b}: want >= 1")
     if not _on_cuda(x, "fused_mlp_train_bwd"):
         return fused_mlp_train_bwd_plain(x, dy, ws, bs)
-    dws = [torch.empty_like(w) for w in ws]
-    dbs = [torch.empty_like(b) for b in bs]
     if rows == 0:
-        return [d.zero_() for d in dws], [d.zero_() for d in dbs]
-    plan = plan or _train_plan(rows, widths, tile_b, x.device)
-    pack = pack or pack_train_params(ws, bs)
-    act, save, xb, dh0, dh1, partial = _scratch(plan, x.device)
-    code = _launch_on(
-        x.device, _build.load().cst_fused_mlp_train_bwd, x.data_ptr(),
-        dy.data_ptr(), pack.w.data_ptr(), pack.b.data_ptr(), _ptrs(dws),
-        _ptrs(dbs), _c_widths(widths), len(ws), rows, plan.args(),
-        act.data_ptr(), save.data_ptr(), xb.data_ptr(), dh0.data_ptr(),
-        dh1.data_ptr(), partial.data_ptr(), plan.partial)
-    _build.check(code, "fused_mlp_train_bwd")
-    LAUNCHES["fused_mlp_train_bwd"] += 1
-    return dws, dbs
+        return ([torch.zeros_like(w) for w in ws],
+                [torch.zeros_like(b) for b in bs])
+    plan = _train_plan(rows, widths, tile_b, x.device)
+    return _launch_backward(x, dy, pack or pack_train_params(ws, bs), plan)
 
 
 # --------------------------------------------------------------------------

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from climsim_tpu.ops.fused_mlp_train import make_fused_mlp_train as jax_fused
+from climsim_tpu_torch import bench_mlp_train as BM
 from climsim_tpu_torch.ops import fused_mlp_train as FT
 from climsim_tpu_torch.ops import kernels as K
 
@@ -35,7 +36,10 @@ TILE_B = (128, 512)
 
 
 def plan(widths, b, tile_b=128, **kw):
-    return FT.plan_mlp_train(widths, b, tile_b, LIMIT, N_SM, **kw)
+    """The planner's plan; ``kw`` (dw_bn, dh_bn, chunks) replans it as
+    ``bench_mlp_train --sweep`` does."""
+    p = FT.plan_mlp_train(widths, b, tile_b, LIMIT, N_SM)
+    return BM.replan(p, LIMIT, **kw) if kw else p
 
 
 def padded(w):
@@ -154,15 +158,55 @@ def test_widest_widths_plan_at_every_batch():
 
 
 def test_sweep_overrides():
-    p = plan(V1, 32768, dw_bn=256, dh_bn=64, chunks=2)
-    assert all(t.bn == 256 and t.chunks == 2 for t in p.dw)
-    assert all(t.bn == 64 for t in p.dh[1:])
+    base = plan(V1, 32768)
+    assert BM.replan(base, LIMIT) == base
+    p = plan(V1, 32768, dw_bn=128, dh_bn=128, chunks=2)
+    assert all(t.bn == 128 and t.chunks == 2 for t in p.dw)
+    assert all(t.bn == 128 for t in p.dh[1:]) and p.dh[0] is None
+    assert p.forward == base.forward and p.save == base.save
+    for t, dw in [(t, True) for t in p.dw] + [(t, False) for t in p.dh[1:]]:
+        assert t.stages == FT._gemm_stages(t.bn, LIMIT,
+                                           FT._gemm_blocks(dw, t.bn))
+        assert t.smem == FT._gemm_smem(t.bn, t.stages) <= LIMIT
+    # the partials' scratch is resized to the new chunk counts
+    prods = [i * o for i, o in zip(V1[:-1], V1[1:])]
+    assert p.partial - base.partial == sum(
+        (t.chunks - o.chunks) * n for t, o, n in zip(p.dw, base.dw, prods))
+    assert [c for l in range(len(p.dw)) for c in p.chunk_bounds(l)] == \
+        [(0, 16384), (16384, 32768)] * len(p.dw)
     with pytest.raises(ValueError):
         plan(V1, 384, dw_bn=96)
     with pytest.raises(ValueError):
         plan(V1, 384, dh_bn=256)
     with pytest.raises(ValueError):
         plan(V1, 384, tile_b=0)
+
+
+@pytest.mark.parametrize("net", ("v1", "v2rh"))
+def test_bounds_count_the_products_the_backward_needs(net):
+    """The backward's bound counts, layer by layer, the recompute of the
+    hidden layers (not the last, whose output the backward never reads),
+    dW of every layer and dh of every layer but the first; the three-pass
+    floor takes the forward's and the recompute's products three times."""
+    widths, b = NETS[net], 32768
+    layers = list(zip(widths[:-1], widths[1:]))
+    recompute = sum(i * o for i, o in layers[:-1])
+    dw = sum(i * o for i, o in layers)
+    dh = sum(i * o for i, o in layers[1:])
+    got = BM.bounds_ms(widths, b)
+    peak = BM.BF16_OPS_S
+    for d, ops, floor in (("fwd", dw, 3 * dw),
+                          ("bwd", recompute + dw + dh,
+                           3 * recompute + dw + dh)):
+        assert got[d]["bound_by"] == "operations"
+        assert got[d]["bound_ms"] == pytest.approx(2 * b * ops / peak * 1e3,
+                                                   rel=1e-12)
+        assert got[d]["three_pass_floor_ms"] == pytest.approx(
+            2 * b * floor / peak * 1e3, rel=1e-12)
+    if net == "v1":   # the figures PERF.md states
+        assert round(got["bwd"]["bound_ms"], 3) == 0.333
+        assert round(got["bwd"]["three_pass_floor_ms"], 3) == 0.552
+        assert round(got["fwd"]["three_pass_floor_ms"], 3) == 0.345
 
 
 # --------------------------------------------------------------------------
