@@ -54,9 +54,40 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    Every reply must be finite, (B, 368), equal to the direct wrapper call
    (or within SERVED_TOL where a plain op is not batch-invariant; the ops
    are probed and printed), and within 2e-2 * max|y| of the all-plain
-   path on the card; the launch counts of kernels 1, 4 and 5 must have
-   risen in that run.  Kernel 5 must give a sample the same bits in any
-   batch: 50 rows alone and inside 384, 7 alone and inside 1024.
+   path on the card; kernels 1, 4 and 5 must have been launched 1, 1 and
+   82 times a device call of that run.  Kernel 5 must give a sample the
+   same bits in any batch: 50 rows alone and inside 384, 7 alone and
+   inside 1024.
+6a. Serves the two-stage U-Net v5: the regressor of 6 and a full-width
+   unet_v5_classifier (strato_lev_out=12, random flax-layout weights)
+   gating the qn tendency (online.two_stage), through the v5 wrapper on
+   raw v4 columns, N_TWO_STAGE sequential requests after 6's traffic.
+   Kernels 1, 4 and 5 launched 1, 1 and 164 times a device call; the
+   fused classifier's classes equal the plain one's except at near ties
+   (top two plain logits within NET_TOL of the largest unforced logit),
+   which are counted; the qc and qi tendencies of the levels whose top
+   two lie within twice the largest gap between the engines' logits (where
+   a class can flip) are left out of the reply checks (against the
+   direct call and the all-plain path, as 6; the three full chunks must
+   be bit-equal to the direct call);
+   the top 12 levels class 0; at class-1 levels the reply's qn tendency
+   drives the qn the gate recovers to zero within CLASS1_ATOL, and how
+   close it drives the raw qn is printed.
+6b. Serves the full-width unet_v4 U-Net through make_v4_wrapper (kernel 1
+   with the qc/qi rates, then the fused engine), N_V4 sequential
+   requests, held as 6; 82 kernel-5 launches a device call.
+6c. Train -> bundle -> serve: fits the full-width mlp_v2rh preset for
+   FIT_EPOCHS epochs (fit, a top-K checkpointer, plateau and early
+   stopping) on FIT_ROWS synthetic columns with norms computed from them,
+   after its initial validation loss matched the CPU's; the validation
+   loss must fall and the top-K best be the best epoch.  Then
+   package_e3sm.build_bundle(verify=True) exports the top-K best (buckets
+   384 and 1536, those norms by --norms) and the two-stage unet_v5 of 6a
+   (both networks through save_state) as torch.export programs, prints
+   their export seconds and bytes, and serves each through serve's
+   --bundle path: replies within BUNDLE_TOL of the live wrapper, the
+   kernels launched inside the loaded programs as on the live path, and a
+   --batch the bundle lacks refused.
 7. Checks the fused MLP-training kernel (kernel 6: its pack, its forward
    on kernel 2's tensor-core kernel, its backward's recompute and TMA-fed
    wgmma GEMM) against its plain version on the card, forward and
@@ -108,9 +139,10 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    trainer with the plain chain forward: the losses within
    UNET_CURVE_TOL, the parameters' moves within UNET_MOVE_TOL, which a
    planted fault (dw dropped in 5''s backward) must fail.
-12. With --profile, prints the fused MLPs' plans and traces both served
-   paths with torch.profiler (device time per kernel and copy, the
-   card's busy share, the costliest host ops).
+12. With --profile, prints the fused MLPs' plans and traces the served
+   paths (MLP bf16 and int8, U-Net v5, two-stage v5, v4) with
+   torch.profiler (device time per kernel and copy, the card's busy
+   share, kernel 5's share of it, the costliest host ops).
 13. Prints one JSON line of the kernels' results (each with its bound:
    the larger of its bytes over the memory rate and its operations over
    the peak, at the timed shape), then, last,
@@ -127,6 +159,7 @@ import ctypes
 import json
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from functools import partial
@@ -1048,9 +1081,12 @@ def trace_served(torch, CouplingClient, srv, chunk, label):
     ops = prof.key_averages()
     dev_ops = [e for e in ops if e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in dev_ops) / 1e3
+    k5_ms = sum(e.self_device_time_total for e in dev_ops
+                if "gn_silu_conv3_kernel" in e.key) / 1e3
     print(f"profile: {label}, {N_TRACE} requests in {wall_ms:.1f} ms; "
-          f"card busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%})",
-          flush=True)
+          f"card busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}); kernel 5 "
+          f"{k5_ms:.3f} ms ({k5_ms / max(busy_ms, 1e-9):.1%} of the busy "
+          "time)", flush=True)
     # the ten costliest, then every copy and every kernel of the port
     ours = ("Memcpy", "transform_kernel", "mlp_wgmma_kernel",
             "constraint_head_kernel", "gn_silu_conv3_kernel")
@@ -1071,16 +1107,16 @@ def v5_transform(T):
                              input_clip_rhonly=True)
 
 
-def plain_v5_path(torch, K, T, PW, physics, unet_apply_fused, unet, spec5,
-                  stats5):
-    """The served U-Net path with every kernel's plain version, on the
-    card: raw v4 (B, 1525) -> (B, 368)."""
+def plain_v5_path(torch, K, T, PW, physics, apply, spec5, stats5):
+    """The served v5 path with every kernel's plain version, on the card:
+    raw v4 (B, 1525) -> (B, 368), ``apply`` the all-plain model (the
+    U-Net engine with fused=False, or the two-stage gate over two)."""
     consts = T.input_transform_consts(spec5, stats5, v5_transform(T), "cuda")
     head = K.constraint_head_consts(stats5.out_scale, 15, device="cuda")
 
     def run(x):
         xn = K.fused_input_transform_plain(PW.convert_v4_to_v5(x), consts)
-        y = unet_apply_fused(unet, xn, fused=False)
+        y = apply(xn)
         return K.fused_constraint_head_plain(
             y, x[:, 0:60], x[:, 120:180], x[:, 180:240], head,
             physics.DT_TIMESTEP)
@@ -1114,6 +1150,493 @@ def drive(CouplingClient, srv, chunks, ragged, n_loop):
         lat.append((time.perf_counter() - t0) * 1e3)
     cl.close()
     return replies, lat
+
+
+N_TWO_STAGE = 200   # sequential requests of the two-stage v5 path
+N_V4 = 100          # sequential requests of the v4 path
+STRATO_CLS = 12     # levels the unet_v5_classifier preset forces to class 0
+CLASS1_ATOL = 1e-8  # tests/test_shardmap_twostage.py:100
+BUNDLE_TOL = 1e-5   # * max(1, max|want|), scripts/package_e3sm.py:187-205
+# phase (c): the mlp_v2rh preset trained, bundled and served
+FIT_ROWS, FIT_VAL_ROWS, FIT_EPOCHS = 32768, 8192, 3
+
+
+def scale368(torch, stats5):
+    """out_scale in the 368 contract's layout (qc and qi take qn's): the
+    replies in normalized units."""
+    s5 = stats5.out_scale.astype(np.float64)
+    return torch.as_tensor(np.concatenate(
+        [s5[:120], s5[120:180], s5[120:180], s5[180:]]), dtype=torch.float32)
+
+
+def serve_run(torch, K, CouplingClient, CouplingServer, wrap, n_features,
+              chunks, ragged, n_loop, profile_label=None):
+    """Serve ``wrap`` over CouplingServer and drive it (drive); the launch
+    counts are set to 0 just before and read just after.  Returns
+    (replies, round-trip ms, launches, the server's summary)."""
+    srv = CouplingServer(wrap, n_features, base_chunk=384, max_batch=6144,
+                         device="cuda").start()
+    try:
+        K.reset_launches()
+        replies, lat = drive(CouplingClient, srv, chunks, ragged, n_loop)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        summary = srv.stats.summary()
+        if profile_label:
+            trace_served(torch, CouplingClient, srv, chunks[0],
+                         profile_label)
+    finally:
+        srv.stop()
+    return replies, lat, launches, summary
+
+
+def require_per_call(launches, summary, per_call, label):
+    """Each kernel of ``per_call`` launched that many times a device call
+    of the run, and no other kernel of the U-Net path."""
+    for name in ("fused_input_transform", "fused_gn_silu_conv3",
+                 "fused_constraint_head"):
+        want = per_call.get(name, 0) * summary["batches"]
+        require(launches[name] == want,
+                f"{label}: {name} launched {launches[name]} times in "
+                f"{summary['batches']} device calls, want {want}")
+
+
+def compare_served(torch, label, xs, replies, direct, plain, scale,
+                   exclude=None, exact=0):
+    """Each reply: (B, 368), finite, equal to the direct call on the card
+    (bit-equal, or within SERVED_TOL * max|y| where a plain op is not
+    batch-invariant; the first ``exact`` replies bit-equal), and within
+    NET_TOL * max|y| of the all-plain path, in normalized units (times
+    ``scale``).  ``exclude(i)``: a (B, 368) mask of request i's entries
+    left out of both comparisons (the two-stage path's near-tied
+    classes)."""
+    n_equal, direct_err, net_err, net_outside = 0, 0.0, 0.0, 0.0
+    for i, (x, y) in enumerate(zip(xs, replies)):
+        require(y.shape == (x.shape[0], 368), f"{label}: reply shape "
+                f"{y.shape}")
+        require(bool(np.isfinite(y).all()), f"{label}: non-finite reply")
+        with torch.inference_mode():
+            xc = torch.from_numpy(x).cuda()
+            want = direct(xc).cpu() * scale
+            ref = plain(xc).cpu() * scale
+        got = torch.from_numpy(y.copy()) * scale
+        keep = (torch.ones_like(got, dtype=torch.bool) if exclude is None
+                else ~exclude(i))
+        if torch.equal(got, want):
+            n_equal += 1
+        else:
+            require(i >= exact, f"{label} reply {i} is not bit-equal to "
+                    "the direct call")
+            d = float(((got - want).abs() * keep).max() / want.abs().max())
+            direct_err = max(direct_err, d)
+            require(d <= SERVED_TOL, f"{label} reply {d:.3e} of max|y| "
+                    f"from the direct call (> SERVED_TOL {SERVED_TOL})")
+        e = float(((got - ref).abs() * keep).max() / ref.abs().max())
+        net_err = max(net_err, e)
+        require(e <= NET_TOL, f"{label} reply {e:.3e} of max|y| from the "
+                f"plain path (> {NET_TOL})")
+        net_outside = max(net_outside, outside(got[keep], ref[keep], 2e-4,
+                                               1e-4))
+    return {"bit_equal_to_direct": n_equal, "replies": len(replies),
+            "direct_err_of_max_y": direct_err,
+            "plain_err_of_max_y": net_err,
+            "plain_outside_2e-4_1e-4": net_outside}
+
+
+def report_served(card, label, summary, lat, cmp):
+    """Print a served path's device-call and round-trip p50 / p99 beside
+    the card, and its replies' errors; returns them as a dict."""
+    lat = np.asarray(lat)
+    out = {"requests": summary["requests"], "device_calls": summary["batches"],
+           "device_call_ms_p50": summary["latency_ms_p50"],
+           "device_call_ms_p99": summary["latency_ms_p99"],
+           "round_trip_ms_p50": float(np.percentile(lat, 50)),
+           "round_trip_ms_p99": float(np.percentile(lat, 99)), **cmp}
+    print(f"{card}: {label}: {out['requests']} requests, "
+          f"{out['device_calls']} device calls, device call p50 "
+          f"{out['device_call_ms_p50']:.3f} ms p99 "
+          f"{out['device_call_ms_p99']:.3f} ms; 384-column round trip p50 "
+          f"{out['round_trip_ms_p50']:.3f} ms p99 "
+          f"{out['round_trip_ms_p99']:.3f} ms", flush=True)
+    print(f"  replies: {cmp['bit_equal_to_direct']} of {cmp['replies']} "
+          f"bit-equal to the direct call (largest gap "
+          f"{cmp['direct_err_of_max_y']:.3e} of max|y|); against the "
+          f"all-plain path {cmp['plain_err_of_max_y']:.3e} of max|y| "
+          f"(tolerance {NET_TOL}), "
+          f"{cmp['plain_outside_2e-4_1e-4']:.4%} of the elements outside "
+          "rtol 2e-4 / atol 1e-4", flush=True)
+    return out
+
+
+def two_stage_phase(torch, card, unet, stats5, grid, seed, profile):
+    """(a) The two-stage U-Net v5 served: the unet_v5 regressor ``unet``
+    and a unet_v5_classifier (random flax-layout weights from ``seed``,
+    moved across by the porter) gating the qn tendency, through
+    make_wrapper on raw v4 columns over CouplingServer.  Returns
+    (the classifier, the live wrapper, the results)."""
+    from climsim_tpu_torch import get_varspec, physics
+    from climsim_tpu_torch.config import PRESETS
+    from climsim_tpu_torch.data import transforms as T
+    from climsim_tpu_torch.data.synthetic import synthetic_inputs
+    from climsim_tpu_torch.models import build_model
+    from climsim_tpu_torch.online import wrapper as PW
+    from climsim_tpu_torch.online.server import (CouplingClient,
+                                                 CouplingServer)
+    from climsim_tpu_torch.online.two_stage import make_two_stage_apply
+    from climsim_tpu_torch.ops import kernels as K
+    from climsim_tpu_torch.ops.unet_infer import unet_apply_fused
+    from climsim_tpu_torch.utils.migrate import port_flax_unet
+
+    spec5, spec4 = get_varspec("v5"), get_varspec("v4")
+    kw = PRESETS["unet_v5_classifier"].model_kw
+    require(kw["strato_lev_out"] == STRATO_CLS, "the classifier preset")
+    cls = build_model("unet_classifier", spec5, **kw)
+    cls.load_state_dict(port_flax_unet(unet_flax_tree(cls, seed + 50), cls))
+    cls = cls.to("cuda").eval()
+    n_cls = sum(p.numel() for p in cls.parameters())
+    print(f"U-Net v5 classifier (unet_v5_classifier preset, strato_lev_out="
+          f"{STRATO_CLS}): {n_cls} parameters", flush=True)
+
+    def gate(fused):
+        return make_two_stage_apply(
+            partial(unet_apply_fused, unet, fused=fused),
+            partial(unet_apply_fused, cls, fused=fused), stats=stats5,
+            device="cuda")
+
+    wrap = PW.make_wrapper(gate(True), stats5,
+                           PW.WrapperConfig(input_version="v4"),
+                           device="cuda")
+    plain = plain_v5_path(torch, K, T, PW, physics, gate(False), spec5,
+                          stats5)
+    chunks = [synthetic_inputs(spec4, 384, grid, seed=seed + 60 + i)
+              for i in range(3)]
+    ragged = synthetic_inputs(spec4, 50, grid, seed=seed + 70)
+    replies, lat, launches, summary = serve_run(
+        torch, K, CouplingClient, CouplingServer, wrap, spec4.input_len,
+        chunks, ragged, N_TWO_STAGE,
+        "served two-stage U-Net v5" if profile else None)
+    print(f"launches in the served two-stage run: {launches}", flush=True)
+    per_call = {"fused_input_transform": 1, "fused_gn_silu_conv3": 164,
+                "fused_constraint_head": 1}
+    require_per_call(launches, summary, per_call, "the two-stage path")
+
+    # The classes, fused engine against plain, on every request's columns.
+    # bf16 sums may flip an argmax where the plain logits' top two lie
+    # within the U-Net path's tolerance of each other (NET_TOL of the
+    # largest unforced logit): such a flip is allowed and counted.  A
+    # flip can happen only where the top two lie within twice the largest
+    # gap between the two engines' logits; there the level's qc and qi
+    # tendencies are left out of the reply comparisons (its class may
+    # differ between the served and the direct call too).
+    consts = T.input_transform_consts(spec5, stats5, v5_transform(T), "cuda")
+    sl = spec5.input_slices["state_qn"]
+    div, sub = (torch.as_tensor(a[sl], dtype=torch.float32, device="cuda")
+                for a in (stats5.inp_div, stats5.inp_sub))
+    lbd = torch.clamp(torch.as_tensor(stats5.lbd_qn, dtype=torch.float32,
+                                      device="cuda"), min=1e-12)
+    xs = chunks + [ragged]
+    ties, flips, n_ties, n_open, logit_err = [], 0, 0, 0, 0.0
+    n1, rec_max, raw_max, raw_ok = 0, 0.0, 0.0, 0
+    for x, y in zip(xs, replies):
+        with torch.inference_mode():
+            xc = torch.from_numpy(x).cuda()
+            xn = K.fused_input_transform_plain(PW.convert_v4_to_v5(xc),
+                                               consts)
+            lf, lp = (unet_apply_fused(cls, xn, fused=f)
+                      for f in (True, False))
+        top = lp[:, STRATO_CLS:].abs().max()
+        gap = (lf - lp).abs().max()
+        logit_err = max(logit_err, float(gap / top))
+        two = lp.topk(2, dim=-1).values
+        margin = two[..., 0] - two[..., 1]                     # (B, 60)
+        tie, can_flip = margin < NET_TOL * top, margin <= 2 * gap
+        kf, kp = lf.argmax(-1), lp.argmax(-1)
+        flip = kf != kp
+        require(not bool((flip & ~(tie & can_flip)).any()),
+                "the fused classifier's class differs from plain's beyond "
+                "a near tie")
+        require(bool((kf[:, :STRATO_CLS] == 0).all()
+                     and (kp[:, :STRATO_CLS] == 0).all()),
+                f"the top {STRATO_CLS} levels must be class 0")
+        flips, n_ties = flips + int(flip.sum()), n_ties + int(tie.sum())
+        n_open += int(can_flip.sum())
+        ties.append(can_flip.cpu())
+        # class 1: the reply's qn tendency (dqc + dqi) is the exact
+        # evaporation of the qn the gate recovers from its input (the
+        # gate's float32 formula, climsim_tpu/online/two_stage.py:67-70);
+        # against the raw qn it is reported (below the head's zeroed
+        # top 15 levels)
+        one = (kp == 1) & ~can_flip
+        one[:, :15] = False
+        yq = torch.from_numpy(y[:, 120:180] + y[:, 180:240]).cuda()
+        with torch.inference_mode():
+            xq = xn[:, sl] * div + sub
+            rec = -torch.log(torch.clamp(1.0 - xq, 1e-12, 1.0)) / lbd
+        raw = xc[:, 120:180] + xc[:, 180:240]
+        r_rec = (rec + yq * 1200.0).abs()[one]
+        r_raw = (raw + yq * 1200.0).abs()[one]
+        n1 += int(one.sum())
+        if one.any():
+            rec_max = max(rec_max, float(r_rec.max()))
+            raw_max = max(raw_max, float(r_raw.max()))
+            raw_ok += int((r_raw <= CLASS1_ATOL).sum())
+    require(n1 > 0, "no class-1 level to check")
+    require(rec_max <= CLASS1_ATOL, f"class 1: recovered qn + dqn * 1200 "
+            f"= {rec_max:.3e} (> {CLASS1_ATOL})")
+
+    def exclude(i):
+        m = torch.zeros(xs[i].shape[0], 368, dtype=torch.bool)
+        m[:, 120:180] = ties[i]
+        m[:, 180:240] = ties[i]
+        return m
+
+    # the full 384-column chunks bit-equal to the direct call (kernel 5
+    # gives a sample the same bits in any batch), the padded 50 rows not
+    cmp = compare_served(torch, "served two-stage", xs, replies, wrap,
+                         plain, scale368(torch, stats5), exclude,
+                         exact=len(chunks))
+    res = report_served(card, "served two-stage U-Net v5", summary, lat,
+                        cmp)
+    res.update(classifier_parameters=n_cls, launches_a_call=per_call,
+               class_flips=flips, near_ties=n_ties, left_out=n_open,
+               levels=sum(t.numel() for t in ties),
+               logit_err_of_max=logit_err, class1_levels=n1,
+               class1_recovered_residual_max=rec_max,
+               class1_raw_within_atol=raw_ok,
+               class1_raw_residual_max=raw_max, launches=launches)
+    print(f"  classes: {flips} fused/plain disagreements, all at near ties "
+          f"({n_ties} of {res['levels']} levels within {NET_TOL} of the "
+          f"largest logit; fused logits {logit_err:.3e} of it from plain; "
+          f"the {n_open} levels within twice that gap left out of the "
+          "reply checks); "
+          f"top {STRATO_CLS} levels class 0; class 1 at {n1} levels: "
+          f"recovered qn + dqn * 1200 <= {rec_max:.3e} (tolerance "
+          f"{CLASS1_ATOL}); against the raw qn {raw_ok} of {n1} within "
+          f"{CLASS1_ATOL}, largest {raw_max:.3e} (float32 cannot invert "
+          "1 - exp(-lbd qn) where it rounds to 1)", flush=True)
+    return cls, wrap, res
+
+
+def v4_phase(torch, card, grid, seed, profile):
+    """(b) The unet_v4 U-Net served through make_v4_wrapper on raw v4
+    columns (kernel 1 with the qc/qi rates, then the fused engine), held
+    to the all-plain path."""
+    from climsim_tpu_torch import get_varspec, load_asset_norms
+    from climsim_tpu_torch.config import PRESETS
+    from climsim_tpu_torch.data import transforms as T
+    from climsim_tpu_torch.data.synthetic import synthetic_inputs
+    from climsim_tpu_torch.models import build_model
+    from climsim_tpu_torch.online import wrapper as PW
+    from climsim_tpu_torch.online.server import (CouplingClient,
+                                                 CouplingServer)
+    from climsim_tpu_torch.ops import kernels as K
+    from climsim_tpu_torch.ops.unet_infer import unet_apply_fused
+    from climsim_tpu_torch.utils.migrate import port_flax_unet
+
+    spec4, stats4 = get_varspec("v4"), load_asset_norms("v4")
+    unet4 = build_model("unet", spec4, **PRESETS["unet_v4"].model_kw)
+    unet4.load_state_dict(port_flax_unet(unet_flax_tree(unet4, seed + 80),
+                                         unet4))
+    unet4 = unet4.to("cuda").eval()
+    n4 = sum(p.numel() for p in unet4.parameters())
+    print(f"U-Net v4 (unet_v4 preset): {n4} parameters", flush=True)
+    wrap = PW.make_v4_wrapper(partial(unet_apply_fused, unet4), stats4,
+                              spec4, device="cuda")
+    # make_v4_wrapper's default switches are the v5 wrapper's; on the v4
+    # columns they apply the qc and qi rates
+    consts = T.input_transform_consts(spec4, stats4, v5_transform(T),
+                                      "cuda")
+    require(int(consts[6].sum()) == 120, "kernel 1 takes the qc/qi rates")
+    zero = PW._out_zero_mask(spec4, PW.V4_OUT_ZERO, "cuda")
+    inv = PW._out_scale_inv(stats4, "cuda")
+
+    def plain(x):
+        xn = K.fused_input_transform_plain(x, consts)
+        return unet_apply_fused(unet4, xn, fused=False) * zero * inv
+
+    chunks = [synthetic_inputs(spec4, 384, grid, seed=seed + 81 + i)
+              for i in range(3)]
+    ragged = synthetic_inputs(spec4, 50, grid, seed=seed + 85)
+    replies, lat, launches, summary = serve_run(
+        torch, K, CouplingClient, CouplingServer, wrap, spec4.input_len,
+        chunks, ragged, N_V4, "served U-Net v4" if profile else None)
+    print(f"launches in the served v4 run: {launches}", flush=True)
+    per_call = {"fused_input_transform": 1, "fused_gn_silu_conv3": 82}
+    require_per_call(launches, summary, per_call, "the v4 path")
+    cmp = compare_served(torch, "served v4", chunks + [ragged], replies,
+                         wrap, plain, torch.as_tensor(
+                             stats4.out_scale, dtype=torch.float32))
+    res = report_served(card, "served U-Net v4", summary, lat, cmp)
+    res.update(parameters=n4, launches_a_call=per_call, launches=launches)
+    return res
+
+
+def bundle_phase(torch, card, kind, unet, cls, wrap2, grid, seed, tmp):
+    """(c) Train -> bundle -> serve: fit the full-width mlp_v2rh preset on
+    synthetic columns with a top-K checkpointer, bundle its best epoch and
+    the two-stage unet_v5 (the regressor and classifier of phase (a),
+    saved by save_state) with package_e3sm.build_bundle(verify=True), and
+    serve both through serve's --bundle path.  ``wrap2``: phase (a)'s live
+    two-stage wrapper, which the unet_v5 bundle's program must equal."""
+    import os
+
+    from climsim_tpu_torch import get_varspec, serve
+    from climsim_tpu_torch.config import PRESETS
+    from climsim_tpu_torch.data.pipeline import DeviceResidentLoader
+    from climsim_tpu_torch.data.synthetic import synthetic_inputs, \
+        synthetic_split
+    from climsim_tpu_torch.norms import compute_norms_from_data
+    from climsim_tpu_torch.online import wrapper as PW
+    from climsim_tpu_torch.online.server import CouplingClient
+    from climsim_tpu_torch.ops import kernels as K
+    from climsim_tpu_torch.package_e3sm import build_bundle
+    from climsim_tpu_torch.train import loop as L
+    from climsim_tpu_torch.train.checkpoints import (TopKCheckpointer,
+                                                     save_state)
+    from climsim_tpu_torch.train.recipes import online_mlp_trainer
+    from climsim_tpu_torch.utils.migrate import port_flax_online_mlp
+
+    spec = get_varspec("v2_rh")
+    cfg = PRESETS["mlp_v2rh"]
+    hidden, bs = tuple(cfg.model_kw["hidden"]), cfg.data.batch_size
+    x, y = synthetic_split(spec, FIT_ROWS + FIT_VAL_ROWS, grid=grid,
+                           seed=seed + 90)
+    xt, yt, xv, yv = (x[:FIT_ROWS], y[:FIT_ROWS], x[FIT_ROWS:],
+                      y[FIT_ROWS:])
+    # norms computed from the training split (the config's norms=
+    # "compute"): the packaged v2_rh norms scale the synthetic upper-level
+    # water tendencies, which the data they were made from does not have,
+    # by up to 1e12, and that noise would be the whole loss.  The bundle
+    # takes these norms by --norms, as a deployment takes the norms its
+    # checkpoint was trained with.
+    stats = compute_norms_from_data(spec, xt, yt)
+    norms_path = os.path.join(tmp, "norms_fit.npz")
+    stats.save_npz(norms_path)
+    steps = FIT_ROWS // bs
+    tree = flax_tree(spec, hidden, seed + 91)
+
+    def trainer(device):
+        tr = online_mlp_trainer(spec, stats, (xt, yt), seed, hidden=hidden,
+                                steps_per_epoch=steps, cfg=cfg.transform,
+                                device=device)
+        tr.model.load_state_dict(port_flax_online_mlp(tree))
+        return tr
+
+    gpu, cpu = trainer("cuda"), trainer("cpu")
+    val = DeviceResidentLoader(xv, yv, bs, shuffle=False, device="cuda")
+    first = L.evaluate(gpu.eval_step, gpu.model, val)
+    want = L.evaluate(cpu.eval_step, cpu.model, DeviceResidentLoader(
+        xv, yv, bs, shuffle=False, device="cpu"))
+    gap = abs(first - want) / abs(want)
+    print(f"fit mlp_v2rh ({spec.input_len} -> {'x'.join(map(str, hidden))} "
+          f"-> {spec.output_len}, B={bs}, {FIT_ROWS} + {FIT_VAL_ROWS} rows): "
+          f"initial validation loss card {first:.8f}, CPU {want:.8f}, gap "
+          f"{gap:.3e} (tolerance {FIRST_LOSS_TOL})", flush=True)
+    require(gap <= FIRST_LOSS_TOL, "the initial validation loss on the "
+            "card is not the CPU's")
+    topk_dir = os.path.join(tmp, "topk")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    _, hist = L.fit(gpu.train_step, gpu.eval_step, gpu.state,
+                    DeviceResidentLoader(xt, yt, bs, seed=seed,
+                                         device="cuda"),
+                    val, FIT_EPOCHS, ckpt=TopKCheckpointer(topk_dir, k=2),
+                    plateau=L.PlateauController(patience=1),
+                    early=L.EarlyStopping(patience=2))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = dict(K.LAUNCHES)
+    vals = [r["val_loss"] for r in hist.rows]
+    require(len(vals) == FIT_EPOCHS and bool(np.isfinite(vals).all()),
+            f"validation losses {vals}")
+    require(vals[-1] < vals[0], f"the validation loss did not fall: {vals}")
+    best = TopKCheckpointer(topk_dir, k=2).best()
+    require(best[1] == steps * (1 + int(np.argmin(vals))),
+            f"top-K best {best} is not the best epoch of {vals}")
+    require(fit_launches["fused_input_transform"] > 0,
+            "fit did not launch the input transform")
+    print(f"  fit: {FIT_EPOCHS} epochs in {fit_s:.2f} s, validation losses "
+          f"{vals}; top-K best: step {best[1]} ({best[0]:.8f})", flush=True)
+
+    out = {"fit": {"initial_val_loss": first, "initial_val_loss_cpu": want,
+                   "gap": gap, "val_losses": vals, "best": list(best),
+                   "seconds": fit_s, "launches": fit_launches}}
+    ckpts = {}
+    for name, m in (("unet_v5", unet), ("unet_v5_classifier", cls)):
+        ckpts[name] = os.path.join(tmp, f"{name}.pt")
+        save_state(ckpts[name], m)
+    bundles = {
+        "mlp_v2rh": (os.path.join(tmp, "mlp_v2rh"), dict(
+            ckpt=topk_dir, buckets=[384, 1536], norms=norms_path)),
+        "unet_v5": (os.path.join(tmp, "unet_v5"), dict(
+            ckpt=ckpts["unet_v5"], buckets=[384],
+            cls_ckpt=ckpts["unet_v5_classifier"]))}
+    best_mlp = TopKCheckpointer(topk_dir, k=2).load_best(
+        trainer("cpu").model)
+    live = {"mlp_v2rh": PW.make_v2rh_wrapper(
+        best_mlp.to("cuda").eval(), stats, spec, tcfg=cfg.transform,
+        device="cuda"), "unet_v5": wrap2}
+    per_call = {"mlp_v2rh": {"fused_input_transform": 1},
+                "unet_v5": {"fused_input_transform": 1,
+                            "fused_gn_silu_conv3": 164,
+                            "fused_constraint_head": 1}}
+    for preset, (d, kw) in bundles.items():
+        meta = build_bundle(preset, kw.pop("ckpt"), d, verify=True,
+                            seed=seed, device="cuda", **kw)
+        require(meta["platform"] == "cuda" and meta["device_name"] == kind,
+                f"bundle platform {meta['platform']} {meta['device_name']}")
+        require(meta["norms"]["source"].get("path") == kw.get("norms"),
+                f"bundle norms {meta['norms']['source']}")
+        for a in meta["artifacts"].values():
+            print(f"  bundle {preset}: b={a['batch']} exported in "
+                  f"{a['export_s']:.2f} s, {a['bytes']} bytes, program "
+                  f"{a['verify_max_abs_diff']:.3e} from the live wrapper",
+                  flush=True)
+        try:
+            serve.make_server(serve.parse_args(
+                ["--bundle", d, "--batch", "768", "--port", "0",
+                 "--device", "cuda"]))
+            raise RuntimeError(f"{preset}: a bucket of 768 was served")
+        except ValueError as e:
+            refused = str(e)
+        print(f"  --batch 768 refused: {refused}", flush=True)
+        srv, _ = serve.make_server(serve.parse_args(
+            ["--bundle", d, "--batch", "384", "--port", "0",
+             "--device", "cuda"]))
+        in_spec = get_varspec(meta["input_version"])
+        xs = [synthetic_inputs(in_spec, 384, grid, seed=seed + 100 + i)
+              for i in range(3)]
+        srv.start()
+        try:
+            K.reset_launches()
+            cl = CouplingClient("127.0.0.1", srv.port)
+            replies = [cl.step(x) for x in xs]
+            cl.close()
+            torch.cuda.synchronize()
+            launches = dict(K.LAUNCHES)
+            summary = srv.stats.summary()
+        finally:
+            srv.stop()
+        require_per_call(launches, summary, per_call[preset],
+                         f"the {preset} bundle's program")
+        err, n_equal = 0.0, 0
+        for x, got in zip(xs, replies):
+            with torch.inference_mode():
+                want = live[preset](torch.from_numpy(x).cuda()).cpu()
+            got = torch.from_numpy(got.copy())
+            e = float((got - want).abs().max())
+            require(e <= BUNDLE_TOL * max(1.0, float(want.abs().max())),
+                    f"{preset} bundle reply {e:.3e} from the live wrapper")
+            err, n_equal = max(err, e), n_equal + bool(torch.equal(got, want))
+        print(f"  served --bundle {preset} b=384: {len(replies)} replies, "
+              f"{n_equal} bit-equal to the live wrapper, largest gap "
+              f"{err:.3e} (tolerance {BUNDLE_TOL} * max(1, max|y|)); "
+              f"launches {launches}", flush=True)
+        out[preset] = {"artifacts": meta["artifacts"], "refused": refused,
+                       "served_max_abs_diff": err, "bit_equal": n_equal,
+                       "launches": launches,
+                       "launches_a_call": per_call[preset]}
+    return out
 
 
 def rel_l2(got, want) -> float:
@@ -1969,7 +2492,7 @@ def main(argv=None) -> int:
     from climsim_tpu_torch.ops import kernels as K
     from climsim_tpu_torch.ops import unet_fused as PU
     from climsim_tpu_torch.ops.unet_infer import unet_apply_fused
-    from climsim_tpu_torch.serve import UNET_V5
+    from climsim_tpu_torch.config import PRESETS
     from climsim_tpu_torch.utils.migrate import (port_flax_online_mlp,
                                                  port_flax_unet)
 
@@ -2137,7 +2660,7 @@ def main(argv=None) -> int:
     gn = gn_checks(torch, PU, args.seed)
     head = head_checks(torch, K, stats5, args.seed)
     spec4 = get_varspec("v4")
-    unet = build_model("unet", spec5, **UNET_V5)
+    unet = build_model("unet", spec5, **PRESETS["unet_v5"].model_kw)
     unet.load_state_dict(port_flax_unet(unet_flax_tree(unet, args.seed),
                                         unet))
     unet = unet.to("cuda").eval()
@@ -2147,73 +2670,42 @@ def main(argv=None) -> int:
     wrap5 = PW.make_wrapper(partial(unet_apply_fused, unet), stats5,
                             PW.WrapperConfig(input_version="v4"),
                             device="cuda")
-    plain5 = plain_v5_path(torch, K, T, PW, physics, unet_apply_fused,
-                           unet, spec5, stats5)
+    plain5 = plain_v5_path(torch, K, T, PW, physics,
+                           partial(unet_apply_fused, unet, fused=False),
+                           spec5, stats5)
     chunks5 = [synthetic_inputs(spec4, 384, grid, seed=args.seed + 30 + i)
                for i in range(3)]
     ragged5 = synthetic_inputs(spec4, 50, grid, seed=args.seed + 40)
-    srv5 = CouplingServer(wrap5, spec4.input_len, base_chunk=384,
-                          max_batch=6144, device="cuda").start()
-    try:
-        K.reset_launches()
-        replies5, lat5 = drive(CouplingClient, srv5, chunks5, ragged5,
-                               N_LOOP)
-        torch.cuda.synchronize()
-        launches5 = dict(K.LAUNCHES)
-        summary5 = srv5.stats.summary()
-        if args.profile:
-            trace_served(torch, CouplingClient, srv5, chunks5[0],
-                         "served U-Net v5")
-    finally:
-        srv5.stop()
+    replies5, lat5, launches5, summary5 = serve_run(
+        torch, K, CouplingClient, CouplingServer, wrap5, spec4.input_len,
+        chunks5, ragged5, N_LOOP,
+        "served U-Net v5" if args.profile else None)
     print(f"launches in the served U-Net run: {launches5}", flush=True)
-    for name in ("fused_input_transform", "fused_gn_silu_conv3",
-                 "fused_constraint_head"):
-        require(launches5[name] > 0,
-                f"{name} was not launched by the served U-Net path")
-
-    # replies in normalized units: qc and qi take qn's out_scale
-    s5 = stats5.out_scale.astype(np.float64)
-    scale368 = torch.as_tensor(np.concatenate(
-        [s5[:120], s5[120:180], s5[120:180], s5[180:]]), dtype=torch.float32)
-    n_equal, direct_err, net_err, net_outside = 0, 0.0, 0.0, 0.0
-    for x, y in zip(chunks5 + [ragged5], replies5):
-        require(y.shape == (x.shape[0], 368), f"reply shape {y.shape}")
-        require(bool(np.isfinite(y).all()), "non-finite U-Net reply")
-        with torch.inference_mode():
-            xc = torch.from_numpy(x).cuda()
-            direct = wrap5(xc).cpu() * scale368
-            ref = plain5(xc).cpu() * scale368
-        got = torch.from_numpy(y.copy()) * scale368
-        if torch.equal(got, direct):
-            n_equal += 1
-        else:
-            d = float((got - direct).abs().max() / direct.abs().max())
-            direct_err = max(direct_err, d)
-            require(d <= SERVED_TOL, f"served U-Net reply {d:.3e} of max|y| "
-                    f"from the direct call (> SERVED_TOL {SERVED_TOL})")
-        e = float((got - ref).abs().max() / ref.abs().max())
-        net_err = max(net_err, e)
-        require(e <= NET_TOL, f"served U-Net reply {e:.3e} of max|y| from "
-                f"the plain path (> {NET_TOL})")
-        net_outside = max(net_outside, outside(got, ref, 2e-4, 1e-4))
-    lat5 = np.asarray(lat5)
-    print(f"served U-Net v5: {summary5['requests']} requests, "
-          f"{summary5['batches']} device calls, device call p50 "
-          f"{summary5['latency_ms_p50']:.3f} ms p99 "
-          f"{summary5['latency_ms_p99']:.3f} ms; 384-column round trip p50 "
-          f"{np.percentile(lat5, 50):.3f} ms p99 "
-          f"{np.percentile(lat5, 99):.3f} ms", flush=True)
-    print(f"  replies: {n_equal} of {len(replies5)} bit-equal to the direct "
-          f"call (largest gap {direct_err:.3e} of max|y|); against the "
-          f"all-plain path {net_err:.3e} of max|y| (tolerance {NET_TOL}), "
-          f"{net_outside:.4%} of the elements outside rtol 2e-4 / atol 1e-4",
-          flush=True)
+    require_per_call(launches5, summary5, {
+        "fused_input_transform": 1, "fused_gn_silu_conv3": 82,
+        "fused_constraint_head": 1}, "the served U-Net path")
+    s368 = scale368(torch, stats5)
+    cmp5 = compare_served(torch, "served U-Net", chunks5 + [ragged5],
+                          replies5, wrap5, plain5, s368)
+    report_served(card, "served U-Net v5", summary5, lat5, cmp5)
     with torch.inference_mode():
         xn = K.fused_input_transform_plain(
             PW.convert_v4_to_v5(torch.from_numpy(chunks5[0]).cuda()),
             T.input_transform_consts(spec5, stats5, v5_transform(T), "cuda"))
         batch_invariance(torch, F, PU, unet_apply_fused, unet, xn)
+
+    # -- (a) two-stage v5, (b) v4, (c) train -> bundle -> serve -----------
+    cls, wrap2, served2 = two_stage_phase(torch, card, unet, stats5, grid,
+                                          args.seed, args.profile)
+    served4 = v4_phase(torch, card, grid, args.seed, args.profile)
+    with tempfile.TemporaryDirectory() as tmp:
+        bundles = bundle_phase(torch, card, kind, unet, cls, wrap2, grid,
+                               args.seed, tmp)
+    del cls, wrap2
+    slice_launches = [served2["launches"], served4["launches"],
+                      bundles["fit"]["launches"],
+                      bundles["mlp_v2rh"]["launches"],
+                      bundles["unet_v5"]["launches"]]
 
     # -- kernel 6 and the v1 trainer ---------------------------------------
     print("fused MLP-training kernel vs plain on the card:", flush=True)
@@ -2241,7 +2733,8 @@ def main(argv=None) -> int:
     for name, (source, replaces) in SOURCES.items():
         r = res[name]
         launched = (launches[name] + launches5[name]
-                    + train["launches"][name] + unet_train["launches"][name])
+                    + train["launches"][name] + unet_train["launches"][name]
+                    + sum(n[name] for n in slice_launches))
         if name == "fused_input_transform":
             kernels.append(io_entry(name, source, replaces, launched, r,
                                     "v2_rh B=384"))
@@ -2263,7 +2756,8 @@ def main(argv=None) -> int:
         "source": UNET_SOURCES["fused_gn_silu_conv3"][0],
         "replaces": UNET_SOURCES["fused_gn_silu_conv3"][1],
         "launches": launches5["fused_gn_silu_conv3"]
-        + unet_train["launches"]["fused_gn_silu_conv3"],
+        + unet_train["launches"]["fused_gn_silu_conv3"]
+        + sum(n["fused_gn_silu_conv3"] for n in slice_launches),
         "max_abs_err": gn["max_abs_err"], "max_err_of_max_y": gn["max_err_rel"],
         "control_min_err_of_max_y": gn["control_min_rel"],
         "offset_1e3_err_of_max_y": gn["offset_err_rel"],
@@ -2277,7 +2771,9 @@ def main(argv=None) -> int:
         "tiles": gn["plans"], "stepped_plan": gn["stepped"]})
     kernels.append(io_entry(
         "fused_constraint_head", *UNET_SOURCES["fused_constraint_head"],
-        launches5["fused_constraint_head"], head, "B=384"))
+        launches5["fused_constraint_head"]
+        + sum(n["fused_constraint_head"] for n in slice_launches), head,
+        "B=384"))
     main_k6 = "v1_B32768"
     for name, (source, replaces) in K6_SOURCES.items():
         d = name.rsplit("_", 1)[1]
@@ -2342,7 +2838,9 @@ def main(argv=None) -> int:
                           "step_ms": train["split_ms"],
                           "busy": train["busy"],
                           "launches": train["launches"]},
-                      "unet_training": unet_train}))
+                      "unet_training": unet_train,
+                      "served": {"two_stage_v5": served2, "v4": served4},
+                      "bundles": bundles}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

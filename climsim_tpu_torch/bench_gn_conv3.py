@@ -46,11 +46,11 @@ def unet_v5_chains() -> dict:
     """(L, C, Cout) -> calls: the 82 fused chains of one unet_v5 forward,
     counted from the model's shapes (on the meta device)."""
     from . import get_varspec
+    from .config import PRESETS
     from .models.unet import ClimSimUNet
-    from .serve import UNET_V5
 
     return ClimSimUNet(get_varspec("v5"), fused_gn_conv=True,
-                       **UNET_V5).fused_chains(16)
+                       **PRESETS["unet_v5"].model_kw).fused_chains(16)
 
 
 def chain_bound_ms(b: int, l: int, c: int, cout: int) -> tuple:

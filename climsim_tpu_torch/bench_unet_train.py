@@ -56,9 +56,9 @@ def model_kw(arm: str) -> dict:
     """The unet_v5 widths with ``arm``'s flags."""
     import torch
 
-    from .serve import UNET_V5
+    from .config import PRESETS
 
-    kw = dict(UNET_V5, **ARMS[arm])
+    kw = dict(PRESETS["unet_v5"].model_kw, **ARMS[arm])
     if kw.get("norm_dtype") == "bfloat16":
         kw["norm_dtype"] = torch.bfloat16
     return kw

@@ -473,9 +473,11 @@ class ClimSimUNet(nn.Module):
             if self.output_prune:
                 # force class 0 in the top strato_lev_out levels with a
                 # saturating logit (climsim_unet_classifier.py:396-403)
-                forced = torch.zeros(self.num_classes, dtype=h.dtype,
-                                     device=h.device)
-                forced[0] = 1e2
+                # made on the device: a host write would copy a scalar
+                # to the card every call
+                forced = torch.where(
+                    torch.arange(self.num_classes, device=h.device) == 0,
+                    1e2, 0.0).to(h.dtype)
                 strat = (torch.arange(NUM_LEVELS, device=h.device)
                          < self.strato_lev_out)[None, :, None]
                 h = torch.where(strat, forced, h)

@@ -1,8 +1,9 @@
 """Normalization statistics, flattened to the feature layout of a VarSpec.
 
 The port's own copy of what it uses of ``climsim_tpu/norms.py``:
-``NormStats`` (read from the packaged npz files) and ``load_asset_norms``,
-which reads the port's copies of the assets
+``NormStats`` (read from and written to npz files, and written as the
+coupling contract's txt files) and ``load_asset_norms``, which reads the
+port's copies of the assets
 (``climsim_tpu_torch/assets/norms_<version>.npz``, bit-equal to the JAX
 package's; ``tests/test_torch_package.py`` checks it).
 
@@ -17,9 +18,12 @@ pipeline applies the cloud exponential transform with per-level rate
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
+
+from .varspec import VarSpec
 
 
 @dataclass(frozen=True)
@@ -49,6 +53,47 @@ class NormStats:
         return cls(inp_sub=z["inp_sub"], inp_div=z["inp_div"],
                    out_scale=z["out_scale"], lbd_qn=opt("lbd_qn"),
                    lbd_qc=opt("lbd_qc"), lbd_qi=opt("lbd_qi"))
+
+    def save_npz(self, path: str) -> None:
+        kw = dict(inp_sub=self.inp_sub, inp_div=self.inp_div,
+                  out_scale=self.out_scale)
+        for k in ("lbd_qn", "lbd_qc", "lbd_qi"):
+            if getattr(self, k) is not None:
+                kw[k] = getattr(self, k)
+        np.savez_compressed(path, **kw)
+
+    def save_txt(self, save_dir: str) -> None:
+        """Write inp_sub.txt, inp_div.txt and out_scale.txt in the coupling
+        contract's comma-separated format (data_utils.py:973-987), and
+        lbd_qn.txt where the stats carry the cloud rate (as
+        scripts/package_e3sm.py writes it)."""
+        os.makedirs(save_dir, exist_ok=True)
+        for name in ("inp_sub", "inp_div", "out_scale", "lbd_qn"):
+            v = getattr(self, name)
+            if v is not None:
+                np.savetxt(os.path.join(save_dir, f"{name}.txt"),
+                           np.asarray(v).reshape(1, -1), fmt="%.6e",
+                           delimiter=",")
+
+
+def compute_norms_from_data(spec: VarSpec, inputs: np.ndarray,
+                            targets: np.ndarray,
+                            scale_floor: float = 1e-8) -> NormStats:
+    """(mean, max - min, 1 / std) stats of un-normalized data, the online
+    norm-generation recipe (online_testing/data_preparation/normalization/
+    {input_scaling,output_scaling}.ipynb), with the output scale's floor
+    ``scale_floor`` for near-constant outputs.  The JAX package's
+    ``compute_norms_from_data`` without its ``qn_transform`` (the cloud
+    rates fitted to the data), which no port path uses yet."""
+    sub = inputs.mean(axis=0, dtype=np.float64)
+    div = inputs.max(axis=0).astype(np.float64) - inputs.min(axis=0)
+    std = targets.std(axis=0, dtype=np.float64)
+    if (sub.size, std.size) != (spec.input_len, spec.output_len):
+        raise ValueError(f"data of {sub.size} inputs and {std.size} "
+                         f"outputs; {spec.name} has {spec.input_len} and "
+                         f"{spec.output_len}")
+    return NormStats(inp_sub=sub, inp_div=div,
+                     out_scale=1.0 / np.maximum(std, scale_floor))
 
 
 def load_asset_norms(version: str) -> NormStats:

@@ -1,12 +1,18 @@
 """Coupling wrappers: raw host state in -> raw (B, 368) tendencies out.
 
 The counterpart of ``climsim_tpu.online.wrapper``: the v5 wrapper of the
-U-Net coupling (``make_wrapper``) and the v2_rh-family wrappers.  The
-reference wraps its trained torch model with all pre/post-processing in
-the graph (online_testing/model_postprocessing/v5_nn_wrapper.ipynb and
-v2_nn_wrapper.ipynb; coupling contract in online_testing/README.md
-section 3.1).  Here a wrapper is a closure over tensors on ``device``:
-fn(x_raw (B, n_raw)) -> (B, 368).
+U-Net coupling (``make_wrapper``), the v4 wrapper (``make_v4_wrapper``)
+and the v2_rh-family wrappers.  The reference wraps its trained torch
+model with all pre/post-processing in the graph
+(online_testing/model_postprocessing/v5_nn_wrapper.ipynb,
+v4_nn_wrapper.ipynb and v2_nn_wrapper.ipynb; coupling contract in
+online_testing/README.md section 3.1).  Here a wrapper is a closure over
+tensors on ``device``: fn(x_raw (B, n_raw)) -> (B, 368).
+
+``export_aot`` saves a wrapper as a ``torch.export`` program with its
+weights, at one fixed batch, and ``load_aot`` loads it: the counterpart of
+the JAX package's StableHLO artifact, and of the TorchScript wrapper the
+reference hands E3SM.
 """
 
 from __future__ import annotations
@@ -142,6 +148,38 @@ def _out_scale_inv(stats: NormStats, device) -> torch.Tensor:
                            device=device)
 
 
+def make_v4_wrapper(model_apply: Callable, stats: NormStats,
+                    spec: VarSpec | None = None,
+                    tcfg: T.TransformConfig | None = None,
+                    out_zero: dict | None = None,
+                    device="cuda") -> Callable:
+    """v4-family coupling wrapper: the host sends the raw v4 (B, 1525)
+    feature vector, the model takes it natively (no v5 conversion) and the
+    host receives the raw 368-wide tendencies with no cloud repartition
+    (v4_nn_wrapper.ipynb NewModel: qc/qi exponential transform ->
+    normalize -> nan/inf -> 0 -> cloud-input prune -> RH clip -> model ->
+    stratosphere zeroing -> un-scale).
+
+    ``model_apply(x_norm)`` maps normalized (B, 1525) columns to the
+    normalized (B, 368) output, e.g. ``partial(unet_apply_fused, model)``
+    for the ``unet_v4`` preset.  The input transform is the
+    ``fused_input_transform`` kernel, with the qc/qi rates where ``tcfg``
+    asks for them (the default does)."""
+    spec = spec or get_varspec("v4")
+    tcfg = tcfg or T.TransformConfig(
+        qn_transform=True, qinput_prune=True, strato_lev=15,
+        input_clip=True, input_clip_rhonly=True)
+    in_t = T.make_input_transform(spec, stats, tcfg, device)
+    zero = _out_zero_mask(spec, V4_OUT_ZERO if out_zero is None else out_zero,
+                          device)
+    out_scale_inv = _out_scale_inv(stats, device)
+
+    def wrapper(x_raw: torch.Tensor) -> torch.Tensor:
+        return model_apply(in_t(x_raw)) * zero * out_scale_inv
+
+    return wrapper
+
+
 def make_v2rh_wrapper(model: Callable, stats: NormStats,
                       spec: VarSpec | None = None,
                       tcfg: T.TransformConfig | None = None,
@@ -200,3 +238,51 @@ def make_fast_mlp_wrapper(model, stats: NormStats,
         return forward(in_t(x_raw), mlp, n_relu) * out_scale_inv
 
     return wrapper
+
+
+class _Program(torch.nn.Module):
+    """The module ``torch.export`` traces: ``fn`` as its forward."""
+
+    def __init__(self, fn: Callable):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fn(x)
+
+
+def export_aot(wrapper: Callable, batch: int, n_features: int, path: str,
+               device="cuda") -> torch.export.ExportedProgram:
+    """Save ``wrapper`` as a ``torch.export`` program at ``path`` (``.pt2``)
+    for (batch, n_features) float32 inputs on ``device``, and return it.
+
+    The counterpart of ``climsim_tpu/online/wrapper.py:201`` (a StableHLO
+    artifact; here a program ``torch.export.load`` reads): one fixed
+    batch, the weights embedded, no model source needed to run it.
+
+    The wrapper runs once on zeros first: that prepares the U-Net engine's
+    weights (the program holds the prepared bf16 kernels, not the module's
+    float32 parameters) and builds the kernels.  Then it is traced: the
+    kernels (input transform, constraint head, GroupNorm -> silu -> conv3)
+    enter the program as operators of torch.library (``ops``), so the
+    loaded program launches them on a CUDA device, as the live wrapper
+    does, and takes their plain versions on the CPU.  The program keeps
+    ``device``: one exported on the card loads and runs only there.
+    """
+    x = torch.zeros((batch, n_features), dtype=torch.float32, device=device)
+    with torch.inference_mode(False), torch.no_grad():
+        wrapper(x)
+        program = torch.export.export(_Program(wrapper), (x,))
+    program.example_inputs = None   # else saved with it: (batch, n) zeros
+    torch.export.save(program, path)
+    return program
+
+
+def load_aot(path: str) -> Callable:
+    """A program saved by ``export_aot`` -> fn(x (batch, n_features)) ->
+    (batch, 368), on the device it was exported on.  Importing ``ops``
+    registers the kernels' operators; the kernels build at their first
+    CUDA launch."""
+    from .. import ops  # noqa: F401  (registers the kernels' operators)
+
+    return torch.export.load(path).module()

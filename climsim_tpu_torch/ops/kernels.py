@@ -296,6 +296,8 @@ def fused_input_transform(x: torch.Tensor,
         _check(consts, "consts", torch.float32, (len(TRANSFORM_ROWS), None),
                dev)
         _check(x, "x", torch.float32, (None, consts.shape[1]), dev)
+    if torch.compiler.is_compiling():
+        return _input_transform_op(x, consts)
     if not (x.is_cuda or _on_cuda(x, "fused_input_transform")):
         return fused_input_transform_plain(x, consts)
     rows, d = x.shape
@@ -501,6 +503,8 @@ def fused_constraint_head(y_norm: torch.Tensor, t: torch.Tensor,
         lds = _level_strides(rows, dev, (("t", t), ("qc", qc), ("qi", qi)))
     if not dt > 0:
         raise ValueError(f"dt {dt}: want a positive step")
+    if torch.compiler.is_compiling():
+        return _constraint_head_op(y_norm, t, qc, qi, consts, dt)
     if not (y_norm.is_cuda or _on_cuda(y_norm, "fused_constraint_head")):
         return fused_constraint_head_plain(y_norm, t, qc, qi, consts, dt)
     out = torch.empty_like(_head_out(rows, dev))
@@ -535,6 +539,46 @@ def _launch_head(y_norm, t, qc, qi, consts, dt: float,
                       plan.args(rows, lds), dt)
     _build.check(code, "fused_constraint_head")
     return out
+
+
+# --------------------------------------------------------------------------
+# kernels 1 and 4 as operators of torch.library, for torch.export
+# --------------------------------------------------------------------------
+# A traced program (online.wrapper.export_aot) cannot hold a ctypes launch:
+# while torch.export traces, each public function above calls its operator
+# instead, which the graph keeps as one node.  The operator's
+# implementation is the public function itself, so a loaded program runs
+# the kernel for a CUDA tensor and the plain version for a CPU tensor, as
+# the live path does.  The live path never goes through the operator.
+# The namespace is the package's own name (climsim_tpu_torch), so that a
+# second copy of the port imported under another name registers its own.
+OPS_NAMESPACE = __name__.split(".")[0]
+
+
+@torch.library.custom_op(f"{OPS_NAMESPACE}::fused_input_transform",
+                         mutates_args=())
+def _input_transform_op(x: torch.Tensor,
+                        consts: torch.Tensor) -> torch.Tensor:
+    # a program's strides at run time need not be the traced ones
+    return fused_input_transform(x.contiguous(), consts)
+
+
+@_input_transform_op.register_fake
+def _(x, consts):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op(f"{OPS_NAMESPACE}::fused_constraint_head",
+                         mutates_args=())
+def _constraint_head_op(y_norm: torch.Tensor, t: torch.Tensor,
+                        qc: torch.Tensor, qi: torch.Tensor,
+                        consts: torch.Tensor, dt: float) -> torch.Tensor:
+    return fused_constraint_head(y_norm.contiguous(), t, qc, qi, consts, dt)
+
+
+@_constraint_head_op.register_fake
+def _(y_norm, t, qc, qi, consts, dt):
+    return y_norm.new_empty((y_norm.shape[0], CONTRACT_OUT))
 
 
 # --------------------------------------------------------------------------

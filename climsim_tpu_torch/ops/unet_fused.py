@@ -35,7 +35,8 @@ import torch.nn.functional as F
 
 from ..models.unet import _num_groups
 from . import _build
-from .kernels import LAUNCHES, _check, _launch_on, _on_cuda
+from .kernels import (LAUNCHES, OPS_NAMESPACE, _check, _launch_on,
+                      _on_cuda)
 
 EPS = 1e-6
 MAX_LEVELS = 64   # a sample fits one warpgroup's 64 rows
@@ -263,6 +264,8 @@ def fused_gn_silu_conv3(x: torch.Tensor, gamma: torch.Tensor,
     _check(w, "w", w.dtype, (3, c, cout), dev)
     for name, t, n in (("gamma", gamma, c), ("beta", beta, c), ("b", b, cout)):
         _check(t, name, torch.float32, (n,), dev)
+    if torch.compiler.is_compiling():
+        return _gn_silu_conv3_op(x, gamma, beta, w, b)
     if not _on_cuda(x, "fused_gn_silu_conv3"):
         if w.dtype not in (torch.bfloat16, torch.float32):
             raise TypeError(f"w: want bf16 or float32, got {w.dtype}")
@@ -279,6 +282,23 @@ def fused_gn_silu_conv3(x: torch.Tensor, gamma: torch.Tensor,
     _launch(x, gamma, beta, w, b, out, plan)
     LAUNCHES["fused_gn_silu_conv3"] += 1
     return out
+
+
+# The kernel as an operator of torch.library, for torch.export: as
+# kernels 1 and 4 (ops/kernels.py), the public function calls it while a
+# program is traced, and its implementation is the public function.
+@torch.library.custom_op(f"{OPS_NAMESPACE}::fused_gn_silu_conv3",
+                         mutates_args=())
+def _gn_silu_conv3_op(x: torch.Tensor, gamma: torch.Tensor,
+                      beta: torch.Tensor, w: torch.Tensor,
+                      b: torch.Tensor) -> torch.Tensor:
+    # a program's strides at run time need not be the traced ones
+    return fused_gn_silu_conv3(x.contiguous(), gamma, beta, w, b)
+
+
+@_gn_silu_conv3_op.register_fake
+def _(x, gamma, beta, w, b):
+    return x.new_empty((*x.shape[:2], w.shape[2]))
 
 
 def _launch(x, gamma, beta, w, b, out, plan: GnPlan) -> None:

@@ -22,16 +22,19 @@ so there is no batch tile.  ``fused=False`` is the all-plain engine.
 The JAX engine ignores four of the model's flags (``resample_proj=True``,
 ``norm1_act=False``, ``attn_heads != 0``, ``norm_dtype`` other than
 float32: its ``_gn`` always normalizes in float32,
-``climsim_tpu/ops/unet_infer.py:49-56``) and the classifier's
-stratosphere logit forcing (``classifier`` with ``output_prune``), and
-then returns another network's answer; this engine refuses them with a
-ValueError.  The ``unet_v5`` preset sets none of them.  The training
-flags (``dropout``, ``fused_gn_conv``, ``remat_blocks``) do not change
-inference, and the engine takes them.
+``climsim_tpu/ops/unet_infer.py:49-56``) and then returns another
+network's answer; this engine refuses them with a ValueError.  The
+``unet_v5`` preset sets none of them.  The classifier's stratosphere
+logit forcing (``classifier`` with ``output_prune``, the
+``unet_v5_classifier`` preset) is the model's own ``finish``, which the
+engine ends in.  The training flags (``dropout``, ``fused_gn_conv``,
+``remat_blocks``) do not change inference, and the engine takes them.
 
 Weights are prepared once per model and device -- bf16 conv kernels in
 the kernel's (3, C, Cout) layout, bf16-rounded float32 kernels for the
-plain convs -- and prepared anew when a parameter changes.
+plain convs -- and prepared anew when a parameter changes.  A program
+exported from the engine (``online.wrapper.export_aot``) holds the
+prepared weights, so they are prepared before it is traced, never while.
 """
 
 from __future__ import annotations
@@ -54,8 +57,7 @@ def _check_flags(model: ClimSimUNet) -> None:
         ("norm1_act=False", not model.norm1_act),
         (f"attn_heads={model.attn_heads}", model.attn_heads != 0),
         (f"norm_dtype={model.norm_dtype}", model.norm_dtype != torch.float32),
-        ("classifier with output_prune",
-         model.classifier and model.output_prune)) if on]
+    ) if on]
     if bad:
         raise ValueError(
             f"the fused engine replays the default U-Net only; {bad} would "
@@ -70,8 +72,14 @@ def _weights(model: ClimSimUNet, device: torch.device) -> dict:
     cached = model.__dict__.get(_CACHE_ATTR)
     if cached is not None and cached[0] == key:
         return cached[1]
+    if torch.compiler.is_compiling():
+        raise RuntimeError("the engine's weights are prepared while a "
+                           "program is traced: run the model once first, "
+                           "so that the program holds the prepared weights")
     prepared = {}
-    with torch.no_grad():
+    # ordinary tensors even under a caller's inference_mode: an exported
+    # program takes them as its constants
+    with torch.inference_mode(False), torch.no_grad():
         for m in model.modules():
             if isinstance(m, Conv1d):
                 w = m.weight.to(device)

@@ -33,6 +33,9 @@ SLICE_MODULES = (
     "climsim_tpu_torch.train.recipes", "climsim_tpu_torch.bench_train",
     "climsim_tpu_torch.varspec", "climsim_tpu_torch.norms",
     "climsim_tpu_torch.grid", "climsim_tpu_torch.bench_unet_train",
+    "climsim_tpu_torch.config", "climsim_tpu_torch.online.two_stage",
+    "climsim_tpu_torch.train.checkpoints", "climsim_tpu_torch.train.loop",
+    "climsim_tpu_torch.package_e3sm", "climsim_tpu_torch.ops",
 )
 
 
@@ -129,6 +132,8 @@ def _entry_points():
     from climsim_tpu_torch.online.server import CouplingServer
     from climsim_tpu_torch.train import losses as PL
     from climsim_tpu_torch.train import recipes as PR
+    from climsim_tpu_torch.online.two_stage import make_two_stage_apply
+    from climsim_tpu_torch.package_e3sm import build_bundle
     from climsim_tpu_torch.varspec import get_varspec
 
     spec, stats = get_varspec("v2_rh"), load_asset_norms("v2_rh")
@@ -163,6 +168,14 @@ def _entry_points():
             np.ones(308), 15),
         "pack_mlp": lambda: PK.pack_mlp([np.zeros((4, 2), np.float32)],
                                         [np.zeros(2, np.float32)]),
+        "make_v4_wrapper": lambda: PW.make_v4_wrapper(
+            lambda xn: xn, load_asset_norms("v4")),
+        "make_two_stage_apply": lambda: make_two_stage_apply(
+            lambda xn: xn, lambda xn: xn, stats5),
+        "export_aot": lambda: PW.export_aot(lambda x: x, 2, 4, os.devnull),
+        "build_bundle": lambda: build_bundle(
+            "mlp_v2rh", None, os.devnull, [4],
+            overrides=("model_kw.hidden=[8]",)),
     }
 
 
@@ -172,7 +185,8 @@ ENTRY_POINTS = ("mlp_trainer", "online_mlp_trainer", "unet_trainer",
                 "input_transform_consts", "make_wrapper",
                 "make_v2rh_wrapper", "make_fast_mlp_wrapper",
                 "CouplingServer", "block_weight_vector",
-                "constraint_head_consts", "pack_mlp")
+                "constraint_head_consts", "pack_mlp", "make_v4_wrapper",
+                "make_two_stage_apply", "export_aot", "build_bundle")
 
 
 def _default_device(name):
@@ -182,8 +196,10 @@ def _default_device(name):
     from climsim_tpu_torch.online.server import CouplingServer
     from climsim_tpu_torch.train import losses as PL
     from climsim_tpu_torch.train import recipes as PR
+    from climsim_tpu_torch import package_e3sm as PP
+    from climsim_tpu_torch.online import two_stage as PS
 
-    for mod in (PR, PT, PW, PL, PK):
+    for mod in (PR, PT, PW, PL, PK, PP, PS):
         if hasattr(mod, name):
             fn = getattr(mod, name)
             break

@@ -28,10 +28,11 @@ from climsim_tpu_torch.data import transforms as PT
 from climsim_tpu_torch.data.synthetic import synthetic_inputs
 from climsim_tpu_torch.models import ClimSimUNet, build_model
 from climsim_tpu_torch.ops import unet_infer as PI
-from climsim_tpu_torch.serve import UNET_V5
+from climsim_tpu_torch.config import PRESETS
 from climsim_tpu_torch.utils.migrate import port_flax_unet
 
 SPEC = get_varspec("v5")
+UNET_V5 = PRESETS["unet_v5"].model_kw
 TINY = dict(model_channels=32, channel_mult=(1, 2), num_blocks=1,
             attn_resolutions=(32,))
 VARIANTS = {

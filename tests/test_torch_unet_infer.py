@@ -3,6 +3,7 @@ against the JAX engine (climsim_tpu.ops.unet_infer, its Pallas kernel in
 interpret mode), fused and all-plain, on the same perturbed weights and
 seeded columns; tolerances as tests/test_torch_unet.py says."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,7 +15,7 @@ from climsim_tpu_torch.models import ClimSimUNet
 from climsim_tpu_torch.ops import kernels as PK
 from climsim_tpu_torch.ops.unet_infer import unet_apply_fused
 from test_torch_unet import (DTYPES, SPEC, TINY, close, columns, flax_case,
-                             port_model)
+                             perturb, port_model)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -68,8 +69,7 @@ def test_engine_rereads_changed_weights():
 
 REFUSED = {"resample_proj": dict(resample_proj=True),
            "norm1_act": dict(norm1_act=False),
-           "attn_heads": dict(attn_heads=1),
-           "classifier_forcing": dict(classifier=True, output_prune=True)}
+           "attn_heads": dict(attn_heads=1)}
 
 
 @pytest.mark.parametrize("flag", sorted(REFUSED))
@@ -77,6 +77,34 @@ def test_engine_refuses_flags_the_jax_engine_ignores(flag):
     m = ClimSimUNet(SPEC, **TINY, **REFUSED[flag])
     with pytest.raises(ValueError, match="default U-Net"):
         unet_apply_fused(m, torch.from_numpy(columns(2)))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_engine_classifier_logits_match_flax(dtype):
+    """The unet_v5_classifier settings (classifier, output_prune,
+    strato_lev_out=12): the engine's logits, the stratosphere forcing
+    included, against flax model.apply -- not the JAX engine, which
+    returns them unforced (climsim_tpu/ops/unet_infer.py:216-217) -- fused
+    and all-plain, at the engine's tolerance."""
+    jdt, tdt = DTYPES[dtype]
+    kw = dict(TINY, classifier=True, output_prune=True, strato_lev_out=12)
+    params = FlaxUNet(spec=SPEC, **kw).init(
+        jax.random.PRNGKey(0), jnp.asarray(columns(2)))["params"]
+    tree = perturb(jax.tree.map(np.asarray, params), seed=3)
+    x = columns(7, seed=5)
+    want = np.asarray(FlaxUNet(spec=SPEC, compute_dtype=jdt, **kw).apply(
+        {"params": tree}, jnp.asarray(x)), np.float64)
+    m = port_model(kw, tree, tdt)
+    for fused in (True, False):
+        with torch.inference_mode():
+            got = unet_apply_fused(m, torch.from_numpy(x), fused=fused)
+        assert got.shape == (7, 60, 3)
+        close(got.double().numpy(), want, dtype)
+        np.testing.assert_array_equal(
+            got[:, :12].numpy(), np.broadcast_to([1e2, 0.0, 0.0], (7, 12, 3)))
+    unforced = np.asarray(jax_engine(FlaxUNet(spec=SPEC, compute_dtype=jdt,
+                                              **kw), tree, jnp.asarray(x)))
+    assert (unforced[:, :12, 0] != 1e2).all()
 
 
 def test_jax_engine_gap_on_resample_proj():

@@ -176,11 +176,12 @@ class _H100:
 def test_kernel_shapes_checked_before_the_first_step(monkeypatch):
     """Every fused chain of the unet_v5 training step fits the kernel on an
     H100; a chain it cannot take is refused when the trainer is built."""
-    from climsim_tpu_torch.serve import UNET_V5
+    from climsim_tpu_torch.config import PRESETS
 
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: _H100())
-    m = ClimSimUNet(SPEC, fused_gn_conv=True, **UNET_V5)
+    m = ClimSimUNet(SPEC, fused_gn_conv=True,
+                    **PRESETS["unet_v5"].model_kw)
     chains = m.fused_chains(1024)
     assert sum(chains.values()) == 82
     assert {c for _, c, _ in chains} == {128, 256, 384, 512}

@@ -276,3 +276,50 @@ def test_physics_tensor_functions_match_jax():
     np.testing.assert_allclose(
         PP.qn_exponential_transform(tt[1], torch.from_numpy(lbd)).numpy(),
         np.asarray(JP.qn_exponential_transform(qc, lbd)), rtol=1e-12)
+
+
+# --------------------------------------------------------------------------
+# the v4 U-Net coupling wrapper
+# --------------------------------------------------------------------------
+STATS4 = load_asset_norms("v4")
+V4_TCFG = {"default": (None, None),
+           "preset": (T.TransformConfig(), PT.TransformConfig())}
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("tcfg", sorted(V4_TCFG))
+def test_v4_wrapper_matches_jax(tcfg, dtype):
+    """Raw v4 columns -> input transform (the default's qc/qi rates and
+    cloud-input prune, or the unet_v4 preset's plain normalization) ->
+    the fused U-Net engine on the v4 columns -> V4_OUT_ZERO -> un-scale,
+    the port's against the JAX package's, in normalized units at the
+    engine's tolerance (1e-4 * max|y| float32, 2e-2 * max|y| bf16)."""
+    from climsim_tpu.models.unet import ClimSimUNet as FlaxUNet
+    from climsim_tpu.ops.unet_infer import unet_apply_fused as jax_engine
+    from climsim_tpu_torch.models import ClimSimUNet
+    from climsim_tpu_torch.ops import kernels as PK
+    from climsim_tpu_torch.ops.unet_infer import unet_apply_fused
+    from climsim_tpu_torch.utils.migrate import port_flax_unet
+    from test_torch_unet import DTYPES, TINY, close, perturb
+
+    jdt, tdt = DTYPES[dtype]
+    jcfg, pcfg = V4_TCFG[tcfg]
+    x = synthetic_inputs(SPEC4, 12, load_default_grid(), seed=11)
+    fm = FlaxUNet(spec=SPEC4, compute_dtype=jdt, **TINY)
+    tree = perturb(jax.tree.map(np.asarray, fm.init(
+        jax.random.PRNGKey(0), jnp.zeros((2, SPEC4.input_len)))["params"]))
+    want = np.asarray(W.make_v4_wrapper(
+        lambda p, xn: jax_engine(fm, p, xn), STATS4, SPEC4, tcfg=jcfg)(
+        tree, jnp.asarray(x)))
+    m = ClimSimUNet(SPEC4, compute_dtype=tdt, **TINY)
+    m.load_state_dict(port_flax_unet(tree, m))
+    PK.reset_launches()
+    with torch.inference_mode():
+        got = PW.make_v4_wrapper(partial(unet_apply_fused, m.eval()),
+                                 STATS4, SPEC4, tcfg=pcfg, device="cpu")(
+            torch.from_numpy(x)).numpy()
+    assert PK.LAUNCHES == dict.fromkeys(PK.LAUNCHES, 0)
+    assert got.shape == (12, 368) and np.isfinite(got).all()
+    scale = STATS4.out_scale.astype(np.float64)
+    close(got * scale, want * scale, dtype)
+    assert (got[:, 120:148] == 0).all()   # ptend_q0002 zeroed 28 deep
