@@ -88,6 +88,31 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    --bundle path: replies within BUNDLE_TOL of the live wrapper, the
    kernels launched inside the loaded programs as on the live path, and a
    --batch the bundle lacks refused.
+6d. Rolls out and scores on the card (online.driver, eval): HybridDriver
+   around the U-Net v5 wrapper of 6 for ROLL_STEPS steps (one simulated
+   day) from 384 synthetic v4 columns, forced by Newtonian relaxation
+   toward the initial state (tau 2 days) with a 1.5 K/day diurnal cycle
+   (scripts/online_eval.py's defaults): kernels 1, 4 and 5 launched 1, 1
+   and 82 times a step, trajectories finite, q1, qc and qi >= 0; step
+   1's tendencies within NET_TOL * max|y| of the all-plain path (its gap
+   over PLAIN_STEPS steps printed); the same steps as three segments
+   with start_step within ROLL_TOL of the one rollout, and segments that
+   drop start_step (planted) outside it.  A 3-member ensemble (members
+   0.05 K apart, 1152 rows a step) for 24 steps: step 1 within ROLL_TOL
+   of the member loop, the later steps' gaps printed.  V2RHDriver around
+   the fast MLP_v2rh wrappers (bf16, int8) for ROLL_STEPS steps (kernels
+   1 and 2 or 3 once a step; step 1 against the plain versions), and the
+   two-stage U-Net v5 of 6a for 12 steps (164 kernel-5 launches a step).
+   Each rollout's ms a simulated step (the median of ROLL_TIMED steps,
+   each synchronized, after ROLL_WARM) and over the whole rollout.  Then
+   the U-Net v5's predictions (fused and plain) on 4 x 384 synthetic v5
+   columns scored in W/m^2 by offline_score and by StreamingScorer over
+   384-column chunks, within SCORE_TOL of each other, and the online
+   diagnostics of the 72-step rollout (drift, precipitation,
+   microphysics, error growth, water residual), which must be finite.
+   With --profile, a 24-step U-Net v5 and MLP_v2rh bf16 rollout are
+   traced: the card's busy share, device ops a step, device-to-host
+   copies.
 7. Checks the fused MLP-training kernel (kernel 6: its pack, its forward
    on kernel 2's tensor-core kernel, its backward's recompute and TMA-fed
    wgmma GEMM) against its plain version on the card, forward and
@@ -145,7 +170,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    share, kernel 5's share of it, the costliest host ops).
 13. Prints one JSON line of the kernels' results (each with its bound:
    the larger of its bytes over the memory rate and its operations over
-   the peak, at the timed shape), then, last,
+   the peak, at the timed shape; the launches include 6d's rollouts) and
+   the paths' results (6d's under "rollouts"), then, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Nothing is caught: any failure exits non-zero and prints no result.
@@ -1060,6 +1086,35 @@ def profile(torch, K, model, stats, spec, chunk):
             srv.stop()
 
 
+def device_events(prof):
+    """(name, ms) of every kernel, copy and fill on the device's own
+    timeline.  ``key_averages()`` also carries each host op's device time
+    (the kernels it launched), so summing its entries counts a kernel
+    launched by a torch op twice; kernels launched through ctypes (1 to
+    5) run under no torch op and appear once either way."""
+    from torch.autograd import DeviceType
+
+    return [(ev.name, ev.device_time_total / 1e3) for ev in prof.events()
+            if ev.device_type == DeviceType.CUDA
+            and not ev.is_user_annotation]
+
+
+def device_summary(evs, per, unit):
+    """Print the ten costliest device ops by name, then every copy and
+    every kernel of the port, in ``unit`` (per ``per`` calls)."""
+    by_name: dict = {}
+    for name, ms in evs:
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + ms)
+    ours = ("Memcpy", "transform_kernel", "mlp_wgmma_kernel",
+            "constraint_head_kernel", "gn_silu_conv3_kernel")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    for i, (name, (n, t)) in enumerate(ranked):
+        if i < 10 or any(k in name for k in ours):
+            print(f"  device {t * 1e3 / per:9.2f} us/{unit} {n:6d} x "
+                  f"{name[:80]}")
+
+
 def trace_served(torch, CouplingClient, srv, chunk, label):
     """torch.profiler trace of N_TRACE sequential requests of ``chunk`` to
     ``srv``: device time per kernel and copy, the card's busy share of the
@@ -1078,24 +1133,17 @@ def trace_served(torch, CouplingClient, srv, chunk, label):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     cl.close()
-    ops = prof.key_averages()
-    dev_ops = [e for e in ops if e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in dev_ops) / 1e3
-    k5_ms = sum(e.self_device_time_total for e in dev_ops
-                if "gn_silu_conv3_kernel" in e.key) / 1e3
+    evs = device_events(prof)
+    busy_ms = sum(ms for _, ms in evs)
+    k5_ms = sum(ms for name, ms in evs if "gn_silu_conv3_kernel" in name)
     print(f"profile: {label}, {N_TRACE} requests in {wall_ms:.1f} ms; "
           f"card busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}); kernel 5 "
           f"{k5_ms:.3f} ms ({k5_ms / max(busy_ms, 1e-9):.1%} of the busy "
-          "time)", flush=True)
-    # the ten costliest, then every copy and every kernel of the port
-    ours = ("Memcpy", "transform_kernel", "mlp_wgmma_kernel",
-            "constraint_head_kernel", "gn_silu_conv3_kernel")
-    ranked = sorted(dev_ops, key=lambda e: -e.self_device_time_total)
-    for i, e in enumerate(ranked):
-        if i < 10 or any(k in e.key for k in ours):
-            print(f"  device {e.self_device_time_total / N_TRACE:9.2f} "
-                  f"us/request {e.count:6d} x {e.key[:80]}")
-    for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:6]:
+          f"time); {len(evs) / N_TRACE:.1f} device ops a request",
+          flush=True)
+    device_summary(evs, N_TRACE, "request")
+    for e in sorted(prof.key_averages(),
+                    key=lambda e: -e.self_cpu_time_total)[:6]:
         print(f"  host   {e.self_cpu_time_total / N_TRACE:9.2f} "
               f"us/request {e.count:6d} x {e.key[:80]}")
 
@@ -2408,6 +2456,428 @@ def mlp_work(widths, b, wbytes):
             2 * b * n_w, n_w, n_b)
 
 
+# phase (d): the hybrid rollout driver over the served wrappers, and the
+# offline and online scoring modules
+ROLL_STEPS = 72           # one simulated day at 1200 s a step
+ROLL_SEG = 24             # the segmented run: three segments of 24
+ENS_MEMBERS, ENS_STEPS = 3, 24
+TWO_STAGE_STEPS = 12
+PLAIN_STEPS = 3           # the all-plain path's steps beside the kernels'
+ROLL_WARM, ROLL_TIMED = 3, 24   # host-clock steps: warm-up, then timed
+ROLL_PROFILED = 24        # --profile: steps of a traced rollout
+# the driver's float32 tolerance (tests/test_online.py:167): the segmented
+# run against the one rollout, the ensemble against the member loop
+ROLL_TOL = (1e-5, 1e-6)
+TAU_DAYS, DIURNAL = 2.0, 1.5    # scripts/online_eval.py's defaults
+ENS_PERTURB_K = 0.05            # scripts/online_eval.py:1199
+SCORE_STEPS = 4           # time steps of 384 columns scored offline
+SCORE_TOL = 1e-10         # streaming vs in-memory, tests/test_metrics.py:164
+SCORED = ("ptend_t", "ptend_q0001", "ptend_qn", "ptend_u", "cam_out_PRECC",
+          "cam_out_NETSW")
+KERNEL_NAMES = ("fused_input_transform", "fused_mlp_forward",
+                "fused_mlp_forward_int8", "fused_constraint_head",
+                "fused_gn_silu_conv3")
+
+
+def counted(torch, K, fn):
+    """fn() with the launch counts set to 0 just before and read just
+    after; returns (its result, the counts, host-clock ms to the end of
+    its device work)."""
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(K.LAUNCHES), (time.perf_counter() - t0) * 1e3
+
+
+def require_per_step(launches, steps, per_step, label):
+    """Each of the five kernels launched per_step[name] times a step (0
+    where it is not named) in a run of ``steps`` steps."""
+    for name in KERNEL_NAMES:
+        want = per_step.get(name, 0) * steps
+        require(launches[name] == want, f"{label}: {name} launched "
+                f"{launches[name]} times in {steps} steps, want {want}")
+
+
+def state_checks(torch, label, final, traj):
+    """Finite trajectories and final state, q1, qc and qi >= 0, and a
+    finite water residual."""
+    for k, v in traj.items():
+        require(bool(torch.isfinite(v).all()), f"{label}: non-finite {k}")
+    for f in ("t", "q1", "qc", "qi", "u", "v", "prvphy", "dyn"):
+        require(bool(torch.isfinite(getattr(final, f)).all()),
+                f"{label}: non-finite final {f}")
+    for f in ("q1", "qc", "qi"):
+        require(bool((getattr(final, f) >= 0).all()),
+                f"{label}: negative final {f}")
+    require(bool((traj["q1"] >= 0).all() and (traj["qn"] >= 0).all()),
+            f"{label}: negative q1 or qn in the trajectory")
+
+
+def step_ms(torch, driver, state, start):
+    """Host-clock ms a step, after ROLL_WARM warm-up steps: of ROLL_TIMED
+    single steps (rollouts of 1, each ended by a synchronize: the host
+    model waits for every step's tendencies), and of one rollout of
+    ROLL_TIMED steps with one synchronize at its end (the host runs
+    ahead).  Returns (the single steps' list, the rollout's ms a step)."""
+    s, _ = driver.rollout(state, ROLL_WARM, start_step=start)
+    torch.cuda.synchronize()
+    ms = []
+    for i in range(ROLL_TIMED):
+        t0 = time.perf_counter()
+        s, _ = driver.rollout(s, 1, start_step=start + ROLL_WARM + i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    driver.rollout(s, ROLL_TIMED, start_step=start + ROLL_WARM + ROLL_TIMED)
+    torch.cuda.synchronize()
+    return ms, (time.perf_counter() - t0) * 1e3 / ROLL_TIMED
+
+
+def roll_gap(a, b, keys=("t", "q1", "qn", "u", "precc", "water_res")):
+    """key -> max |a - b| / max |b| of two trajectories (or of one step
+    of them)."""
+    return {k: float((a[k] - b[k]).abs().max() / b[k].abs().max())
+            for k in keys}
+
+
+def within(a, b, tol=ROLL_TOL):
+    """Every key of trajectories a and b within rtol / atol."""
+    return all(bool(((a[k] - b[k]).abs()
+                     <= tol[1] + tol[0] * b[k].abs()).all()) for k in b)
+
+
+def trace_rollout(torch, label, run, steps):
+    """torch.profiler trace of run() (``steps`` steps, after one warm-up
+    call): the card's busy share, the device ops a step (kernels, copies
+    and fills) and the device-to-host copies in the trace."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    run()
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    evs = device_events(prof)
+    busy_ms = sum(ms for _, ms in evs)
+    d2h = sorted({name for name, _ in evs if "DtoH" in name})
+    out = {"steps": steps, "wall_ms": wall_ms, "busy_ms": busy_ms,
+           "busy": busy_ms / wall_ms, "device_ops_a_step": len(evs) / steps,
+           "dtoh_copies": sum(1 for name, _ in evs if "DtoH" in name),
+           "dtoh_ops": d2h,
+           "kernel5_ms_a_step": sum(ms for name, ms in evs
+                                    if "gn_silu_conv3_kernel" in name)
+           / steps}
+    print(f"profile: {label} rollout, {steps} steps in {wall_ms:.1f} ms: "
+          f"card busy {busy_ms:.3f} ms ({out['busy']:.1%}), "
+          f"{out['device_ops_a_step']:.1f} device ops a step, "
+          f"{out['dtoh_copies']} device-to-host copies {d2h}", flush=True)
+    device_summary(evs, steps, "step")
+    return out
+
+
+def rollout_phase(torch, card, unet, wrap5, plain5, cls, wrap2, model, stats,
+                  spec, stats5, grid, seed, profile):
+    """(d) Rollouts and scores on the card: HybridDriver around the served
+    U-Net v5 wrapper (ROLL_STEPS steps, a segmented run of the same steps,
+    the all-plain path's first steps), a ENS_MEMBERS-member ensemble,
+    V2RHDriver around the fast MLP_v2rh wrappers (bf16, int8), the
+    two-stage U-Net v5; offline scores of the U-Net v5's predictions (the
+    in-memory and the streaming scorer) and online diagnostics of the
+    U-Net v5 rollout.  Returns the results and each counted run's
+    launches."""
+    import dataclasses
+
+    from climsim_tpu_torch import get_varspec, physics
+    from climsim_tpu_torch.data import transforms as T
+    from climsim_tpu_torch.data.synthetic import (synthetic_inputs,
+                                                  synthetic_split)
+    from climsim_tpu_torch.eval import online_diags as D
+    from climsim_tpu_torch.eval.scoring import offline_score
+    from climsim_tpu_torch.eval.streaming import StreamingScorer
+    from climsim_tpu_torch.online import driver as PD
+    from climsim_tpu_torch.online import wrapper as PW
+    from climsim_tpu_torch.online.two_stage import make_two_stage_apply
+    from climsim_tpu_torch.online.wrapper import make_fast_mlp_wrapper
+    from climsim_tpu_torch.ops import kernels as K
+    from climsim_tpu_torch.ops.unet_infer import unet_apply_fused
+
+    spec4, spec5 = get_varspec("v4"), get_varspec("v5")
+    s368 = scale368(torch, stats5).cuda()
+    res, all_launches = {}, []
+    x0 = synthetic_inputs(spec4, 384, grid, seed=seed + 80)
+    with torch.inference_mode():
+        s0 = PD.initial_state(x0, grid, device="cuda")
+        forcing = PD.newtonian_relaxation(
+            s0.t, s0.q1, s0.u, tau_steps=TAU_DAYS * 72, lat=grid.lat,
+            diurnal_amp_k_per_day=DIURNAL, device="cuda")
+
+        def main_run(label, wrap, per_step, steps, cls_=PD.HybridDriver):
+            drv = cls_(wrap, grid, dyn_forcing=forcing)
+            (final, traj), launches, _ = counted(
+                torch, K, lambda: drv.rollout(s0, steps))
+            require_per_step(launches, steps, per_step, label)
+            state_checks(torch, label, final, traj)
+            ms, piped = step_ms(torch, drv, final, steps)
+            out = {"steps": steps, "columns": 384,
+                   "ms_a_step_median": float(np.median(ms)),
+                   "ms_a_step_p90": float(np.percentile(ms, 90)),
+                   "ms_a_step_pipelined": piped,
+                   "launches_a_step": {k: v / steps
+                                       for k, v in launches.items()}}
+            all_launches.append(launches)
+            print(f"{card}: {label} rollout, 384 columns: "
+                  f"{out['ms_a_step_median']:.3f} ms a simulated step "
+                  f"(median of {ROLL_TIMED} synchronized steps after "
+                  f"{ROLL_WARM}; p90 {out['ms_a_step_p90']:.3f}), "
+                  f"{out['ms_a_step_pipelined']:.3f} ms a step over "
+                  f"{ROLL_TIMED} steps with one synchronize; kernel launches a "
+                  f"step {[launches[k] // steps for k in KERNEL_NAMES]} "
+                  "(kernels 1, 2, 3, 4, 5)", flush=True)
+            return drv, final, traj, out
+
+        # -- 1. U-Net v5 -------------------------------------------------
+        per5 = {"fused_input_transform": 1, "fused_constraint_head": 1,
+                "fused_gn_silu_conv3": 82}
+        drv5, final5, traj5, r = main_run("U-Net v5", wrap5, per5,
+                                          ROLL_STEPS)
+        plain_drv = PD.HybridDriver(plain5, grid, dyn_forcing=forcing)
+        _, tf = drv5.step(s0, 0)
+        _, tp = plain_drv.step(s0, 0)
+        gap1 = float(((tf - tp) * s368).abs().max()
+                     / (tp * s368).abs().max())
+        require(gap1 <= NET_TOL, f"U-Net v5 rollout: step 1's tendencies "
+                f"{gap1:.3e} of max|y| from the all-plain path (> {NET_TOL})")
+        _, traj_p = plain_drv.rollout(s0, PLAIN_STEPS)
+        plain_gaps = [roll_gap({k: v[i] for k, v in traj5.items()},
+                               {k: v[i] for k, v in traj_p.items()})
+                      for i in range(PLAIN_STEPS)]
+        segs = {}
+        for planted in (False, True):
+            s, parts = s0, []
+            for k in range(ROLL_STEPS // ROLL_SEG):
+                s, tr = drv5.rollout(
+                    s, ROLL_SEG, start_step=0 if planted else k * ROLL_SEG)
+                parts.append(tr)
+            segs[planted] = {k: torch.cat([p[k] for p in parts])
+                             for k in traj5}
+        seg_gap = roll_gap(segs[False], traj5)
+        require(within(segs[False], traj5), f"U-Net v5: the segmented "
+                f"rollout is {seg_gap} from the one rollout (> {ROLL_TOL})")
+        planted_gap = roll_gap(segs[True], traj5)
+        require(not within(segs[True], traj5), "U-Net v5: segments that "
+                "restart the diurnal phase at 0 (planted) pass the "
+                "segmented check")
+        r.update(step1_tendency_gap_of_max_y=gap1,
+                 plain_gaps_by_step=plain_gaps,
+                 segmented_gap=seg_gap, planted_segmented_gap=planted_gap,
+                 segmented_bit_equal=all(torch.equal(segs[False][k],
+                                                     traj5[k])
+                                         for k in traj5))
+        print(f"  step 1 against the all-plain path: {gap1:.3e} of max|y| "
+              f"(tolerance {NET_TOL}); the plain path's gap a step "
+              f"(max |a - b| / max |b|; t, q1, qn, u, precc, water_res): "
+              + "; ".join(", ".join(f"{v:.2e}" for v in g.values())
+                          for g in plain_gaps), flush=True)
+        print(f"  {ROLL_STEPS // ROLL_SEG} segments of {ROLL_SEG} against "
+              f"the one rollout: {max(seg_gap.values()):.3e} (bit-equal: "
+              f"{r['segmented_bit_equal']}; tolerance {ROLL_TOL}); with "
+              f"start_step dropped (planted) {max(planted_gap.values()):.3e}"
+              ", caught", flush=True)
+        res["unet_v5"] = r
+
+        # -- 2. a perturbed-IC ensemble ----------------------------------
+        mrng = np.random.default_rng(1234)
+        members = [s0] + [dataclasses.replace(s0, t=s0.t + torch.as_tensor(
+            ENS_PERTURB_K * mrng.standard_normal((384, 60)).astype(
+                np.float32), device="cuda"))
+            for _ in range(ENS_MEMBERS - 1)]
+        stacked = PD.stack_states(members)
+        (ef, et), launches, _ = counted(
+            torch, K, lambda: drv5.rollout_ensemble(stacked, ENS_STEPS))
+        require_per_step(launches, ENS_STEPS, per5, "the ensemble")
+        all_launches.append(launches)
+        state_checks(torch, "the ensemble",
+                     PD.map_state(lambda a: a.flatten(0, 1), ef),
+                     {k: v.flatten(0, 1) for k, v in et.items()})
+        loop = [drv5.rollout(m, ENS_STEPS)[1] for m in members]
+        ens_gaps = [max(max(roll_gap({k: v[m, i] for k, v in et.items()},
+                                     {k: v[i] for k, v in loop[m].items()})
+                            .values()) for m in range(ENS_MEMBERS))
+                    for i in range(ENS_STEPS)]
+        for m in range(ENS_MEMBERS):
+            require(within({k: v[m, 0] for k, v in et.items()},
+                           {k: v[0] for k, v in loop[m].items()}),
+                    f"the ensemble's member {m} at step 1 is not within "
+                    f"{ROLL_TOL} of its own rollout")
+        ms, piped = step_ms(torch, drv5,
+                            PD.map_state(lambda a: a.flatten(0, 1), ef),
+                            ENS_STEPS)
+        r = {"members": ENS_MEMBERS, "steps": ENS_STEPS,
+             "rows_a_step": ENS_MEMBERS * 384,
+             "ms_a_step_median": float(np.median(ms)),
+             "ms_a_member_step": float(np.median(ms)) / ENS_MEMBERS,
+             "ms_a_step_pipelined": piped,
+             "launches_a_step": {k: v / ENS_STEPS
+                                 for k, v in launches.items()},
+             "member_loop_gap_by_step": ens_gaps}
+        print(f"{card}: {ENS_MEMBERS}-member ensemble, "
+              f"{ENS_MEMBERS * 384} rows a step: {r['ms_a_step_median']:.3f}"
+              f" ms a step, {r['ms_a_member_step']:.3f} ms a member-step "
+              f"({r['ms_a_step_pipelined']:.3f} ms a step over {ROLL_TIMED} "
+              "with one synchronize); against the member loop at step 1 "
+              f"within {ROLL_TOL}; the gap a step (max over members and "
+              f"keys): {', '.join(f'{g:.2e}' for g in ens_gaps)}",
+              flush=True)
+        res["ensemble"] = r
+
+        # -- 3. MLP_v2rh through V2RHDriver, bf16 and int8 ----------------
+        in_consts = T.input_transform_consts(spec, stats, T.TransformConfig(
+            input_clip=True, input_clip_rhonly=True), "cuda")
+        out_inv = torch.as_tensor(1.0 / stats.out_scale, dtype=torch.float32,
+                                  device="cuda")
+        scale2 = torch.as_tensor(stats.out_scale, dtype=torch.float32,
+                                 device="cuda")
+        ws, bs = K.mlp_params_to_matrices(model.state_dict())
+        for w, dt, kern in (("bf16", torch.bfloat16, "fused_mlp_forward"),
+                            ("int8", "int8", "fused_mlp_forward_int8")):
+            wrap = make_fast_mlp_wrapper(model, stats, spec, dt,
+                                         device="cuda")
+            drv, _, _, r = main_run(
+                f"MLP_v2rh {w}", wrap, {"fused_input_transform": 1,
+                                        kern: 1}, ROLL_STEPS, PD.V2RHDriver)
+            mlp = K.pack_mlp(ws, bs, dt, "cuda")
+            plain = (K.fused_mlp_forward_int8_plain if w == "int8"
+                     else K.fused_mlp_forward_plain)
+            xs = drv.assemble_v4(s0)
+            got = wrap(xs) * scale2
+            want = plain(K.fused_input_transform_plain(xs, in_consts), mlp,
+                         len(spec.output_scalar_vars)) * out_inv * scale2
+            r["step1_tendency_max_abs_err"] = float((got - want).abs().max())
+            r["step1_outside_2e-4_1e-4"] = outside(got.cpu(), want.cpu(),
+                                                   *TOL["fused_mlp_forward"])
+            if w == "bf16":
+                check_close(torch, "MLP_v2rh bf16 rollout, step 1", got.cpu(),
+                            want.cpu(), *TOL["fused_mlp_forward"])
+            print(f"  step 1 against the plain versions (normalized units): "
+                  f"max |err| {r['step1_tendency_max_abs_err']:.3e}, "
+                  f"{r['step1_outside_2e-4_1e-4']:.4%} outside rtol 2e-4 / "
+                  "atol 1e-4" + (" (printed: int8 is held link by link, "
+                                 "phase 4)" if w == "int8" else ""),
+                  flush=True)
+            res[f"mlp_v2rh_{w}"] = r
+
+        # -- 4. the two-stage U-Net v5 ------------------------------------
+        drv2, _, _, r = main_run("two-stage U-Net v5", wrap2, {
+            "fused_input_transform": 1, "fused_constraint_head": 1,
+            "fused_gn_silu_conv3": 164}, TWO_STAGE_STEPS)
+        plain2 = plain_v5_path(torch, K, T, PW, physics,
+                               make_two_stage_apply(
+                                   partial(unet_apply_fused, unet,
+                                           fused=False),
+                                   partial(unet_apply_fused, cls,
+                                           fused=False),
+                                   stats=stats5, device="cuda"),
+                               spec5, stats5)
+        x4 = drv2.assemble_v4(s0)
+        tf, tp = wrap2(x4) * s368, plain2(x4) * s368
+        r["step1_tendency_gap_of_max_y"] = float(
+            (tf - tp).abs().max() / tp.abs().max())
+        print(f"  step 1 against the all-plain path: "
+              f"{r['step1_tendency_gap_of_max_y']:.3e} of max|y| (printed: "
+              "a class may flip at a near tie, phase 6a)", flush=True)
+        res["two_stage_v5"] = r
+
+        # -- 5. offline scores of the U-Net v5 ----------------------------
+        x, y = synthetic_split(spec5, SCORE_STEPS * 384, grid,
+                               seed=seed + 90)
+        xn = T.make_input_transform(spec5, stats5, v5_transform(T), "cuda")(
+            torch.from_numpy(x).cuda())
+        preds = {"fused": unet_apply_fused(unet, xn).cpu().numpy(),
+                 "plain": unet_apply_fused(unet, xn,
+                                           fused=False).cpu().numpy()}
+        xn = xn.cpu().numpy()
+    yn = y * stats5.out_scale
+    t0 = time.perf_counter()
+    tables, _ = offline_score(spec5, grid, stats5, xn, yn, preds)
+    score_s = time.perf_counter() - t0
+    sc = StreamingScorer(spec5, grid, stats5)
+    for i in range(0, xn.shape[0], 384):
+        sc.update(xn[i:i + 384], yn[i:i + 384],
+                  {k: v[i:i + 384] for k, v in preds.items()})
+    stream = sc.tables()
+    worst = 0.0
+    for m, tab in tables.items():
+        for v, row in tab.items():
+            for k, val in row.items():
+                got = stream[m][v][k]
+                require(bool(np.isclose(got, val, rtol=SCORE_TOL, atol=0)),
+                        f"streaming {m}/{v}/{k} {got!r} against in-memory "
+                        f"{val!r} (rtol {SCORE_TOL})")
+                worst = max(worst, abs(got - val) / abs(val))
+    print(f"offline scores (W/m^2) of the U-Net v5 on {SCORE_STEPS} x 384 "
+          f"synthetic v5 columns, in-memory and streaming within "
+          f"{worst:.2e} (tolerance {SCORE_TOL}); scored in {score_s:.2f} s "
+          "on the host:", flush=True)
+    for v in SCORED:
+        print(f"  {v:15s} " + "; ".join(
+            f"{m} " + ", ".join(f"{k} {tables[m][v][k]:.4g}"
+                                for k in ("MAE", "RMSE", "R2", "bias"))
+            for m in tables), flush=True)
+    res["offline_scores"] = {
+        "columns": SCORE_STEPS * 384, "streaming_vs_in_memory": worst,
+        "host_s": score_s,
+        "tables": {m: {v: tables[m][v] for v in SCORED} for m in tables}}
+
+    # -- 6. online diagnostics of the U-Net v5 rollout --------------------
+    tr = {k: v.cpu().numpy() for k, v in traj5.items()}
+    diags = {"t_drift_K": D.drift(tr["t"], grid),
+             "q1_drift": D.drift(tr["q1"], grid),
+             "precip": D.precip_stats(tr["precc"], grid),
+             "microphysics": D.microphysics_checks(tr["qn"], tr["t"],
+                                                   tr["precc"]),
+             "t_error_growth_vs_initial_K": D.error_growth(
+                 tr["t"], np.broadcast_to(x0[:, :60], tr["t"].shape),
+                 grid).tolist(),
+             "water_res_abs_mean": np.abs(tr["water_res"]).mean(
+                 axis=1).tolist()}
+    flat = [diags["t_drift_K"], diags["q1_drift"],
+            *diags["precip"].values(), *diags["microphysics"].values(),
+            *diags["t_error_growth_vs_initial_K"],
+            *diags["water_res_abs_mean"]]
+    require(all(np.isfinite(flat)), "a non-finite online diagnostic")
+    print(f"online diagnostics of the U-Net v5 rollout ({ROLL_STEPS} steps, "
+          f"random weights: drift is expected): T drift "
+          f"{diags['t_drift_K']:.3f} K, q1 drift {diags['q1_drift']:.3e}; "
+          f"precip {diags['precip']}; microphysics "
+          f"{diags['microphysics']}; T RMSE against the initial state at "
+          f"steps 1, {ROLL_SEG}, {ROLL_STEPS}: "
+          + ", ".join(f"{diags['t_error_growth_vs_initial_K'][i - 1]:.3f}"
+                      for i in (1, ROLL_SEG, ROLL_STEPS))
+          + f" K; |water residual| mean at steps 1, {ROLL_SEG}, "
+          f"{ROLL_STEPS}: "
+          + ", ".join(f"{diags['water_res_abs_mean'][i - 1]:.3e}"
+                      for i in (1, ROLL_SEG, ROLL_STEPS)), flush=True)
+    res["online_diagnostics"] = diags
+
+    if profile:
+        with torch.inference_mode():
+            res["unet_v5"]["profile"] = trace_rollout(
+                torch, "U-Net v5", lambda: drv5.rollout(s0, ROLL_PROFILED),
+                ROLL_PROFILED)
+            drv_mlp = PD.V2RHDriver(make_fast_mlp_wrapper(
+                model, stats, spec, torch.bfloat16, device="cuda"), grid,
+                dyn_forcing=forcing)
+            res["mlp_v2rh_bf16"]["profile"] = trace_rollout(
+                torch, "MLP_v2rh bf16", lambda: drv_mlp.rollout(
+                    s0, ROLL_PROFILED), ROLL_PROFILED)
+    return res, all_launches
+
+
 def io_entry(name, source, replaces, launched, r, at):
     """The JSON entry of kernel 1 or 4: "ms" and "plain_ms" device times
     (CUDA-graph replays), "host_ms" the wrapper's host cost a call, and the
@@ -2701,11 +3171,16 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         bundles = bundle_phase(torch, card, kind, unet, cls, wrap2, grid,
                                args.seed, tmp)
+
+    # -- (d) rollouts and scores ------------------------------------------
+    rollouts, roll_launches = rollout_phase(
+        torch, card, unet, wrap5, plain5, cls, wrap2, model, stats, spec,
+        stats5, grid, args.seed, args.profile)
     del cls, wrap2
     slice_launches = [served2["launches"], served4["launches"],
                       bundles["fit"]["launches"],
                       bundles["mlp_v2rh"]["launches"],
-                      bundles["unet_v5"]["launches"]]
+                      bundles["unet_v5"]["launches"], *roll_launches]
 
     # -- kernel 6 and the v1 trainer ---------------------------------------
     print("fused MLP-training kernel vs plain on the card:", flush=True)
@@ -2840,7 +3315,7 @@ def main(argv=None) -> int:
                           "launches": train["launches"]},
                       "unet_training": unet_train,
                       "served": {"two_stage_v5": served2, "v4": served4},
-                      "bundles": bundles}))
+                      "bundles": bundles, "rollouts": rollouts}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

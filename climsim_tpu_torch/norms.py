@@ -2,7 +2,9 @@
 
 The port's own copy of what it uses of ``climsim_tpu/norms.py``:
 ``NormStats`` (read from and written to npz files, and written as the
-coupling contract's txt files) and ``load_asset_norms``, which reads the
+coupling contract's txt files), ``compute_norms_from_data`` with the
+cloud rates fitted to the data (``compute_exponential_lambda``) and
+``load_asset_norms``, which reads the
 port's copies of the assets
 (``climsim_tpu_torch/assets/norms_<version>.npz``, bit-equal to the JAX
 package's; ``tests/test_torch_package.py`` checks it).
@@ -78,13 +80,18 @@ class NormStats:
 
 def compute_norms_from_data(spec: VarSpec, inputs: np.ndarray,
                             targets: np.ndarray,
-                            scale_floor: float = 1e-8) -> NormStats:
-    """(mean, max - min, 1 / std) stats of un-normalized data, the online
-    norm-generation recipe (online_testing/data_preparation/normalization/
-    {input_scaling,output_scaling}.ipynb), with the output scale's floor
-    ``scale_floor`` for near-constant outputs.  The JAX package's
-    ``compute_norms_from_data`` without its ``qn_transform`` (the cloud
-    rates fitted to the data), which no port path uses yet."""
+                            scale_floor: float = 1e-8,
+                            qn_transform: bool = False) -> NormStats:
+    """Compute (mean, max-min, 1/std) stats directly from un-normalized data.
+
+    Matches the online norm-generation recipe: input sub/div from per-feature
+    mean and range, output scale = 1/std with a lower threshold to avoid
+    exploding scales on near-constant outputs (online_testing/
+    data_preparation/normalization/{input_scaling,output_scaling}.ipynb).
+
+    ``qn_transform=True`` (pass the training TransformConfig's flag)
+    additionally fits the cloud exponential-transform rates.
+    """
     sub = inputs.mean(axis=0, dtype=np.float64)
     div = inputs.max(axis=0).astype(np.float64) - inputs.min(axis=0)
     std = targets.std(axis=0, dtype=np.float64)
@@ -92,8 +99,25 @@ def compute_norms_from_data(spec: VarSpec, inputs: np.ndarray,
         raise ValueError(f"data of {sub.size} inputs and {std.size} "
                          f"outputs; {spec.name} has {spec.input_len} and "
                          f"{spec.output_len}")
-    return NormStats(inp_sub=sub, inp_div=div,
-                     out_scale=1.0 / np.maximum(std, scale_floor))
+    osc = 1.0 / np.maximum(std, scale_floor)
+    # cloud inputs additionally get the exponential-transform rate, and
+    # their sub/div are computed in TRANSFORMED space (the chain applies
+    # 1-exp(-lambda*q) BEFORE normalizing, climsim_datapip.py:80-102) --
+    # so the stats are complete and chain-consistent for any spec
+    # (make_input_transform fails loud on a missing lambda)
+    lbds = {}
+    for name, field in (("state_qn", "lbd_qn"), ("state_q0002", "lbd_qc"),
+                        ("state_q0003", "lbd_qi")):
+        sl = spec.input_slices.get(name)
+        if sl is None or not qn_transform:
+            continue
+        q = inputs[:, sl]
+        lbd = compute_exponential_lambda(q)
+        lbds[field] = lbd
+        qt = 1.0 - np.exp(-q.astype(np.float64) * lbd)
+        sub[sl] = qt.mean(axis=0)
+        div[sl] = qt.max(axis=0) - qt.min(axis=0)
+    return NormStats(inp_sub=sub, inp_div=div, out_scale=osc, **lbds)
 
 
 def load_asset_norms(version: str) -> NormStats:
@@ -104,3 +128,21 @@ def load_asset_norms(version: str) -> NormStats:
         res.files("climsim_tpu_torch") / "assets" / f"norms_{version}.npz"
     ) as p:
         return NormStats.from_npz(str(p))
+
+
+def compute_exponential_lambda(q: np.ndarray, threshold: float = 1e-7,
+                               fill: float = 1e7) -> np.ndarray:
+    """Per-level cloud exponential-transform rate lambda = 1/mean(q | q >
+    threshold); levels with no cloudy samples get a huge rate (transform
+    saturates immediately).  Mirrors cloud_exponential_transformation.ipynb
+    cells 5-7 (nan -> 1e7 fill).
+
+    q: (N, levels) raw cloud water (qc, qi, or qn).
+    """
+    q = np.asarray(q, np.float64)
+    lbd = np.empty(q.shape[1])
+    for l in range(q.shape[1]):
+        col = q[:, l]
+        cloudy = col[col > threshold]
+        lbd[l] = 1.0 / cloudy.mean() if cloudy.size else fill
+    return np.where(np.isfinite(lbd), lbd, fill)

@@ -1,15 +1,23 @@
-"""Column physics constants and the numpy saturation/humidity mirrors.
+"""Column physics: saturation pressure, humidity, pressure grids,
+conservation.
 
 The counterpart of ``climsim_tpu.physics``: the E3SM constants, the
-float64 numpy functions the synthetic data needs, and the tensor functions
-the U-Net v5 coupling wrapper needs (``liquid_fraction``,
-``repartition_clouds``, ``qn_exponential_transform``).  The pressure
-functions and the conservation residuals come with evaluation.
+tensor functions (saturation pressure, relative humidity, the hybrid-sigma
+pressures, the energy and water residuals, the cloud partition the U-Net
+v5 coupling wrapper applies) and the float64 numpy mirrors the synthetic
+data needs.  The tensor functions keep the dtype and device of their
+inputs: hybrid coefficients given as numpy arrays are cast to them (pass
+tensors cast once where a function runs every step).
 
 Semantics match the reference implementation:
   * constants      -> climsim_utils/data_utils.py:159-170 (E3SM shr_const_mod)
   * eliq/eice      -> climsim_utils/data_utils.py:18-43
   * relative humidity derivation -> climsim_utils/data_utils.py:627-638
+  * liquid partition ramp        -> climsim_utils/data_utils.py:648-654
+  * interface pressure / dp      -> climsim_utils/data_utils.py:1049-1052
+  * energy conversions           -> climsim_utils/data_utils.py:480-494
+  * energy residual              -> online_testing/baseline_models/Unet_v5/
+    training/loss_energy.py:41-60
 """
 
 from __future__ import annotations
@@ -48,9 +56,129 @@ _A_ICE = (
 _C_ICE = (273.15, 185.0, -100.0, 0.00763685, 0.000151069, 7.48215e-07)
 
 
+def _polyval(coeffs, x: torch.Tensor) -> torch.Tensor:
+    """Horner evaluation with static coefficients."""
+    acc = torch.full_like(x, coeffs[0])
+    for c in coeffs[1:]:
+        acc = acc * x + c
+    return acc
+
+
+def eliq(t: torch.Tensor) -> torch.Tensor:
+    """Liquid saturation vapor pressure [Pa] from temperature [K]."""
+    dt = torch.clamp(t - T_FREEZE, min=-80.0)
+    return 100.0 * _polyval(_A_LIQ, dt)
+
+
+def eice(t: torch.Tensor) -> torch.Tensor:
+    """Ice saturation vapor pressure [Pa] from temperature [K] (piecewise)."""
+    dt = t - T_FREEZE
+    warm = eliq(t)
+    mid = 100.0 * _polyval(_A_ICE, dt)
+    dt_c = torch.clamp(dt, min=_C_ICE[2])
+    cold = 100.0 * (_C_ICE[3] + dt_c * (_C_ICE[4] + dt_c * _C_ICE[5]))
+    return torch.where(t > _C_ICE[0], warm,
+                       torch.where(t > _C_ICE[1], mid, cold))
+
+
 def liquid_fraction(t: torch.Tensor) -> torch.Tensor:
     """Linear liquid/ice partition ramp: 0 below 253.16K, 1 above 273.16K."""
     return torch.clamp((t - T_ICE) / (T_FREEZE - T_ICE), 0.0, 1.0)
+
+
+def saturation_pressure(t: torch.Tensor) -> torch.Tensor:
+    """Blended liquid/ice saturation pressure [Pa] used for RH."""
+    omega = liquid_fraction(t)
+    return omega * eliq(t) + (1.0 - omega) * eice(t)
+
+
+def relative_humidity(t, q, pmid) -> torch.Tensor:
+    """RH = q / qvs with qvs = Rd*esat/(Rv*pmid). Shapes broadcast."""
+    qvs = (RD * saturation_pressure(t)) / (RV * pmid)
+    return q / qvs
+
+
+def _coef(a, like: torch.Tensor) -> torch.Tensor:
+    """Hybrid coefficients in the dtype and on the device of ``like``
+    (no copy where they already are)."""
+    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+
+
+def interface_pressure(ps, hyai, hybi) -> torch.Tensor:
+    """Interface pressures  p_i = P0*hyai + hybi*ps.
+
+    ps: (...,) surface pressure [Pa]; hyai/hybi: (L+1,).
+    Returns (..., L+1).
+    """
+    return P0 * _coef(hyai, ps) + _coef(hybi, ps) * ps[..., None]
+
+
+def pressure_thickness(ps, hyai, hybi) -> torch.Tensor:
+    """Layer pressure thickness dp (..., L) from surface pressure."""
+    p = interface_pressure(ps, hyai, hybi)
+    return p[..., 1:] - p[..., :-1]
+
+
+def midlevel_pressure(ps, hyam, hybm) -> torch.Tensor:
+    """Mid-level pressures p_m = P0*hyam + hybm*ps, (..., L)."""
+    return P0 * _coef(hyam, ps) + _coef(hybm, ps) * ps[..., None]
+
+
+# --- energy-unit conversion factors (common W/m^2 metric space) --------------
+# Level-resolved tendencies additionally get dp/g and area weights; this map
+# holds only the per-variable unit factor.
+ENERGY_CONV = {
+    "ptend_t": CP,
+    "ptend_q0001": LV,
+    "ptend_q0002": LV,
+    "ptend_q0003": LV,
+    "ptend_qn": LV,
+    "ptend_wind": None,  # filled dynamically with the wind-speed tendency
+    "cam_out_NETSW": 1.0,
+    "cam_out_FLWDS": 1.0,
+    "cam_out_PRECSC": LV * RHO_H2O,
+    "cam_out_PRECC": LV * RHO_H2O,
+    "cam_out_SOLS": 1.0,
+    "cam_out_SOLL": 1.0,
+    "cam_out_SOLSD": 1.0,
+    "cam_out_SOLLD": 1.0,
+}
+
+
+def column_energy_residual(dt_tend, dq_tend, ps, hyai, hybi,
+                           dt_true=None, dq_true=None) -> torch.Tensor:
+    """Column-integrated moist-static-energy tendency [W/m^2].
+
+    residual = cp * \\int dT dp/g ... expressed as the reference's energy loss
+    does (without 1/g; the loss compares pred vs truth so the constant factor
+    cancels): cp*sum(dT*dp) + Lv*sum(dq*dp).
+
+    With dt_true/dq_true given, returns pred-minus-truth residual per sample.
+    """
+    dp = pressure_thickness(ps, hyai, hybi)
+    e = (CP * torch.sum(dt_tend * dp, dim=-1)
+         + LV * torch.sum(dq_tend * dp, dim=-1))
+    if dt_true is None:
+        return e
+    e_true = (CP * torch.sum(dt_true * dp, dim=-1)
+              + LV * torch.sum(dq_true * dp, dim=-1))
+    return e - e_true
+
+
+def column_water_residual(dq_tends, ps, hyai, hybi, precc, precsc,
+                          lhflx) -> torch.Tensor:
+    """Water conservation residual per column [kg/m^2/s]:
+
+    sum over water species of \\int dq dp/g  should equal  E - P
+    (evaporation = LHFLX/Lv, precipitation = (PRECC)*rho_h2o, PRECC in m/s).
+    Mirrors the check in demo_notebooks/water_conservation.ipynb.
+    dq_tends: iterable of (..., L) tendencies (qv, qc, qi or qv, qn).
+    """
+    dp = pressure_thickness(ps, hyai, hybi)
+    col = sum(torch.sum(dq * dp, dim=-1) for dq in dq_tends) / GRAV
+    evap = lhflx / LV
+    precip = precc * RHO_H2O
+    return col - (evap - precip)
 
 
 def repartition_clouds(t_before, qc_before, qi_before, dt_tend, dqn_tend,

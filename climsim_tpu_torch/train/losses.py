@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..physics import CP, GRAV, LV, P0, RHO_H2O
+from ..physics import CP, GRAV, LV, RHO_H2O, pressure_thickness
 from ..varspec import VarSpec, var_len
 
 
@@ -54,12 +54,6 @@ def huber(pred, target, weight=None, delta: float = 1.0):
 LOSS_FNS = {"mse": mse, "mae": mae, "huber": huber}
 
 
-def _layer_dp(ps, hyai, hybi):
-    """(B, 60) layer pressure thicknesses from surface pressure ``ps``."""
-    p_int = P0 * hyai[None, :] + hybi[None, :] * ps[:, None]
-    return p_int[:, 1:] - p_int[:, :-1]
-
-
 def energy_loss(pred, target, ps, hyai, hybi, out_scale, spec: VarSpec):
     """Squared mismatch of the column-integrated moist static energy
     tendency between prediction and truth, in raw units (the dT and dq
@@ -67,7 +61,7 @@ def energy_loss(pred, target, ps, hyai, hybi, out_scale, spec: VarSpec):
     (loss_energy.py:41-60)."""
     sl_t = spec.output_slices["ptend_t"]
     sl_q = spec.output_slices["ptend_q0001"]
-    dp = _layer_dp(ps, hyai, hybi)
+    dp = pressure_thickness(ps, hyai, hybi)
 
     def energy(y):
         return (CP * torch.sum(y[:, sl_t] / out_scale[sl_t] * dp, dim=1)
@@ -85,7 +79,7 @@ def water_loss(pred, target, ps, lhflx, hyai, hybi, out_scale,
     del lhflx
     q_vars = [v for v in ("ptend_q0001", "ptend_q0002", "ptend_q0003",
                           "ptend_qn") if v in spec.output_slices]
-    dp = _layer_dp(ps, hyai, hybi)
+    dp = pressure_thickness(ps, hyai, hybi)
     p = spec.output_slices["cam_out_PRECC"].start
 
     def column_water(y):

@@ -36,6 +36,11 @@ SLICE_MODULES = (
     "climsim_tpu_torch.config", "climsim_tpu_torch.online.two_stage",
     "climsim_tpu_torch.train.checkpoints", "climsim_tpu_torch.train.loop",
     "climsim_tpu_torch.package_e3sm", "climsim_tpu_torch.ops",
+    "climsim_tpu_torch.online.driver", "climsim_tpu_torch.online_coupling",
+    "climsim_tpu_torch.eval", "climsim_tpu_torch.eval.metrics",
+    "climsim_tpu_torch.eval.weighting", "climsim_tpu_torch.eval.scoring",
+    "climsim_tpu_torch.eval.streaming", "climsim_tpu_torch.eval.cli",
+    "climsim_tpu_torch.eval.online_diags", "climsim_tpu_torch.eval.analysis",
 )
 
 
@@ -77,7 +82,9 @@ def test_port_imports_nothing_of_the_jax_package():
 
 def test_copies_equal_the_jax_package():
     """Every registered spec field by field, every norms asset and the
-    grid bit for bit."""
+    grid bit for bit, the grid's evaluation properties, and every function
+    of the copied eval modules on seeded inputs (one case of
+    test_torch_eval.CASES a function; that file runs them all)."""
     from climsim_tpu import grid as JG
     from climsim_tpu import norms as JN
     from climsim_tpu import varspec as JV
@@ -119,6 +126,25 @@ def test_copies_equal_the_jax_package():
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
     assert jg.p0 == pg.p0
+    assert (pg.ncol, pg.num_levels) == (jg.ncol, jg.num_levels)
+    for field in ("area_wgt", "unique_lats"):
+        np.testing.assert_array_equal(getattr(pg, field), getattr(jg, field))
+    for a, b in zip(pg.lat_indices(), jg.lat_indices(), strict=True):
+        np.testing.assert_array_equal(a, b)
+    assert pg.replace(p0=1.0).p0 == 1.0 and pg.p0 == jg.p0
+
+    import test_torch_eval as TE
+
+    first = {}
+    for case, (fn, _, _) in sorted(TE.CASES.items()):
+        first.setdefault(fn, case)
+    for mod, (jm, pm) in TE.MODULES.items():
+        names = {n for n, f in inspect.getmembers(jm, inspect.isfunction)
+                 if f.__module__ == jm.__name__}
+        assert names == {n for n, f in inspect.getmembers(
+            pm, inspect.isfunction) if f.__module__ == pm.__name__}, mod
+        for n in sorted(names - TE.PLOTTING):
+            TE.run_case(first[f"{mod}.{n}"])
 
 
 def _entry_points():
@@ -133,10 +159,15 @@ def _entry_points():
     from climsim_tpu_torch.train import losses as PL
     from climsim_tpu_torch.train import recipes as PR
     from climsim_tpu_torch.online.two_stage import make_two_stage_apply
+    from climsim_tpu_torch.grid import load_default_grid
+    from climsim_tpu_torch.online import driver as PD
+    from climsim_tpu_torch.online_coupling import run_coupling
     from climsim_tpu_torch.package_e3sm import build_bundle
     from climsim_tpu_torch.varspec import get_varspec
 
     spec, stats = get_varspec("v2_rh"), load_asset_norms("v2_rh")
+    grid = load_default_grid()
+    v4 = np.full((2, get_varspec("v4").input_len), 1.0, np.float32)
     spec5, stats5 = get_varspec("v5"), load_asset_norms("v5")
     mlp = OnlineMLP(spec, hidden=(8,))
     tiny = dict(model_channels=8, channel_mult=(1,), num_blocks=1,
@@ -176,6 +207,11 @@ def _entry_points():
         "build_bundle": lambda: build_bundle(
             "mlp_v2rh", None, os.devnull, [4],
             overrides=("model_kw.hidden=[8]",)),
+        "initial_state": lambda: PD.initial_state(v4, grid),
+        "newtonian_relaxation": lambda: PD.newtonian_relaxation(
+            v4[:, :60], v4[:, :60], v4[:, :60], 144.0, lat=grid.lat[:2],
+            diurnal_amp_k_per_day=1.5),
+        "run_coupling": lambda: run_coupling(steps=1, train_steps=1),
     }
 
 
@@ -186,7 +222,8 @@ ENTRY_POINTS = ("mlp_trainer", "online_mlp_trainer", "unet_trainer",
                 "make_v2rh_wrapper", "make_fast_mlp_wrapper",
                 "CouplingServer", "block_weight_vector",
                 "constraint_head_consts", "pack_mlp", "make_v4_wrapper",
-                "make_two_stage_apply", "export_aot", "build_bundle")
+                "make_two_stage_apply", "export_aot", "build_bundle",
+                "initial_state", "newtonian_relaxation", "run_coupling")
 
 
 def _default_device(name):
@@ -196,10 +233,12 @@ def _default_device(name):
     from climsim_tpu_torch.online.server import CouplingServer
     from climsim_tpu_torch.train import losses as PL
     from climsim_tpu_torch.train import recipes as PR
+    from climsim_tpu_torch import online_coupling as PC
     from climsim_tpu_torch import package_e3sm as PP
+    from climsim_tpu_torch.online import driver as PD
     from climsim_tpu_torch.online import two_stage as PS
 
-    for mod in (PR, PT, PW, PL, PK, PP, PS):
+    for mod in (PR, PT, PW, PL, PK, PP, PS, PD, PC):
         if hasattr(mod, name):
             fn = getattr(mod, name)
             break
