@@ -113,6 +113,14 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    With --profile, a 24-step U-Net v5 and MLP_v2rh bf16 rollout are
    traced: the card's busy share, device ops a step, device-to-host
    copies.
+6e. bench_server's legs (python -m climsim_tpu_torch.bench_server) on the
+   four served paths (MLP_v2rh bf16 and int8, U-Net v5, two-stage U-Net
+   v5) at B = 384: the direct wrapper call, the served round trip with 1
+   and 8 concurrent clients (bench_server.REQUESTS a client: medians,
+   p90, p99, columns/s, rows a device call, pad fraction, device-call
+   times); and the programs the bundle phase built at 384 (MLP_v2rh and
+   the two-stage U-Net v5), each beside the live wrapper it was exported
+   from.  Nothing is exported anew here.
 7. Checks the fused MLP-training kernel (kernel 6: its pack, its forward
    on kernel 2's tensor-core kernel, its backward's recompute and TMA-fed
    wgmma GEMM) against its plain version on the card, forward and
@@ -128,7 +136,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    kernel's own.  Then times the pack, and forward, backward and both (through
    make_fused_mlp_train) against the plain versions and plain autograd
    at K6_TIMED, beside the bound, the three-pass floor and a cuBLAS bf16
-   chain of the same products.
+   chain of the same products.  The relu mask's edge: hidden units at
+   2^-130 (a nonzero bf16 subnormal) and 2^-140 must get db 0 from the
+   kernel, as from the plain version and JAX, and two runs be bit-equal.
 8. Trains through kernel 6: 30 Adam steps on one fixed 32768-row batch at
    the v1 widths; the loss must fall by 10% and follow the same 30 steps
    through the plain version within K6_CURVE_TOL, which the plain
@@ -144,6 +154,28 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    epoch's loss be finite and the last below the first, and the input
    transform kernel have been launched in that run; prints samples/s
    and a torch.profiler split of the step's device time.
+9a. Trains the full-width v1 MLP from a split past the card's memory:
+   STREAM_ROWS synthetic v1 rows (2.11 GB) written as an .npy pair to a
+   temporary directory and memory-mapped (bench_chunked.write_split).
+   The native loader is built with g++.  Copy checks: one untimed epoch
+   each of ChunkedLoader (B = 32768, K = 8, prefetch 2), BatchLoader and
+   NativeLoader (B = 32768) whose copy stream waits STREAM_COPY_SLOWER
+   times the producer's gather before each staging's copies, and whose
+   consumer waits STREAM_SLOWER times it on the card before reading each
+   batch and never waits on the host, so pinned slots come round while
+   their copies are pending and freed batches' memory is handed out
+   while their reads are pending: every batch must be bit-equal to the
+   rows its indices name, gathered on the card from a copy of the split
+   there (the native loader's order from its CPU run).  A BatchLoader
+   with a short last batch, over two epochs: every batch its rows, no
+   pinned slot allocated anew.  Then fit, STREAM_EPOCHS epochs,
+   over each loader and over DeviceResidentLoader on the same split:
+   kernel 1 launched once a step, the losses finite, the first loss the
+   CPU's within FIRST_LOSS_TOL, and fit over ChunkedLoader bit-equal to
+   the per-step loop over the same superbatches.  Prints each loader's
+   samples/s, whole and from its first batch's arrival (FillClock),
+   bench_chunked's four legs (compute, transfer, gather, overlap) and the card's busy share over one ChunkedLoader epoch
+   (torch.profiler).
 10. Checks 5' (kernel 5 under its custom VJP, ops.unet_fused.
    make_trainable_fused_block) at every fused chain shape of the unet_v5
    training step, B = 16 and 1024: the forward within GN_TOL of the plain
@@ -174,7 +206,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    the paths' results (6d's under "rollouts"), then, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-Nothing is caught: any failure exits non-zero and prints no result.
+Each phase prints its seconds (kept in the result line as
+"phase_seconds").  Nothing is caught: any failure exits non-zero and
+prints no result.
 Without a CUDA device it exits non-zero at once.
 """
 
@@ -329,6 +363,24 @@ K6_CURVE_EARLY = 10
 # the trainer's first loss on the card against the CPU's: both round the
 # same operands to bf16, the sums' orders differ (2.5e-7 on an H100)
 FIRST_LOSS_TOL = 1e-5
+# the streaming phase (9a): a v1 split of 8 superbatches of K x B rows,
+# 2.11 GB, written as an .npy pair and memory-mapped
+STREAM_ROWS = 2_097_152
+STREAM_BATCH = 32768
+STREAM_K = 8
+STREAM_EPOCHS = 2          # fit epochs a loader; the rate is the second's
+STREAM_LEG_REPS = 2        # bench_chunked's legs
+# the copy check delays the card (torch.cuda._sleep, at SLEEP_HZ cycles a
+# second) by these multiples of the producer's gather of a batch: the copy
+# stream before each staging's copies, and the consumer before it reads a
+# batch.  The copies then fall behind the producer, which comes round to a
+# slot prefetch + 2 stagings later, from the second staging on; the reads
+# fall behind the copies, whose allocations reuse a freed batch's memory a
+# few stagings after it was freed, from the third on
+STREAM_COPY_SLOWER = 3.0
+STREAM_SLOWER = 7.0
+STREAM_REMAINDER_ROWS = 132_768   # 4 full batches and one of 1,696 rows
+SLEEP_HZ = 1.98e9          # the H100 SXM's highest SM clock
 TRAIN_ROWS = 196_608          # 6 batches of 32768, as bench.py
 TRAIN_EPOCHS = 40
 TRAIN_REPS = 3
@@ -1525,7 +1577,9 @@ def bundle_phase(torch, card, kind, unet, cls, wrap2, grid, seed, tmp):
     the two-stage unet_v5 (the regressor and classifier of phase (a),
     saved by save_state) with package_e3sm.build_bundle(verify=True), and
     serve both through serve's --bundle path.  ``wrap2``: phase (a)'s live
-    two-stage wrapper, which the unet_v5 bundle's program must equal."""
+    two-stage wrapper, which the unet_v5 bundle's program must equal.
+    Returns (results, {preset: (its program at 384, loaded, and the live
+    wrapper it was exported from)}) for phase 6e."""
     import os
 
     from climsim_tpu_torch import get_varspec, serve
@@ -1624,6 +1678,7 @@ def bundle_phase(torch, card, kind, unet, cls, wrap2, grid, seed, tmp):
     live = {"mlp_v2rh": PW.make_v2rh_wrapper(
         best_mlp.to("cuda").eval(), stats, spec, tcfg=cfg.transform,
         device="cuda"), "unet_v5": wrap2}
+    programs = {}
     per_call = {"mlp_v2rh": {"fused_input_transform": 1},
                 "unet_v5": {"fused_input_transform": 1,
                             "fused_gn_silu_conv3": 164,
@@ -1684,7 +1739,394 @@ def bundle_phase(torch, card, kind, unet, cls, wrap2, grid, seed, tmp):
                        "served_max_abs_diff": err, "bit_equal": n_equal,
                        "launches": launches,
                        "launches_a_call": per_call[preset]}
+        programs[preset] = (PW.load_aot(serve.resolve_bundle(d, 384)[0]),
+                            live[preset])
+    return out, programs
+
+
+# --------------------------------------------------------------------------
+# phase 6e: bench_server's legs on the served paths
+# --------------------------------------------------------------------------
+def server_phase(torch, card, grid, seed, paths):
+    """bench_server.measure on each served path at B = 384: the direct
+    call, the served round trip with 1 and 8 clients (bench_server's
+    CLIENTS, REQUESTS requests a client); and, for the paths whose
+    program the bundle phase built (``program`` not None), the loaded
+    program's call beside the live wrapper it was exported from.
+    ``paths``: name -> (wrapper, input spec, program, live wrapper)."""
+    from climsim_tpu_torch import bench_server as BS
+    from climsim_tpu_torch.data.synthetic import synthetic_inputs
+
+    out = {}
+    for name, (wrap, spec_in, program, live) in paths.items():
+        t0 = time.perf_counter()
+        chunks = [synthetic_inputs(spec_in, 384, grid, seed=seed + 300 + i)
+                  for i in range(max(BS.CLIENTS))]
+        res = BS.measure(wrap, spec_in.input_len, chunks, program, live,
+                         BS.CLIENTS, BS.REQUESTS[name], device="cuda")
+        res["seconds"] = time.perf_counter() - t0
+        out[name] = res
+        p = res["direct_ms"]
+        line = (f"bench_server {name} ({card}): direct p50 {p['p50']:.3f} "
+                f"p90 {p['p90']:.3f} p99 {p['p99']:.3f} ms")
+        if program is not None:
+            q, r = res["program_ms"], res["program_live_ms"]
+            line += (f"; program p50 {q['p50']:.3f} p90 {q['p90']:.3f} "
+                     f"p99 {q['p99']:.3f} ms against its live wrapper's "
+                     f"p50 {r['p50']:.3f} p90 {r['p90']:.3f} p99 "
+                     f"{r['p99']:.3f} ms")
+        print(line, flush=True)
+        for c, v in res["served"].items():
+            rt, dc = v["round_trip_ms"], v["device_call_ms"]
+            require(v["requests"] == int(c) * BS.REQUESTS[name]
+                    and v["device_calls"] >= 1, f"{name}: {v}")
+            print(f"  {c} client(s): round trip p50 {rt['p50']:.3f} p90 "
+                  f"{rt['p90']:.3f} p99 {rt['p99']:.3f} ms; "
+                  f"{v['columns_per_s']:.1f} columns/s; "
+                  f"{v['device_calls']} device calls of "
+                  f"{v['rows_per_call']:.1f} rows, pad "
+                  f"{v['pad_fraction']:.4f}; device call p50 "
+                  f"{dc['p50']:.3f} p99 {dc['p99']:.3f} ms", flush=True)
+        print(f"  ({res['seconds']:.1f} s)", flush=True)
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 9a: training from a split past the card's memory
+# --------------------------------------------------------------------------
+def stream_copy_check(torch, label, loader, want, batches, gather_s):
+    """One untimed epoch of ``loader`` with the card made slower than the
+    producer, whose ``gather_s`` is the host gather of one batch: the
+    copy stream waits STREAM_COPY_SLOWER gathers before each staging's
+    copies, so a pinned slot comes round again while its copy is pending,
+    and the consumer waits STREAM_SLOWER gathers on the card before it
+    reads each batch and never waits on the host, so a batch's memory is
+    handed out again while its read is pending.  Every batch must be
+    bit-equal to ``want(s)``, its rows gathered on the card from a copy
+    of the split there: a slot refilled before its copy ended, or a batch
+    freed under the consumer's stream (no ``record_stream``), gives wrong
+    rows."""
+    ring = loader._ring
+    stage = ring.stage
+    copy_cycles = int(STREAM_COPY_SLOWER * gather_s * SLEEP_HZ)
+
+    def slow_stage(shapes, dtypes, fill):
+        with torch.cuda.stream(ring.stream):
+            torch.cuda._sleep(copy_cycles)
+        return stage(shapes, dtypes, fill)
+
+    ring.stage = slow_stage
+    cycles = int(STREAM_SLOWER * gather_s * SLEEP_HZ)
+    bad, n = [], 0
+    t0 = time.perf_counter()
+    try:
+        for s, (xb, yb) in enumerate(loader):
+            torch.cuda._sleep(cycles)
+            wx, wy = want(s)
+            bad.append((xb.reshape(wx.shape) != wx).sum()
+                       + (yb.reshape(wy.shape) != wy).sum())
+            n += 1
+    finally:
+        del ring.stage
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    wrong = int(torch.stack(bad).sum())
+    print(f"  copy check {label}: {n} batches, {wrong} elements off their "
+          f"rows; host loop {host_s:.2f} s, card done at {card_s:.2f} s "
+          f"(copies wait {STREAM_COPY_SLOWER * gather_s * 1e3:.1f} ms, the "
+          f"consumer {STREAM_SLOWER * gather_s * 1e3:.1f} ms a batch; "
+          f"{ring._next} stagings through {len(ring._bufs)} pinned slots)",
+          flush=True)
+    require(n == batches, f"{label}: {n} batches of {batches}")
+    require(wrong == 0, f"{label}: {wrong} elements differ from the rows "
+            "their indices name")
+    return {"batches": n, "host_s": host_s, "card_s": card_s,
+            "copy_delay_ms": STREAM_COPY_SLOWER * gather_s * 1e3,
+            "delay_ms": STREAM_SLOWER * gather_s * 1e3}
+
+
+class FillClock:
+    """Forwards to ``loader``; each pass appends to ``spans`` the seconds
+    from the arrival of its first batch to the end of the card's work on
+    its last: the epoch less its pipeline fill (the first batch's gather
+    and copy), which every pass of a loader pays and an epoch of the
+    high-res set would pay once in some 21,700 superbatches."""
+
+    def __init__(self, torch, loader):
+        self.torch, self.loader, self.spans = torch, loader, []
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+    def __iter__(self):
+        t0 = None
+        for item in self.loader:
+            if t0 is None:
+                t0 = time.perf_counter()
+            yield item
+        self.torch.cuda.synchronize()
+        self.spans.append(time.perf_counter() - t0)
+
+
+def stream_copy_checks(torch, paths, seed):
+    """The copy checks of ChunkedLoader, BatchLoader and NativeLoader over
+    the .npy pair at ``paths`` (stream_copy_check), and a BatchLoader
+    whose last batch is short: two epochs of it, every batch its rows,
+    and no pinned slot allocated anew in the second."""
+    from climsim_tpu_torch.data import native as PN
+    from climsim_tpu_torch.data.pipeline import (BatchLoader, ChunkedLoader,
+                                                 take_rows)
+
+    b, k = STREAM_BATCH, STREAM_K
+    x = np.load(paths[0], mmap_mode="r")
+    y = np.load(paths[1], mmap_mode="r")
+    rows = x.shape[0]
+    xd = torch.as_tensor(np.load(paths[0], mmap_mode="c")).cuda()
+    yd = torch.as_tensor(np.load(paths[1], mmap_mode="c")).cuda()
+    perm = torch.as_tensor(
+        np.random.default_rng(seed).permutation(rows)).cuda()
+    probe = np.random.default_rng(1).permutation(rows)[:k * b]
+    buf_x = np.empty((k * b, x.shape[1]), np.float32)
+    buf_y = np.empty((k * b, y.shape[1]), np.float32)
+    for _ in range(2):   # the second: the first maps the split's pages in
+        g0 = time.perf_counter()
+        take_rows(x, probe, buf_x)
+        take_rows(y, probe, buf_y)
+        gather_s = time.perf_counter() - g0   # the producer's, a superbatch
+    del buf_x, buf_y
+
+    def rows_of(r):
+        return lambda s: (xd[perm[s * r:(s + 1) * r]],
+                          yd[perm[s * r:(s + 1) * r]])
+
+    checks = {
+        "chunked": stream_copy_check(
+            torch, "ChunkedLoader", ChunkedLoader(x, y, b, k, seed=seed,
+                                                  prefetch=2),
+            rows_of(k * b), rows // (k * b), gather_s),
+        "batch": stream_copy_check(
+            torch, "BatchLoader", BatchLoader(x, y, b, seed=seed),
+            rows_of(b), rows // b, gather_s / k)}
+    ref = PN.NativeLoader(*paths, b, seed=seed, device="cpu")
+    ref_x, ref_y = (torch.cat(t).cuda() for t in zip(*ref))
+    ref.close()
+    native = PN.NativeLoader(*paths, b, seed=seed)
+    checks["native"] = stream_copy_check(
+        torch, "NativeLoader", native,
+        lambda s: (ref_x[s * b:(s + 1) * b], ref_y[s * b:(s + 1) * b]),
+        rows // b, gather_s / k)
+    native.close()
+    del ref_x, ref_y
+
+    # the short last batch fills the leading rows of a full-size slot: 5
+    # stagings an epoch through 4 slots, so the short one and a full one
+    # take turns in a slot, and no slot is allocated anew in epoch 2
+    n = STREAM_REMAINDER_ROWS
+    loader = BatchLoader(x[:n], y[:n], b, seed=seed, drop_remainder=False)
+    rng = np.random.default_rng(seed)
+    sizes, slots = [], None
+    for _ in range(2):
+        order = torch.as_tensor(rng.permutation(n)).cuda()
+        for s, (xb, yb) in enumerate(loader):
+            idx = order[s * b:(s + 1) * b]
+            require(torch.equal(xb, xd[idx]) and torch.equal(yb, yd[idx]),
+                    f"BatchLoader over {n} rows: batch {s} is not its rows")
+            sizes.append(xb.shape[0])
+        now = list(loader._ring._bufs)
+        require(slots is None or all(a is c for a, c in zip(now, slots)),
+                f"BatchLoader over {n} rows: a pinned slot was allocated "
+                "anew in epoch 2")
+        slots = now
+    want = ([b] * (n // b) + [n % b]) * 2
+    require(sizes == want, f"BatchLoader over {n} rows: batches of {sizes}")
+    print(f"  remainder: BatchLoader over {n} rows, batches of "
+          f"{sizes[:len(sizes) // 2]} in each of 2 epochs, every batch its "
+          f"rows, {len(slots)} pinned slots allocated once", flush=True)
+    checks["remainder"] = {"rows": n, "batches": sizes}
+    del xd, yd, perm
+    return checks
+
+
+def streaming_phase(torch, K, card, seed):
+    """The v1 MLP trained from a memory-mapped split of STREAM_ROWS rows
+    through the streaming loaders: the copy checks, fit over each loader
+    (the chunk runner bit-equal to the per-step loop, the first loss the
+    CPU's, kernel 1 once a step), the rates beside DeviceResidentLoader's,
+    bench_chunked's legs and the card's busy share over an epoch."""
+    from climsim_tpu_torch import bench_chunked as BC
+    from climsim_tpu_torch import get_varspec, load_asset_norms
+    from climsim_tpu_torch.data import native as PN
+    from climsim_tpu_torch.data.pipeline import (BatchLoader, ChunkedLoader,
+                                                 DeviceResidentLoader)
+    from climsim_tpu_torch.train import loop as L
+    from climsim_tpu_torch.train import recipes
+
+    b, k = STREAM_BATCH, STREAM_K
+    out, times = {}, {}
+    t0 = time.perf_counter()
+    PN.load()
+    times["native_build"] = time.perf_counter() - t0
+    print(f"native loader build+load: {times['native_build']:.1f} s "
+          f"({PN.library_path().parent.name})", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = BC.write_split(tmp, STREAM_ROWS, seed + 200)
+        times["split"] = time.perf_counter() - t0
+        x = np.load(paths[0], mmap_mode="r")
+        y = np.load(paths[1], mmap_mode="r")
+        gb = (x.nbytes + y.nbytes) / 1e9
+        print(f"streaming split: {x.shape[0]} rows of {x.shape[1]} + "
+              f"{y.shape[1]} float32 ({gb:.2f} GB) written in "
+              f"{times['split']:.1f} s, memory-mapped", flush=True)
+
+        # -- the copy checks ------------------------------------------------
+        t0 = time.perf_counter()
+        checks = stream_copy_checks(torch, paths, seed)
+        times["copy_checks"] = time.perf_counter() - t0
+        out["copy_checks"] = checks
+
+        # -- training through each loader ------------------------------------
+        t0 = time.perf_counter()
+        spec, stats = get_varspec("v1"), load_asset_norms("v1")
+
+        def trainer(device):
+            return recipes.mlp_trainer(spec, stats, None, seed,
+                                       hidden=BC.HIDDEN,
+                                       steps_per_epoch=1000, device=device)
+
+        first_rows = np.random.default_rng(seed).permutation(
+            STREAM_ROWS)[:b]
+        xb, yb = (torch.from_numpy(np.array(a[first_rows])) for a in (x, y))
+        tr = trainer("cuda")
+        first = float(tr.eval_step(tr.model, xb.cuda(), yb.cuda())["loss"])
+        cpu = trainer("cpu")
+        want = float(cpu.eval_step(cpu.model, xb, yb)["loss"])
+        del cpu
+        gap = abs(first - want) / abs(want)
+        print(f"  first loss of the streamed v1 MLP: card {first:.8f}, CPU "
+              f"{want:.8f}, gap {gap:.3e} (tolerance {FIRST_LOSS_TOL})",
+              flush=True)
+        require(gap <= FIRST_LOSS_TOL, "the streamed trainer's first loss "
+                "on the card is not the CPU's")
+        out["first_loss"] = {"card": first, "cpu": want, "gap": gap}
+
+        loaders = {
+            "chunked": lambda: ChunkedLoader(x, y, b, k, seed=seed),
+            "batch": lambda: BatchLoader(x, y, b, seed=seed),
+            "native": lambda: PN.NativeLoader(*paths, b, seed=seed),
+            "resident": lambda: DeviceResidentLoader(
+                x, y, b, seed=seed, block_shuffle=128)}
+        fits, launches = {}, dict.fromkeys(K.LAUNCHES, 0)
+        for name, make in loaders.items():
+            tr = tr if name == "chunked" else trainer("cuda")
+            loader = make()
+            kind = type(loader).__name__
+            if name != "resident":
+                loader = FillClock(torch, loader)
+            K.reset_launches()
+            state, hist = L.fit(tr.train_step, tr.eval_step, tr.state,
+                                loader, None, STREAM_EPOCHS, verbose=False)
+            torch.cuda.synchronize()
+            tr.state = state
+            got = dict(K.LAUNCHES)
+            steps = STREAM_EPOCHS * loader.steps_per_epoch
+            losses = [r["train_loss"] for r in hist.rows]
+            require(all(np.isfinite(losses)), f"{name}: losses {losses}")
+            require(got["fused_input_transform"] == steps,
+                    f"{name}: kernel 1 launched {got['fused_input_transform']}"
+                    f" times in {steps} steps")
+            if name != "resident":
+                launches = {n: launches[n] + got[n] for n in launches}
+            fits[name] = {"samples_per_s": hist.rows[-1]["samples_per_sec"],
+                          "epoch_samples_per_s": [r["samples_per_sec"]
+                                                  for r in hist.rows],
+                          "losses": losses, "steps": steps,
+                          "kernel1_launches": got["fused_input_transform"]}
+            steady = ""
+            if name != "resident":
+                rows = loader.steps_per_epoch * b
+                fits[name]["steady_samples_per_s"] = rows / loader.spans[-1]
+                fits[name]["epoch_steady_samples_per_s"] = [
+                    rows / t for t in loader.spans]
+                steady = (f", {fits[name]['steady_samples_per_s']:.1f} "
+                          "from its first batch's arrival")
+            if name == "chunked":
+                # the same superbatches, a step at a time
+                ref_tr, again = trainer("cuda"), make()
+                st = ref_tr.state
+                for _ in range(STREAM_EPOCHS):
+                    for xc, yc in again:
+                        for xs, ys in zip(xc, yc):
+                            st, _ = ref_tr.train_step(st, xs, ys)
+                same = all(torch.equal(a, c) for a, c in zip(
+                    tr.model.state_dict().values(),
+                    ref_tr.model.state_dict().values()))
+                require(same and st.step == state.step, "fit over "
+                        "ChunkedLoader is not the per-step loop, bit for bit")
+                fits[name]["bit_equal_to_the_step_loop"] = True
+                del ref_tr, st, again
+                chunked_tr = tr
+            if name == "native":
+                loader.close()
+            print(f"  fit over {kind}: {STREAM_EPOCHS} "
+                  f"epochs of {loader.steps_per_epoch} steps, losses "
+                  f"{losses}; kernel 1 {got['fused_input_transform']} "
+                  f"launches; {fits[name]['samples_per_s']:.1f} samples/s"
+                  f"{steady} (epoch 2; {card})", flush=True)
+        times["fits"] = time.perf_counter() - t0
+        out["fits"] = fits
+
+        # -- bench_chunked's legs, and the busy share ------------------------
+        t0 = time.perf_counter()
+        loader = ChunkedLoader(x, y, b, k, seed=seed + 1)
+        out["legs"] = BC.legs(chunked_tr, loader, STREAM_LEG_REPS)
+        lg = out["legs"]
+        print(f"  bench_chunked legs ({card}), ms a superbatch of "
+              f"{lg['superbatch_mb']:.1f} MB: compute {lg['compute_ms']:.2f}"
+              f", transfer {lg['transfer_ms']:.2f} "
+              f"({lg['transfer_gb_s']:.2f} GB/s), gather "
+              f"{lg['gather_ms']:.2f} ({lg['gather_gb_s']:.2f} GB/s), "
+              f"overlap {lg['overlap_ms']:.2f}, {lg['steady_ms']:.2f} from "
+              f"the first superbatch's arrival; efficiency "
+              f"{lg['efficiency']:.3f} ({lg['steady_efficiency']:.3f} "
+              f"steady); bound by {lg['bound_leg']}",
+              flush=True)
+        out["busy"] = stream_busy(torch, chunked_tr, loader)
+        times["legs_and_trace"] = time.perf_counter() - t0
+        del loader, x, y
+    out["seconds"] = times
+    out["launches"] = launches
+    print(f"  streaming phase seconds: " + ", ".join(
+        f"{n} {v:.1f}" for n, v in times.items()), flush=True)
+    return out
+
+
+def stream_busy(torch, tr, loader):
+    """torch.profiler over one ChunkedLoader epoch through the chunk
+    runner: the card's busy share (kernels and fills on the device's
+    timeline, copies apart) of the epoch's wall time."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    run = loader.make_chunk_runner(tr.train_step)
+    state = tr.state
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for xc, yc in loader:
+            state, m = run(state, xc, yc)
+        m["loss"].item()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    tr.state = state
+    evs = device_events(prof)
+    copy_ms = sum(ms for n, ms in evs if "Memcpy" in n)
+    busy_ms = sum(ms for n, ms in evs if "Memcpy" not in n)
+    print(f"  profile: one ChunkedLoader epoch, {wall_ms:.1f} ms; kernels "
+          f"{busy_ms:.1f} ms (busy {busy_ms / wall_ms:.1%}), copies "
+          f"{copy_ms:.1f} ms ({copy_ms / wall_ms:.1%})", flush=True)
+    return {"wall_ms": wall_ms, "kernel_ms": busy_ms, "copy_ms": copy_ms,
+            "busy_share": busy_ms / wall_ms, "copy_share": copy_ms / wall_ms}
 
 
 def rel_l2(got, want) -> float:
@@ -1798,6 +2240,7 @@ def kernel6_checks(torch, FT, seed):
     require(faults[3] == 0 and faults[1] > 0, "kernel 6's forward with one "
             "bf16 pass passes the tolerance: the check cannot see the split")
     res["one_pass_fault_outside"] = faults[1]
+    res["mask_edge"] = k6_mask_edge(torch, FT, g)
     lib = FT._build.load()
     for bn in FT.GEMM_BN:
         for st in range(2, FT.GEMM_MAX_STAGES + 1):
@@ -1873,6 +2316,37 @@ def kernel6_checks(torch, FT, seed):
                         f"{v['three_pass_floor_ms']:.4f}"
                         for k, v in res["bounds"][key].items()), flush=True)
     return res
+
+
+def k6_mask_edge(torch, FT, g):
+    """The relu mask's edge (F3): at the v1 widths, B = 384, hidden units 0
+    and 1 of the first layer get zero weights and biases 2^-130 (a nonzero
+    bf16 subnormal) and 2^-140 (which bf16 rounds to 0).  JAX's VJP on the
+    CPU flushes both in the relu, so their db must be 0 in the kernel and
+    in the plain version alike, and the kernel's two runs bit-equal."""
+    ws, bs = k6_net(torch, g, V1_WIDTHS)
+    ws[0][:, :2] = 0.0
+    bs[0][0], bs[0][1] = 2.0 ** -130, 2.0 ** -140
+    x = torch.randn(384, V1_WIDTHS[0], device="cuda", generator=g)
+    dy = torch.randn(384, V1_WIDTHS[-1], device="cuda", generator=g) / 384
+    got = FT.fused_mlp_train_bwd(x, dy, ws, bs)
+    again = FT.fused_mlp_train_bwd(x, dy, ws, bs)
+    want = FT.fused_mlp_train_bwd_plain(x, dy, ws, bs)
+    require(all(torch.equal(a, b) for a, b in zip(got[0] + got[1],
+                                                  again[0] + again[1])),
+            "kernel 6 at the mask's edge: two runs differ")
+    edge = got[1][0][:2].tolist()
+    require(edge == [0.0, 0.0] and want[1][0][:2].tolist() == edge,
+            f"kernel 6's db of the units at 2^-130 and 2^-140: {edge}, plain "
+            f"{want[1][0][:2].tolist()}; JAX's is 0")
+    r = rel_l2(got[1][0], want[1][0])
+    require(r <= K6_GRAD_TOL[0], f"kernel 6 at the mask's edge: db0 rel-L2 "
+            f"{r:.3e}")
+    print(f"  kernel 6 mask edge: db of the units at 2^-130 and 2^-140 is "
+          f"{edge} (plain {want[1][0][:2].tolist()}); db0 rel-L2 {r:.3e}; "
+          "two runs bit-equal", flush=True)
+    return {"db_at_2^-130": edge[0], "db_at_2^-140": edge[1],
+            "db0_rel_l2": r}
 
 
 def kernel6_training(torch, FT, K, seed):
@@ -3052,8 +3526,19 @@ def main(argv=None) -> int:
     print(f"MLP_v2rh {spec.input_len} -> {'x'.join(map(str, FULL_HIDDEN))} "
           f"-> {spec.output_len}: {n_params} parameters", flush=True)
 
+    seconds: dict = {}
+    mark = [time.perf_counter()]
+
+    def lap(name):
+        """Print and keep the seconds since the last phase ended."""
+        now = time.perf_counter()
+        seconds[name] = now - mark[0]
+        mark[0] = now
+        print(f"phase {name}: {seconds[name]:.1f} s", flush=True)
+
     print("kernel vs plain on the card:", flush=True)
     res = kernel_checks(torch, K, T, specs, model, columns)
+    lap("3 (kernels 1-3)")
 
     # -- the slice: the port's sidecar serving the full-width MLP --------
     chunks = [synthetic_inputs(spec, 384, grid, seed=args.seed + 10 + i)
@@ -3124,11 +3609,13 @@ def main(argv=None) -> int:
               f"p99 {np.percentile(lat, 99):.3f} ms; replies against the "
               f"plain path: {served_outside:.4%} of the elements outside",
               flush=True)
+    lap("4 (served MLP_v2rh)")
 
     # -- the U-Net v5 coupling path ----------------------------------------
     print("U-Net kernels vs plain on the card:", flush=True)
     gn = gn_checks(torch, PU, args.seed)
     head = head_checks(torch, K, stats5, args.seed)
+    lap("5 (kernels 4-5)")
     spec4 = get_varspec("v4")
     unet = build_model("unet", spec5, **PRESETS["unet_v5"].model_kw)
     unet.load_state_dict(port_flax_unet(unet_flax_tree(unet, args.seed),
@@ -3163,20 +3650,33 @@ def main(argv=None) -> int:
             PW.convert_v4_to_v5(torch.from_numpy(chunks5[0]).cuda()),
             T.input_transform_consts(spec5, stats5, v5_transform(T), "cuda"))
         batch_invariance(torch, F, PU, unet_apply_fused, unet, xn)
+    lap("6 (served U-Net v5)")
 
     # -- (a) two-stage v5, (b) v4, (c) train -> bundle -> serve -----------
     cls, wrap2, served2 = two_stage_phase(torch, card, unet, stats5, grid,
                                           args.seed, args.profile)
+    lap("6a (two-stage U-Net v5)")
     served4 = v4_phase(torch, card, grid, args.seed, args.profile)
+    lap("6b (U-Net v4)")
     with tempfile.TemporaryDirectory() as tmp:
-        bundles = bundle_phase(torch, card, kind, unet, cls, wrap2, grid,
-                               args.seed, tmp)
+        bundles, programs = bundle_phase(torch, card, kind, unet, cls, wrap2,
+                                         grid, args.seed, tmp)
+    lap("6c (fit, bundle, serve)")
 
     # -- (d) rollouts and scores ------------------------------------------
     rollouts, roll_launches = rollout_phase(
         torch, card, unet, wrap5, plain5, cls, wrap2, model, stats, spec,
         stats5, grid, args.seed, args.profile)
-    del cls, wrap2
+    lap("6d (rollouts, scores)")
+
+    # -- (e) bench_server on the served paths -------------------------------
+    server = server_phase(torch, card, grid, args.seed, {
+        "mlp_bf16": (servers["bf16"][0], spec, *programs["mlp_v2rh"]),
+        "mlp_int8": (servers["int8"][0], spec, None, None),
+        "unet_v5": (wrap5, spec4, None, None),
+        "two_stage_v5": (wrap2, spec4, programs["unet_v5"][0], None)})
+    lap("6e (bench_server)")
+    del cls, wrap2, programs
     slice_launches = [served2["launches"], served4["launches"],
                       bundles["fit"]["launches"],
                       bundles["mlp_v2rh"]["launches"],
@@ -3185,18 +3685,32 @@ def main(argv=None) -> int:
     # -- kernel 6 and the v1 trainer ---------------------------------------
     print("fused MLP-training kernel vs plain on the card:", flush=True)
     k6 = kernel6_checks(torch, FT, args.seed)
+    lap("7 (kernel 6)")
     k6_launches, k6_gaps = kernel6_training(torch, FT, K, args.seed)
+    lap("8 (training through kernel 6)")
     train = train_v1(torch, K, args.seed)
     print(f"{card}: v1 MLP training {train['samples_per_s']:.1f} "
           "samples/s", flush=True)
+    lap("9 (v1 MLP training)")
+
+    # -- 9a: the v1 MLP trained from a split past the card's memory --------
+    print("streaming the v1 split through the host loaders:", flush=True)
+    stream = streaming_phase(torch, K, card, args.seed)
+    slice_launches.append(stream["launches"])
+    print(f"{card}: streamed v1 MLP training, samples/s " + ", ".join(
+        f"{n} {v['samples_per_s']:.1f}" for n, v in stream["fits"].items()),
+        flush=True)
+    lap("9a (streaming)")
 
     # -- 5' and the slice's main path: U-Net v5 training ------------------
     print("5' (kernel 5 under its custom VJP) on the card:", flush=True)
     k5t = trainable_checks(torch, K, PU, args.seed)
+    lap("10 (5')")
     unet_train = train_unet(torch, K, PU, unet_flax_tree, args.seed)
     print(f"{card}: U-Net v5 training at B={UNET_BATCH}: fused "
           f"{unet_train['samples_per_s']['fused']:.1f} samples/s, plain "
           f"{unet_train['samples_per_s']['plain']:.1f} samples/s", flush=True)
+    lap("11 (U-Net v5 training)")
 
     if args.profile:
         profile(torch, K, model, stats, spec, chunks[0])
@@ -3288,7 +3802,8 @@ def main(argv=None) -> int:
                         "autograd_plain_ms":
                             k6["plain_ms"][k]["fwd_bwd_autograd"]}
                     for k, v in k6["ms"].items()},
-                "training_curve_gaps": k6_gaps} if d == "bwd" else {})})
+                "training_curve_gaps": k6_gaps,
+                "mask_edge": k6["mask_edge"]} if d == "bwd" else {})})
         kernels.append(entry)
     kernels.append({
         "name": "make_trainable_fused_block", "route": "cuda",
@@ -3315,7 +3830,9 @@ def main(argv=None) -> int:
                           "launches": train["launches"]},
                       "unet_training": unet_train,
                       "served": {"two_stage_v5": served2, "v4": served4},
-                      "bundles": bundles, "rollouts": rollouts}))
+                      "bundles": bundles, "rollouts": rollouts,
+                      "bench_server": server, "streaming": stream,
+                      "phase_seconds": seconds}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

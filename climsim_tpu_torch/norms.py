@@ -1,11 +1,11 @@
 """Normalization statistics, flattened to the feature layout of a VarSpec.
 
 The port's own copy of what it uses of ``climsim_tpu/norms.py``:
-``NormStats`` (read from and written to npz files, and written as the
-coupling contract's txt files), ``compute_norms_from_data`` with the
-cloud rates fitted to the data (``compute_exponential_lambda``) and
-``load_asset_norms``, which reads the
-port's copies of the assets
+``NormStats`` (built from per-variable stats, read from and written to
+npz files, and written as the coupling contract's txt files),
+``identity_norms``, ``compute_norms_from_data`` with the cloud rates
+fitted to the data (``compute_exponential_lambda``) and
+``load_asset_norms``, which reads the port's copies of the assets
 (``climsim_tpu_torch/assets/norms_<version>.npz``, bit-equal to the JAX
 package's; ``tests/test_torch_package.py`` checks it).
 
@@ -25,7 +25,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .varspec import VarSpec
+from .varspec import VarSpec, var_len
 
 
 @dataclass(frozen=True)
@@ -44,6 +44,31 @@ class NormStats:
         # numerically the same downstream
         div = np.where(self.inp_div == 0.0, 1.0, self.inp_div)
         object.__setattr__(self, "inp_div", div)
+
+    @classmethod
+    def from_var_datasets(cls, spec: VarSpec, mean: dict, maxx: dict,
+                          minn: dict, scale: dict,
+                          lbd_qn: np.ndarray | None = None) -> "NormStats":
+        """Per-variable stats (name -> scalar or (60,) array) flattened
+        into the spec's feature vectors: sub = mean, div = max - min,
+        out_scale = scale (data_utils.save_norm, :954-988).  A scalar of
+        a profile variable is broadcast over its levels."""
+        def flat(names, table):
+            parts = []
+            for v in names:
+                val = np.asarray(table[v], dtype=np.float64).reshape(-1)
+                n = var_len(v)
+                if val.size == 1 and n > 1:
+                    val = np.full(n, val[0])
+                if val.size != n:
+                    raise ValueError(f"{v}: stat has size {val.size}, "
+                                     f"want {n}")
+                parts.append(val)
+            return np.concatenate(parts)
+
+        return cls(inp_sub=flat(spec.inputs, mean),
+                   inp_div=flat(spec.inputs, maxx) - flat(spec.inputs, minn),
+                   out_scale=flat(spec.outputs, scale), lbd_qn=lbd_qn)
 
     @classmethod
     def from_npz(cls, path: str) -> "NormStats":
@@ -76,6 +101,19 @@ class NormStats:
                 np.savetxt(os.path.join(save_dir, f"{name}.txt"),
                            np.asarray(v).reshape(1, -1), fmt="%.6e",
                            delimiter=",")
+
+
+def identity_norms(spec: VarSpec) -> NormStats:
+    """Stats that leave the data as it is: sub 0, div 1, scale 1, and a
+    rate of 1 for each cloud input the spec has."""
+    return NormStats(
+        inp_sub=np.zeros(spec.input_len),
+        inp_div=np.ones(spec.input_len),
+        out_scale=np.ones(spec.output_len),
+        lbd_qn=np.ones(60) if "state_qn" in spec.inputs else None,
+        lbd_qc=np.ones(60) if "state_q0002" in spec.inputs else None,
+        lbd_qi=np.ones(60) if "state_q0003" in spec.inputs else None,
+    )
 
 
 def compute_norms_from_data(spec: VarSpec, inputs: np.ndarray,

@@ -26,9 +26,11 @@
 //    at its width padded to 64 (B x 3,200 x 2 bytes at v1), and the
 //    backward runs layer by layer over the whole batch: the dW and dh
 //    products are one TMA-fed wgmma GEMM (mlp_train_wgmma.cuh) that reads
-//    those matrices as they lie.  The relu mask is read back as saved > 0:
-//    it differs from float32's h > 0 only for 0 < h <= 2^-134, which bf16
-//    rounds to 0 (XLA's CPU flushes such h to zero in the relu itself).
+//    those matrices as they lie.  The relu mask is read back as saved >=
+//    2^-126: XLA's CPU flushes a subnormal h to zero in the relu, and
+//    bf16 has float32's exponent range, so the saved h flushes as the
+//    float32 h would, but for h in [2^-126 - 2^-134, 2^-126), which bf16
+//    rounds up to 2^-126.
 //  * The Pallas kernel adds each batch tile's dW into a VMEM accumulator
 //    across a sequential grid (pl.when(first), :92-100).  GPU blocks run
 //    in no order, so the dW product splits the batch into the plan's S

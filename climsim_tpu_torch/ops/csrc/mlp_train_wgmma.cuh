@@ -42,6 +42,7 @@ constexpr int kBox = 64 * 64 * 2;    // one 64 x 64 bf16 TMA box
 constexpr int kMaxStages = 8;
 constexpr int kConsumers = 256;      // two warpgroups
 constexpr int kThreads = kConsumers + 32;
+constexpr float kMinNormal = 1.17549435e-38f;  // 2^-126, the relu mask's edge
 
 enum Form { kDw = 0, kDh = 1 };
 
@@ -249,11 +250,13 @@ __global__ void __launch_bounds__(kThreads, blocks_an_sm(kForm, BN))
           const long long at = static_cast<long long>(row) * a.N + col;
           const __nv_bfloat162 m =
               *reinterpret_cast<const __nv_bfloat162*>(a.mask + at);
-          // relu' as h > 0 on the saved bf16 h (NaN fails, as torch.where)
-          const float v0 = __bfloat162float(m.x) > 0.0f ? acc[4 * b + 2 * h]
-                                                        : 0.0f;
-          const float v1 =
-              __bfloat162float(m.y) > 0.0f ? acc[4 * b + 2 * h + 1] : 0.0f;
+          // relu' as h >= 2^-126 on the saved bf16 h: a subnormal h is
+          // flushed, as XLA's CPU flushes it in the relu (NaN fails, as in
+          // torch.where)
+          const float v0 = __bfloat162float(m.x) >= kMinNormal
+                               ? acc[4 * b + 2 * h] : 0.0f;
+          const float v1 = __bfloat162float(m.y) >= kMinNormal
+                               ? acc[4 * b + 2 * h + 1] : 0.0f;
           *reinterpret_cast<__nv_bfloat162*>(a.dh + at) =
               __floats2bfloat162_rn(v0, v1);
           sum[0] += v0;

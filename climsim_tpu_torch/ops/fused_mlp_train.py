@@ -17,8 +17,8 @@ member shape), ``widths = (d_in, h_1, ..., d_out)``:
     with the forward's device code and plan (so the relu masks agree bit
     for bit), keeping each hidden h rounded to bf16, then layer by layer
     dW = bf16(h)^T bf16(dh) and db = sum(dh) with float32 sums, and dh <-
-    bf16(dh) bf16(W)^T masked by the saved h > 0, on one TMA-fed wgmma
-    GEMM (``csrc/mlp_train_wgmma.cuh``).  It returns dW and db, and zeros
+    bf16(dh) bf16(W)^T masked by the saved h >= 2**-126, on one TMA-fed
+    wgmma GEMM (``csrc/mlp_train_wgmma.cuh``).  It returns dW and db, and zeros
     for x (the input is data).
 
 ``plan_mlp_train`` gives every launch's tiling and every scratch size; a
@@ -33,9 +33,12 @@ The functions take the plain versions (``*_plain``, the same math in
 torch, with the Pallas kernel's bf16 roundings at
 climsim_tpu/ops/fused_mlp_train.py:87-106) for tensors on the CPU and
 launch the kernels for tensors on a CUDA device, counting each launch in
-``kernels.LAUNCHES``.  The plain backward masks by the float32 h > 0; the
-kernels by the saved bf16 h > 0, which differs only for 0 < h <= 2**-134
-(bf16 rounds it to 0; XLA's CPU flushes such h in the relu itself).  The
+``kernels.LAUNCHES``.  A hidden unit passes the relu's mask where h >=
+2**-126, the least normal float32: XLA's CPU flushes a subnormal h to 0 in
+the relu, so the JAX VJP masks it, and so do the plain backward (on the
+float32 h) and the kernels (on the saved bf16 h, whose exponent range is
+float32's).  The kernels differ from the other two only for h in
+[2**-126 - 2**-134, 2**-126), which bf16 rounds up to 2**-126.  The
 JAX module's ``vmem_estimate_bytes`` is a TPU VMEM budget and has no
 counterpart here.
 """
@@ -55,6 +58,11 @@ from .kernels import (CHUNK, LAUNCHES, MAX_LAYERS, MLP_CLUSTERS,
                       _check, _ctas_an_sm, _device_limits, _launch_on,
                       _mlp_chunk_bytes, _on_cuda, _padded, pack_layers,
                       plan_mlp_forward)
+
+
+# the least normal float32: the relu's mask flushes subnormal h, as XLA's
+# CPU does in the JAX VJP
+_TINY = torch.finfo(torch.float32).tiny
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -100,9 +108,9 @@ def fused_mlp_train_bwd_plain(x, dy, ws, bs, rounded: bool = True):
     """(dW list, db list) of the Pallas backward: dW = bf16(h)^T bf16(dh)
     and db = sum(dh) over the whole batch (the Pallas kernel's tiles only
     change the order of the float32 sums); dh <- (bf16(dh) bf16(W)^T)
-    masked by h > 0.  ``rounded=False`` keeps h and dh in float32 (the
-    bf16 weights stay): the control that the kernel's check must tell
-    apart."""
+    masked by h >= 2**-126 (XLA's CPU flushes a subnormal h in the
+    relu).  ``rounded=False`` keeps h and dh in float32 (the bf16 weights
+    stay): the control that the kernel's check must tell apart."""
     r = _bf16 if rounded else (lambda t: t)
     acts = _forward_acts(x, ws, bs)
     dws, dbs = [None] * len(ws), [None] * len(ws)
@@ -112,7 +120,7 @@ def fused_mlp_train_bwd_plain(x, dy, ws, bs, rounded: bool = True):
         dbs[i] = dh.sum(dim=0)
         if i > 0:
             dh = r(dh) @ _bf16(ws[i]).t()
-            dh = torch.where(acts[i] > 0, dh, torch.zeros_like(dh))
+            dh = torch.where(acts[i] >= _TINY, dh, torch.zeros_like(dh))
     return dws, dbs
 
 

@@ -6,10 +6,6 @@ plateau LR control, top-K checkpointing, early stopping and a CSV-style
 history.  Replaces train_unet_h5loader.py:355-508 and the Keras callback
 stack.  The step leaves its metrics on the device; the loop reads the
 losses back once an epoch for training and once a pass for validation.
-
-The JAX loop's chunk-runner branch (``ChunkedLoader``, data beyond the
-device's memory) waits for that loader; ``fit`` raises on a loader that
-has ``make_chunk_runner``.
 """
 
 from __future__ import annotations
@@ -105,11 +101,14 @@ def run_epoch(train_step, state: TrainState, loader):
 
 def evaluate(eval_step, params, loader) -> float:
     """The batch-size-weighted mean of ``eval_step``'s loss over
-    ``loader``."""
-    if hasattr(loader, "steps_per_chunk"):
-        raise NotImplementedError("ChunkedLoader is not ported yet")
+    ``loader``; a ``ChunkedLoader``'s (K, B, D) superbatch is evaluated as
+    one (K*B, D) batch."""
+    chunked = hasattr(loader, "steps_per_chunk")
     losses, weights = [], []
     for xb, yb in loader:
+        if chunked:
+            xb = xb.reshape(-1, xb.shape[-1])
+            yb = yb.reshape(-1, yb.shape[-1])
         losses.append(eval_step(params, xb, yb)["loss"])
         weights.append(xb.shape[0])
     return (float(np.average(_host(losses), weights=weights)) if losses
@@ -127,20 +126,30 @@ def fit(train_step, eval_step, state: TrainState, train_loader, val_loader,
     Where the train loader has ``make_epoch_runner``
     (``DeviceResidentLoader``) and ``fused`` is set, each epoch runs
     through the runner (the same steps as the per-batch loop, bit for
-    bit); the loss comes back once an epoch.  The plateau writes
+    bit); the loss comes back once an epoch.  A ``ChunkedLoader``'s
+    (K, B, D) superbatches always go through its chunk runner (K steps a
+    superbatch), fused or not; the epoch's loss is the mean of the
+    superbatches' means.  The plateau writes
     ``state.lr_scale``; the top-K and last checkpoints take the model's
     weights after each validated epoch.
     """
-    if hasattr(train_loader, "make_chunk_runner"):
-        raise NotImplementedError(
-            "a chunked loader needs the chunk runner, which is not ported "
-            "yet")
     history = history if history is not None else History()
     runner = (train_loader.make_epoch_runner(train_step)
               if fused and hasattr(train_loader, "make_epoch_runner")
               else None)
+    chunk_run = (train_loader.make_chunk_runner(train_step)
+                 if hasattr(train_loader, "make_chunk_runner") else None)
     for epoch in range(epochs):
-        if runner is not None:
+        if chunk_run is not None:
+            t0 = time.perf_counter()
+            losses, n = [], 0
+            for xc, yc in train_loader:
+                state, m = chunk_run(state, xc, yc)
+                losses.append(m["loss"])
+                n += xc.shape[0] * xc.shape[1]
+            train_loss = float(np.mean(_host(losses))) if losses else np.nan
+            sps = n / max(time.perf_counter() - t0, 1e-9)
+        elif runner is not None:
             t0 = time.perf_counter()
             state, m = runner(state, 1)
             train_loss = float(m["loss"][0])

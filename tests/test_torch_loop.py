@@ -141,11 +141,3 @@ def test_evaluate_weights_batches_by_size():
                        [(b[0].numpy(), b[1].numpy()) for b in batches])
     assert PL.evaluate(eval_step, None, batches) == want == (9 + 25) / 8
 
-
-def test_fit_refuses_a_chunked_loader():
-    class Chunked:
-        def make_chunk_runner(self, step):
-            raise AssertionError("not reached")
-
-    with pytest.raises(NotImplementedError, match="chunk"):
-        PL.fit(None, None, None, Chunked(), None, epochs=1)

@@ -219,7 +219,7 @@ def _rn(t):
 def emulate(x, dy, ws, bs, p):
     """(y, dW list, db list, masks) computed as the kernels compute them,
     in float32: the pack's bf16 weights; each hidden h saved as RN-bf16;
-    the relu mask read back as saved > 0; dW_l as the sum, in chunk order,
+    the relu mask read back as saved >= 2**-126; dW_l as the sum, in chunk order,
     of each split-K chunk's bf16 product; db from the per-tile column sums
     (PREP_ROWS rows for dy, 128 for a dh product), added as the kernel
     adds them: 32 lanes, each its tiles ascending, then a butterfly."""
@@ -260,7 +260,7 @@ def emulate(x, dy, ws, bs, p):
         dws[l] = in_order([a[s:e].t() @ d[s:e]
                            for s, e in p.chunk_bounds(l)])
         if l:
-            mask = saved[l - 1] > 0
+            mask = saved[l - 1] >= torch.finfo(torch.float32).tiny
             masks.append(mask)
             dh = torch.where(mask, d @ layers[l][0].t(), torch.zeros(()))
             dbs[l - 1] = by_lanes(tile_sums(dh, FT.GEMM_BM))
@@ -334,29 +334,52 @@ def test_emulation_chunk_order_is_the_plans():
         np.testing.assert_allclose(a, b, rtol=2e-2, atol=1e-4)
 
 
-def test_mask_edge_of_the_saved_h():
-    """A hidden unit with zero weights and bias 2**-140: h = 2**-140 in
-    float32, which bf16 rounds to 0, so the kernels' mask (saved h > 0) is
-    0 there; JAX on the CPU flushes that h in the relu, so its VJP masks it
-    too (db of the unit 0).  The torch plain version keeps h and masks by
-    the float32 h > 0: its db of the unit is not 0.  That is the one place
-    the kernels and the plain version differ by design."""
+def _mask_edge(h):
+    """(emulated db, masks, JAX's db, the plain db) of a net whose first
+    hidden unit has zero weights and bias ``h``, so its h is ``h`` in
+    float32 on every row."""
     widths = (8, 4, 3)
     ws, bs, x, dy = _net(widths, 16, 5)
     ws[0][:, 0] = 0.0
-    bs[0][0] = np.float32(2.0 ** -140)
+    bs[0][0] = np.float32(h)
     tx, tdy = torch.from_numpy(x), torch.from_numpy(dy)
     tw = [torch.from_numpy(w) for w in ws]
     tb = [torch.from_numpy(b) for b in bs]
     _, _, dbs, masks = emulate(tx, tdy, tw, tb, plan(widths, 16))
+    hid = torch.relu(tx @ FT._bf16(tw[0]) + tb[0])
+    assert bool((hid[:, 0] == h).all())
+    _, jw, jb = _jax_vjp(widths, 128, ws, bs, x, dy)
+    _, pdb = FT.fused_mlp_train_bwd_plain(tx, tdy, tw, tb)
+    return dbs, masks, jb, pdb
+
+
+def _agree_elsewhere(dbs, jb, pdb):
+    for a, p, b in zip(dbs[0][1:], pdb[0][1:], jb[0][1:]):
+        assert abs(float(a) - float(b)) <= 1e-6 + 1e-5 * abs(float(b))
+        assert abs(float(p) - float(b)) <= 1e-6 + 1e-5 * abs(float(b))
+
+
+def test_mask_edge_of_the_saved_h():
+    """A hidden unit with zero weights and bias 2**-140: h = 2**-140 in
+    float32, which bf16 rounds to 0.  JAX on the CPU flushes that h in the
+    relu, so its VJP masks the unit (db 0); the kernels' mask (saved h >=
+    2**-126) and the plain version's (float32 h >= 2**-126) mask it too."""
+    dbs, masks, jb, pdb = _mask_edge(2.0 ** -140)
     assert not masks[0][:, 0].any()
     assert float(dbs[0][0]) == 0.0
-    h = torch.relu(tx @ FT._bf16(tw[0]) + tb[0])
-    assert bool((h[:, 0] == 2.0 ** -140).all())
-    _, jw, jb = _jax_vjp(widths, 128, ws, bs, x, dy)
     assert float(jb[0][0]) == 0.0
-    _, pdb = FT.fused_mlp_train_bwd_plain(tx, tdy, tw, tb)
-    assert float(pdb[0][0]) != 0.0
-    # elsewhere the three agree
-    for a, b in zip(dbs[0][1:], jb[0][1:]):
-        assert abs(float(a) - float(b)) <= 1e-6 + 1e-5 * abs(float(b))
+    assert float(pdb[0][0]) == 0.0
+    _agree_elsewhere(dbs, jb, pdb)
+
+
+def test_mask_flushes_a_subnormal_saved_h():
+    """h = 2**-130: a float32 subnormal whose bf16 copy is a nonzero bf16
+    subnormal, so a mask of saved h > 0 would keep the unit.  JAX flushes
+    it; the emulated kernels and the plain version give db 0 as well."""
+    dbs, masks, jb, pdb = _mask_edge(2.0 ** -130)
+    assert FT._bf16(torch.tensor(2.0 ** -130)).item() == 2.0 ** -130
+    assert not masks[0][:, 0].any()
+    assert float(jb[0][0]) == 0.0
+    assert float(dbs[0][0]) == 0.0
+    assert float(pdb[0][0]) == 0.0
+    _agree_elsewhere(dbs, jb, pdb)

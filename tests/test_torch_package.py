@@ -41,6 +41,24 @@ SLICE_MODULES = (
     "climsim_tpu_torch.eval.weighting", "climsim_tpu_torch.eval.scoring",
     "climsim_tpu_torch.eval.streaming", "climsim_tpu_torch.eval.cli",
     "climsim_tpu_torch.eval.online_diags", "climsim_tpu_torch.eval.analysis",
+    "climsim_tpu_torch.utils.io", "climsim_tpu_torch.utils.ncread",
+    "climsim_tpu_torch.data.h5dataset", "climsim_tpu_torch.data.statistics",
+    "climsim_tpu_torch.data.kaggle", "climsim_tpu_torch.data.ingest",
+    "climsim_tpu_torch.data.native", "climsim_tpu_torch.bench_chunked",
+    "climsim_tpu_torch.bench_server", "climsim_tpu_torch.quickstart",
+)
+
+# the port's byte-for-byte copies of the JAX package's numpy-only modules
+# and of the native loader's C++ source: (port file, its source)
+BYTE_COPIES = (
+    ("climsim_tpu_torch/utils/io.py", "climsim_tpu/utils/io.py"),
+    ("climsim_tpu_torch/utils/ncread.py", "climsim_tpu/utils/ncread.py"),
+    ("climsim_tpu_torch/data/h5dataset.py", "climsim_tpu/data/h5dataset.py"),
+    ("climsim_tpu_torch/data/statistics.py",
+     "climsim_tpu/data/statistics.py"),
+    ("climsim_tpu_torch/data/kaggle.py", "climsim_tpu/data/kaggle.py"),
+    ("climsim_tpu_torch/data/ingest.py", "climsim_tpu/data/ingest.py"),
+    ("climsim_tpu_torch/data/csrc/climload.cpp", "runtime/climload.cpp"),
 )
 
 
@@ -82,9 +100,15 @@ def test_port_imports_nothing_of_the_jax_package():
 
 def test_copies_equal_the_jax_package():
     """Every registered spec field by field, every norms asset and the
-    grid bit for bit, the grid's evaluation properties, and every function
+    grid bit for bit, the grid's evaluation properties, every function
     of the copied eval modules on seeded inputs (one case of
-    test_torch_eval.CASES a function; that file runs them all)."""
+    test_torch_eval.CASES a function; that file runs them all), and each
+    of BYTE_COPIES byte for byte (test_torch_ingest.py and
+    test_torch_native.py run them against the JAX package)."""
+    for ours, src in BYTE_COPIES:
+        with open(os.path.join(ROOT, ours), "rb") as a, \
+                open(os.path.join(ROOT, src), "rb") as b:
+            assert a.read() == b.read(), ours
     from climsim_tpu import grid as JG
     from climsim_tpu import norms as JN
     from climsim_tpu import varspec as JV
@@ -150,6 +174,8 @@ def test_copies_equal_the_jax_package():
 def _entry_points():
     """name -> a call of the entry point with every argument but the
     device."""
+    from climsim_tpu_torch.data import native as PN
+    from climsim_tpu_torch.data import pipeline as PP
     from climsim_tpu_torch.data import transforms as PT
     from climsim_tpu_torch.data.pipeline import DeviceResidentLoader
     from climsim_tpu_torch.models import OnlineMLP
@@ -212,6 +238,11 @@ def _entry_points():
             v4[:, :60], v4[:, :60], v4[:, :60], 144.0, lat=grid.lat[:2],
             diurnal_amp_k_per_day=1.5),
         "run_coupling": lambda: run_coupling(steps=1, train_steps=1),
+        "BatchLoader": lambda: PP.BatchLoader(x, x, 8),
+        "ChunkedLoader": lambda: PP.ChunkedLoader(x, x, 4, 2),
+        "BootstrapLoader": lambda: PP.BootstrapLoader(x, x, 4, 2),
+        "NativeLoader": lambda: PN.NativeLoader(os.devnull, os.devnull, 8),
+        "make_loader": lambda: PN.make_loader(os.devnull, os.devnull, 8),
     }
 
 
@@ -223,7 +254,9 @@ ENTRY_POINTS = ("mlp_trainer", "online_mlp_trainer", "unet_trainer",
                 "CouplingServer", "block_weight_vector",
                 "constraint_head_consts", "pack_mlp", "make_v4_wrapper",
                 "make_two_stage_apply", "export_aot", "build_bundle",
-                "initial_state", "newtonian_relaxation", "run_coupling")
+                "initial_state", "newtonian_relaxation", "run_coupling",
+                "BatchLoader", "ChunkedLoader", "BootstrapLoader",
+                "NativeLoader", "make_loader")
 
 
 def _default_device(name):
@@ -238,7 +271,10 @@ def _default_device(name):
     from climsim_tpu_torch.online import driver as PD
     from climsim_tpu_torch.online import two_stage as PS
 
-    for mod in (PR, PT, PW, PL, PK, PP, PS, PD, PC):
+    from climsim_tpu_torch.data import native as PN
+    from climsim_tpu_torch.data import pipeline as PDP
+
+    for mod in (PR, PT, PW, PL, PK, PP, PS, PD, PC, PDP, PN):
         if hasattr(mod, name):
             fn = getattr(mod, name)
             break
