@@ -121,6 +121,32 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    times); and the programs the bundle phase built at 384 (MLP_v2rh and
    the two-stage U-Net v5), each beside the live wrapper it was exported
    from.  Nothing is exported anew here.
+6f. Fine-tuning through the rollout (train/rollout_ft.py): kernels 1 and
+   4 under autograd at v5 B = 7 and 384 -- the forward bit-equal to the
+   plain version (kernel 4 within HEAD_TOL, bit-equality printed), the
+   input gradients bit-equal to autograd of the plain chain, and the bare
+   launch (F4, planted: no grad_fn) failing that check; the no-grad
+   path's host cost a call (phases 3 and 5) printed beside PR 7's.  Then
+   the full-width U-Net v5 (the unet_v5 preset with fused_gn_conv=True,
+   the porter's weights from --seed as in 6) through make_wrapper at 384
+   columns, against online_eval's oracle under its balanced Newtonian
+   forcing: at K = 2, with cuDNN off and deterministic algorithms,
+   remat=True and remat=False bit-equal (loss and every gradient, peak
+   memory of each printed), the kernel path's gradients within FT_GRAD_TOL
+   (rel-L2 over all parameters) of the all-plain path's (kernels 1, 4 and
+   5 as their plain versions), which F4 planted must fail (both kernels'
+   bare launches, and kernel 1's alone); then FT_UPDATES
+   make_finetune_step updates at K = FT_K through HybridDriver(remat=True):
+   ms an update (CUDA events), peak memory, the losses, the gradient's
+   global norm (finite, nonzero; every leaf but one nonzero), and the
+   launches an update of kernels 1, 4 and 5 each equal to the code's
+   count (2 K, 2 K and 82 x 2 K: the forward and the recompute).  Then the
+   entry itself: python -m climsim_tpu_torch.online_eval's main at its
+   default width (64 channels, batch 1024, 384 columns) with the cuts of
+   ENTRY_ARGS (printed as a list against the defaults): it must reach its
+   report, launch kernels 1 and 4 once a step of the hybrid rollout (phase
+   6 of the entry) and 2 K times a fine-tune update; each of its phases'
+   seconds and launches is printed.
 7. Checks the fused MLP-training kernel (kernel 6: its pack, its forward
    on kernel 2's tensor-core kernel, its backward's recompute and TMA-fed
    wgmma GEMM) against its plain version on the card, forward and
@@ -202,8 +228,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    share, kernel 5's share of it, the costliest host ops).
 13. Prints one JSON line of the kernels' results (each with its bound:
    the larger of its bytes over the memory rate and its operations over
-   the peak, at the timed shape; the launches include 6d's rollouts) and
-   the paths' results (6d's under "rollouts"), then, last,
+   the peak, at the timed shape; the launches include 6d's rollouts and
+   6f's updates and entry) and the paths' results (6d's under "rollouts",
+   6f's under "finetune" and "online_eval"), then, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each phase prints its seconds (kept in the result line as
@@ -217,6 +244,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -2952,6 +2980,32 @@ KERNEL_NAMES = ("fused_input_transform", "fused_mlp_forward",
                 "fused_mlp_forward_int8", "fused_constraint_head",
                 "fused_gn_silu_conv3")
 
+# phase 6f: fine-tuning through the rollout
+FT_GRAD_ROWS = (7, 384)   # kernels 1 and 4 under autograd, v5
+FT_COLS = 384
+FT_K = 16                 # online_eval's --ft-k default
+FT_UPDATES = 3
+FT_SPIN = 24              # oracle steps from the synthetic columns to the IC
+FT_CHECK_K = 2            # the remat and all-plain checks' horizon
+# the kernel path's gradients against the all-plain path's, rel-L2 over
+# all parameters at K = FT_CHECK_K: kernel 5's forward rounds to bf16 as
+# the plain chain does, but its float32 statistics differ in the last
+# bits, so a rounding flips now and then and moves the gradients.  On an
+# H100 (cuDNN off, deterministic: the same bits every run) they were
+# 5.8e-4 apart; F4 planted in both kernels 1.0, in kernel 1 alone 2.0e-3
+# (the gradient through the state's features is a small share at K = 2).
+# The bound lies between, so that both plants fail it.
+FT_GRAD_TOL = 1.2e-3
+PR7_HOST_MS = {"fused_input_transform": 0.0162,     # PERF.md section 6
+               "fused_constraint_head": 0.0188}
+# python -m climsim_tpu_torch.online_eval on the card: the script's own
+# smoke geometry (scripts/online_eval.py:61), a few hundred train steps,
+# one DAgger round, two fine-tune updates at K = 16, a one-day spin-up
+ENTRY_ARGS = ["--steps", "216", "--window", "72", "--train-steps", "200",
+              "--chunk", "20", "--dagger-rounds", "1", "--dagger-steps",
+              "20", "--dagger-collect", "144", "--ft-steps", "2", "--ft-k",
+              "16", "--spinup-days", "1"]
+
 
 def counted(torch, K, fn):
     """fn() with the launch counts set to 0 just before and read just
@@ -3352,6 +3406,326 @@ def rollout_phase(torch, card, unet, wrap5, plain5, cls, wrap2, model, stats,
     return res, all_launches
 
 
+def kernel_grad_checks(torch, K, T, PW, stats5, grid, seed, io, head):
+    """Kernels 1 and 4 under autograd (ops.kernels._InputTransformGrad,
+    _ConstraintHeadGrad) at v5 B in FT_GRAD_ROWS: the forward bit-equal to
+    the plain version (kernel 4 within HEAD_TOL, bit-equality printed),
+    the input gradients bit-equal to autograd of the plain chain, and the
+    bare launch (F4: its output handed back with no grad_fn) failing that
+    check.  Prints the no-grad path's host cost a call (``io``, ``head``:
+    phases 3 and 5) beside PR 7's."""
+    from climsim_tpu_torch import get_varspec
+    from climsim_tpu_torch.data.synthetic import synthetic_inputs
+
+    spec4, spec5 = get_varspec("v4"), get_varspec("v5")
+    consts = T.input_transform_consts(spec5, stats5, v5_transform(T), "cuda")
+    hconsts = K.constraint_head_consts(stats5.out_scale, 15, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed + 95)
+
+    def transform_run(fn, x, cot):
+        xr = x.detach().clone().requires_grad_()
+        y = fn(xr, consts)
+        if y.grad_fn is None:
+            return y.detach(), None
+        return y.detach(), torch.autograd.grad(y, xr, cot)
+
+    def head_run(fn, raw, yn, cot):
+        xr = raw.detach().clone().requires_grad_()
+        yr = yn.detach().clone().requires_grad_()
+        out = fn(yr, xr[:, 0:60], xr[:, 120:180], xr[:, 180:240], hconsts,
+                 1200.0)
+        if out.grad_fn is None:
+            return out.detach(), None
+        return out.detach(), torch.autograd.grad(out, (yr, xr), cot)
+
+    def grads_equal(got, want):
+        return got is not None and all(
+            torch.equal(a, b) for a, b in zip(got, want))
+
+    res = {"bit_equal_forward": {}, "planted_caught": True}
+    real = (K._InputTransformGrad.apply, K._ConstraintHeadGrad.apply)
+    for b in FT_GRAD_ROWS:
+        raw = torch.from_numpy(synthetic_inputs(
+            spec4, b, grid, seed=seed + 96 + b)).cuda()
+        x5 = PW.convert_v4_to_v5(raw).contiguous()
+        yn = torch.randn(b, 308, device="cuda", generator=g)
+        c1 = torch.randn(x5.shape, device="cuda", generator=g)
+        c4 = torch.randn(b, 368, device="cuda", generator=g)
+        y1, g1 = transform_run(K.fused_input_transform, x5, c1)
+        p1, w1 = transform_run(K.fused_input_transform_plain, x5, c1)
+        require_equal(torch, f"kernel 1 under autograd B={b}", y1, p1)
+        require(grads_equal(g1, w1), f"kernel 1 under autograd B={b}: the "
+                "input gradient differs from autograd of the plain chain")
+        y4, g4 = head_run(K.fused_constraint_head, raw, yn, c4)
+        p4, w4 = head_run(K.fused_constraint_head_plain, raw, yn, c4)
+        check_close(torch, "kernel 4 under autograd", y4, p4, *HEAD_TOL)
+        res["bit_equal_forward"][b] = torch.equal(y4, p4)
+        require(grads_equal(g4, w4), f"kernel 4 under autograd B={b}: the "
+                "input gradients differ from autograd of the plain chain")
+        # F4 planted: the launch handed back as it is
+        try:
+            K._InputTransformGrad.apply = (
+                lambda x, c: K._transform_launch(x, c, c.device))
+            K._ConstraintHeadGrad.apply = (
+                lambda y, t, qc, qi, c, dt, lds: K._head_launch(
+                    y, t, qc, qi, c, dt, lds, c.device))
+            caught = (not grads_equal(transform_run(
+                K.fused_input_transform, x5, c1)[1], w1)
+                and not grads_equal(head_run(
+                    K.fused_constraint_head, raw, yn, c4)[1], w4))
+        finally:
+            K._InputTransformGrad.apply, K._ConstraintHeadGrad.apply = real
+        require(caught, f"F4 planted at B={b} passes the gradient check")
+        print(f"  kernels 1 and 4 under autograd, v5 B={b}: kernel 1's "
+              "forward and input gradient bit-equal to the plain chain's; "
+              f"kernel 4's forward within HEAD_TOL (bit-equal: "
+              f"{res['bit_equal_forward'][b]}), its input gradients "
+              "bit-equal; F4 planted (bare launches) fails", flush=True)
+    res["host_ms"] = {
+        "fused_input_transform": io["times"]["v2_rh B=384"]["host_ms"],
+        "fused_constraint_head": head["times"]["B=384"]["host_ms"]}
+    for name, ms in res["host_ms"].items():
+        print(f"  {name}: the no-grad path's host cost a call at B = 384 "
+              f"{ms:.4f} ms (phase 3 / 5), PR 7's {PR7_HOST_MS[name]:.4f}",
+              flush=True)
+    return res
+
+
+def finetune_phase(torch, card, K, PU, T, PW, physics, stats5, grid, seed):
+    """6f: the full-width U-Net v5 (unet_v5, fused_gn_conv=True) fine-tuned
+    through HybridDriver(remat=True) against online_eval's oracle: the
+    K = FT_CHECK_K checks (remat on / off bit-equal, the kernel path
+    against the all-plain path, F4 planted), then FT_UPDATES
+    make_finetune_step updates at K = FT_K, counted and timed."""
+    from climsim_tpu_torch import get_varspec
+    from climsim_tpu_torch import online_eval as OE
+    from climsim_tpu_torch.bench_unet_train import model_kw
+    from climsim_tpu_torch.data.synthetic import synthetic_inputs
+    from climsim_tpu_torch.models.unet import ClimSimUNet
+    from climsim_tpu_torch.online import driver as PD
+    from climsim_tpu_torch.train.rollout_ft import (make_finetune_step,
+                                                    make_rollout_loss,
+                                                    trajectory_stds)
+    from climsim_tpu_torch.utils.migrate import port_flax_unet
+
+    spec4, spec5 = get_varspec("v4"), get_varspec("v5")
+    model = ClimSimUNet(spec5, **model_kw("fused"))
+    model.load_state_dict(port_flax_unet(unet_flax_tree(model, seed), model))
+    model = model.cuda().eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_chains = sum(model.fused_chains(FT_COLS).values())
+    require(n_chains == 82, f"{n_chains} fused chains at B={FT_COLS}")
+    params = list(model.parameters())
+    wrap = PW.make_wrapper(lambda xn: model(xn), stats5,
+                           PW.WrapperConfig(input_version="v4"),
+                           device="cuda")
+    plain = plain_v5_path(torch, K, T, PW, physics, lambda xn: model(xn),
+                          spec5, stats5)
+    oracle_wrap, _, fit_std, mean_prof = OE.make_oracle_wrapper(
+        spec5, spec4, tend_scale=0.1, gain=64.0, mean_gain=3.0,
+        device="cuda")
+    x_std = synthetic_inputs(spec5, 4 * FT_COLS, grid, seed=0)
+    x_std[:, spec5.input_slices["icol"]] = (
+        np.arange(x_std.shape[0]) % FT_COLS + 1)[:, None]
+    fit_std(x_std)
+    x0 = synthetic_inputs(spec4, FT_COLS, grid, seed=seed + 90)
+    s_clim = PD.initial_state(x0, grid, device="cuda")
+    forcing = OE.build_balanced_forcing(s_clim, mean_prof, TAU_DAYS, DIURNAL,
+                                        grid, "cuda")
+    oracle = PD.HybridDriver(oracle_wrap, grid, dyn_forcing=forcing)
+    with torch.no_grad():   # the IC: the oracle's state after FT_SPIN steps
+        s0, traj = oracle.rollout(s_clim, FT_SPIN)
+    stds = trajectory_stds(traj)
+    print(f"6f: U-Net v5 (unet_v5, fused_gn_conv=True): {n_params} "
+          f"parameters, {n_chains} fused chains a step of {FT_COLS} columns; "
+          f"the reference: online_eval's oracle, after {FT_SPIN} steps",
+          flush=True)
+
+    def grads_at(wrapper, remat):
+        """(loss, gradients, peak bytes) of the K = FT_CHECK_K loss."""
+        hyb = PD.HybridDriver(wrapper, grid, dyn_forcing=forcing,
+                              remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = make_rollout_loss(hyb, oracle, FT_CHECK_K, stds)(s0, FT_SPIN)
+        if loss.requires_grad:
+            grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                        materialize_grads=True)
+        else:    # F4 planted everywhere: nothing reaches a parameter
+            grads = [torch.zeros_like(p) for p in params]
+        torch.cuda.synchronize()
+        return loss.detach(), grads, torch.cuda.max_memory_allocated()
+
+    def rel_all(got, want):
+        num = sum(float(((a - b).double() ** 2).sum())
+                  for a, b in zip(got, want))
+        den = sum(float((b.double() ** 2).sum()) for b in want)
+        return (num / den) ** 0.5
+
+    # -- K = FT_CHECK_K: reproducible convolutions and index sums --------
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.enabled,
+             torch.are_deterministic_algorithms_enabled())
+    cudnn.deterministic, cudnn.enabled = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    real_k5 = PU.fused_gn_silu_conv3
+    real_fns = (K._InputTransformGrad.apply, K._ConstraintHeadGrad.apply)
+    res = {}
+    try:
+        l1, g1, peak1 = grads_at(wrap, True)
+        l0, g0, peak0 = grads_at(wrap, False)
+        require(torch.equal(l1, l0) and all(
+            torch.equal(a, b) for a, b in zip(g1, g0)),
+            f"K={FT_CHECK_K}: remat=True and remat=False differ (gradient "
+            f"rel-L2 {rel_all(g1, g0):.3e})")
+        try:    # the all-plain path: kernels 1, 4 and 5 as plain versions
+            PU.fused_gn_silu_conv3 = (
+                lambda x, gm, bt, w, b: PU.xla_gn_silu_conv3_plain(
+                    x, gm, bt, w, b))
+            lp, gp, _ = grads_at(plain, True)
+        finally:
+            PU.fused_gn_silu_conv3 = real_k5
+        gap = rel_all(g1, gp)
+        try:    # F4 planted: kernels 1 and 4 as bare launches
+            K._InputTransformGrad.apply = (
+                lambda x, c: K._transform_launch(x, c, c.device))
+            K._ConstraintHeadGrad.apply = (
+                lambda y, t, qc, qi, c, dt, lds: K._head_launch(
+                    y, t, qc, qi, c, dt, lds, c.device))
+            _, gf, _ = grads_at(wrap, True)
+            K._ConstraintHeadGrad.apply = real_fns[1]   # kernel 1's alone
+            _, gf1, _ = grads_at(wrap, True)
+        finally:
+            K._InputTransformGrad.apply, K._ConstraintHeadGrad.apply = \
+                real_fns
+        gap_f4, gap_f4_k1 = rel_all(gf, gp), rel_all(gf1, gp)
+    finally:
+        cudnn.deterministic, cudnn.enabled = saved[:2]
+        torch.use_deterministic_algorithms(saved[2])
+    require(gap <= FT_GRAD_TOL, f"K={FT_CHECK_K}: the kernel path's "
+            f"gradients {gap:.3e} (rel-L2) from the all-plain path's")
+    require(gap_f4 > FT_GRAD_TOL and gap_f4_k1 > FT_GRAD_TOL,
+            f"F4 planted passes: {gap_f4:.3e}, kernel 1's alone "
+            f"{gap_f4_k1:.3e}")
+    res["check_k"] = {
+        "k": FT_CHECK_K, "loss": float(l1), "plain_loss": float(lp),
+        "remat_bit_equal": True, "peak_gb_remat": peak1 / 1e9,
+        "peak_gb_no_remat": peak0 / 1e9, "grad_rel_l2_to_plain": gap,
+        "f4_planted_rel_l2": gap_f4, "f4_kernel1_only_rel_l2": gap_f4_k1}
+    print(f"  K={FT_CHECK_K} (cuDNN off): remat on / off bit-equal (loss "
+          f"{float(l1):.6e}), peak {peak1 / 1e9:.2f} / {peak0 / 1e9:.2f} GB; "
+          f"gradients {gap:.3e} (rel-L2) from the all-plain path's (bound "
+          f"{FT_GRAD_TOL:g}); F4 planted {gap_f4:.3e}, kernel 1's alone "
+          f"{gap_f4_k1:.3e}", flush=True)
+
+    # -- FT_UPDATES updates at K = FT_K ------------------------------------
+    ft = PD.HybridDriver(wrap, grid, dyn_forcing=forcing, remat=True)
+    step_fn, _ = make_finetune_step(ft, oracle, FT_K, stds, params,
+                                    learning_rate=1e-4,
+                                    total_steps=FT_UPDATES)
+    per_update = {"fused_input_transform": 2 * FT_K,
+                  "fused_constraint_head": 2 * FT_K,
+                  "fused_gn_silu_conv3": 82 * 2 * FT_K}
+    ups, launches_all = [], dict.fromkeys(K.LAUNCHES, 0)
+    for i in range(FT_UPDATES):
+        before = [p.detach().clone() for p in params]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        K.reset_launches()
+        start.record()
+        loss = step_fn(s0, FT_SPIN + 8 * i)
+        end.record()
+        end.synchronize()
+        launches = dict(K.LAUNCHES)
+        for k, v in launches.items():
+            launches_all[k] += v
+        for name in KERNEL_NAMES:
+            want = per_update.get(name, 0)
+            require(launches[name] == want, f"fine-tune update {i}: {name} "
+                    f"launched {launches[name]} times, want {want}")
+        norm = float(step_fn.grad_norm)
+        leaf = [float(p.grad.abs().max()) for p in params]
+        require(np.isfinite(float(loss)) and np.isfinite(norm) and norm > 0,
+                f"fine-tune update {i}: loss {float(loss)}, norm {norm}")
+        require(all(np.isfinite(leaf)) and sum(v > 0 for v in leaf)
+                >= len(leaf) - 1, f"fine-tune update {i}: "
+                f"{sum(v == 0 for v in leaf)} leaves with no gradient")
+        moved = sum(not torch.equal(p, q) for p, q in zip(params, before))
+        ups.append({"loss": float(loss), "grad_norm": norm,
+                    "ms": start.elapsed_time(end),
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "leaves_moved": moved, "launches": {
+                        k: v for k, v in launches.items() if v}})
+        print(f"{card}: fine-tune update {i} (K={FT_K}, {FT_COLS} columns, "
+              f"remat): {ups[-1]['ms']:.1f} ms, peak "
+              f"{ups[-1]['peak_gb']:.2f} GB, loss {float(loss):.6e}, "
+              f"gradient norm {norm:.4e}, {moved} of {len(params)} leaves "
+              f"moved; launches {ups[-1]['launches']}", flush=True)
+    res.update({"k": FT_K, "columns": FT_COLS, "parameters": n_params,
+                "updates": ups,
+                "ms_an_update": float(np.median([u["ms"] for u in ups])),
+                "peak_gb": max(u["peak_gb"] for u in ups),
+                "launches_an_update": per_update})
+    return res, launches_all
+
+
+def entry_phase(torch, card, K, tmp):
+    """6f: python -m climsim_tpu_torch.online_eval's main on the card with
+    ENTRY_ARGS: it reaches its report, kernels 1 and 4 launched once a
+    hybrid rollout step and 2 K times a fine-tune update."""
+    from climsim_tpu_torch import online_eval as OE
+
+    argv = ENTRY_ARGS + ["--device", "cuda", "--out", tmp]
+    got, default = vars(OE.parse_args(argv)), vars(OE.parse_args([]))
+    cuts = [f"--{k.replace('_', '-')} {default[k]} -> {v}"
+            for k, v in got.items() if v != default[k]
+            and k not in ("device", "out")]
+    print(f"6f: online_eval at its default width, cut from the defaults: "
+          f"{cuts}", flush=True)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = OE.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    args = OE.parse_args(argv)
+    steps = OE.geometry(args)[2]
+    pl = out["phase_launches"]
+    for name in ("fused_input_transform", "fused_constraint_head"):
+        hybrid = pl["6 (hybrid)"].get(name, 0)
+        require(hybrid == steps, f"online_eval's hybrid rollout: {name} "
+                f"launched {hybrid} times in {steps} steps")
+        ft = pl["4b (rollout fine-tune)"].get(name, 0)
+        want = 2 * args.ft_k * args.ft_steps
+        require(ft == want, f"online_eval's fine-tune: {name} launched "
+                f"{ft} times, want {want}")
+    require(sum(launches.values()) == sum(
+        sum(v.values()) for v in pl.values()),
+        "online_eval's phases miss launches")
+    require(os.path.exists(out["report"]), "online_eval wrote no report")
+    first, last = out["ft_loss"]
+    require(np.isfinite(first) and np.isfinite(last),
+            f"online_eval's fine-tune losses {out['ft_loss']}")
+    require(np.isfinite(out["floor"]) and all(
+        np.isfinite(r) for r in out["win_rmse"]), "online_eval: non-finite "
+        "floor or RMSE")
+    print(f"{card}: online_eval reached its report in {wall:.1f} s "
+          f"(verdict {out['verdict']}, T ratios "
+          f"{[round(float(r), 3) for r in out['ratios']]}, figures drawn: "
+          f"{out['figures']}); kernels 1 and 4 once a step of its "
+          f"{steps}-step hybrid rollout; phases (s): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in
+                      out["phase_seconds"].items()), flush=True)
+    return {"argv": ENTRY_ARGS, "cuts": cuts, "seconds": wall,
+            "phase_seconds": out["phase_seconds"],
+            "phase_launches": pl, "verdict": out["verdict"],
+            "floor": out["floor"], "win_rmse": out["win_rmse"],
+            "ratios_by_var": out["ratios_by_var"], "micro": out["micro"],
+            "ft_loss": out["ft_loss"], "figures": out["figures"]}, launches
+
+
 def io_entry(name, source, replaces, launched, r, at):
     """The JSON entry of kernel 1 or 4: "ms" and "plain_ms" device times
     (CUDA-graph replays), "host_ms" the wrapper's host cost a call, and the
@@ -3677,10 +4051,25 @@ def main(argv=None) -> int:
         "two_stage_v5": (wrap2, spec4, programs["unet_v5"][0], None)})
     lap("6e (bench_server)")
     del cls, wrap2, programs
+
     slice_launches = [served2["launches"], served4["launches"],
                       bundles["fit"]["launches"],
                       bundles["mlp_v2rh"]["launches"],
                       bundles["unet_v5"]["launches"], *roll_launches]
+
+    # -- (f) fine-tuning through the rollout, and the online_eval entry ----
+    print("6f: kernels 1 and 4 under autograd on the card:", flush=True)
+    kgrad = kernel_grad_checks(torch, K, T, PW, stats5, grid, args.seed,
+                               res["fused_input_transform"], head)
+    finetune, ft_launches = finetune_phase(
+        torch, card, K, PU, T, PW, physics, stats5, grid, args.seed)
+    finetune["kernel_grad"] = kgrad
+    slice_launches.append(ft_launches)
+    lap("6f (fine-tuning through the rollout)")
+    with tempfile.TemporaryDirectory() as tmp:
+        online_eval, oe_launches = entry_phase(torch, card, K, tmp)
+    slice_launches.append(oe_launches)
+    lap("6f (the online_eval entry)")
 
     # -- kernel 6 and the v1 trainer ---------------------------------------
     print("fused MLP-training kernel vs plain on the card:", flush=True)
@@ -3808,7 +4197,8 @@ def main(argv=None) -> int:
     kernels.append({
         "name": "make_trainable_fused_block", "route": "cuda",
         "source": TRAINABLE_SOURCE[0], "replaces": TRAINABLE_SOURCE[1],
-        "launches": unet_train["launches"]["fused_gn_silu_conv3"],
+        "launches": unet_train["launches"]["fused_gn_silu_conv3"]
+        + ft_launches["fused_gn_silu_conv3"],
         "max_abs_err": k5t["max_abs_err"],
         "max_err_of_max_y": k5t["max_err_rel"],
         "control_min_err_of_max_y": k5t["control_min_rel"],
@@ -3831,6 +4221,7 @@ def main(argv=None) -> int:
                       "unet_training": unet_train,
                       "served": {"two_stage_v5": served2, "v4": served4},
                       "bundles": bundles, "rollouts": rollouts,
+                      "finetune": finetune, "online_eval": online_eval,
                       "bench_server": server, "streaming": stream,
                       "phase_seconds": seconds}))
     print(json.dumps({"ok": True, "device": {

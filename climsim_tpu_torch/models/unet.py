@@ -155,7 +155,8 @@ class GroupNorm(nn.Module):
         xg = x.reshape(b, l, g, c // g)
         mean = xg.mean(dim=(1, 3), keepdim=True)
         mean2 = (xg * xg).mean(dim=(1, 3), keepdim=True)
-        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        # jnp.maximum(0, .), flax's, with its tie gradient
+        var = torch.maximum(mean2 - mean * mean, mean.new_zeros(()))
         mul = torch.rsqrt(var + self.eps) * self.weight.reshape(1, 1, g, -1)
         y = ((xg - mean) * mul + self.bias.reshape(1, 1, g, -1)).reshape(
             b, l, c)

@@ -28,6 +28,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import physics
 from ..grid import Grid, load_default_grid
@@ -178,6 +179,7 @@ class _Consts:
     hyai: torch.Tensor
     hybi: torch.Tensor
     gases: torch.Tensor   # (3, 60)
+    zero: torch.Tensor    # () the water species' floor
 
 
 class HybridDriver:
@@ -190,17 +192,21 @@ class HybridDriver:
     def __init__(self, wrapper: Callable, grid: Grid,
                  dyn_forcing: Callable | None = None,
                  dt: float = physics.DT_TIMESTEP, remat: bool = False):
-        """``remat=True`` recomputes each step's activations in the
-        backward of a differentiated rollout (train/rollout_ft.py), which
-        is not ported: the port's rollouts take no gradients, so it
-        raises."""
-        if remat:
-            raise NotImplementedError(
-                "remat=True serves differentiated rollouts "
-                "(train/rollout_ft.py), which the port does not have yet")
+        """``remat=True`` runs each rollout step (assemble -> wrapper ->
+        advance -> the trajectory's entries) under
+        ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, the
+        counterpart of ``jax.checkpoint(body)``
+        (``climsim_tpu/online/driver.py:269-270``): a differentiated
+        rollout (train/rollout_ft.py) keeps each step's inputs only and
+        recomputes its activations in the backward, one step's memory
+        instead of K steps' (a K = 16 fine-tune of the full U-Net v5 at
+        384 columns otherwise outgrows an 80 GB card).  It costs one more
+        forward a step, and only where gradients are taken: with no
+        gradient wanted the step runs as it is."""
         self.wrapper = wrapper
         self.grid = grid
         self.dt = dt
+        self.remat = remat
         self.dyn_forcing = dyn_forcing or (lambda state, step: (
             torch.zeros_like(state.dyn)))
         spec = get_varspec("v4")
@@ -221,7 +227,7 @@ class HybridDriver:
             self._consts_by[key] = _Consts(*(
                 torch.as_tensor(np.asarray(a), dtype=like.dtype,
                                 device=like.device)
-                for a in (g.hyam, g.hybm, g.hyai, g.hybi, gases)))
+                for a in (g.hyam, g.hybm, g.hyai, g.hybi, gases, 0.0)))
         return self._consts_by[key]
 
     # -- feature assembly --------------------------------------------------
@@ -262,12 +268,15 @@ class HybridDriver:
         dt_v = tend[:, sl["ptend_v"]]
 
         new_dyn = self.dyn_forcing(s, step_idx)
+        # jnp.maximum(., 0), with its tie gradient: 0.5 where a species
+        # stays at exactly 0 (a cloud-free stratospheric level every step),
+        # where torch.clamp would pass all of it
+        zero = self._consts(s.q1).zero
         new = ColumnState(
             t=s.t + (dt_t + new_dyn[:, 0]) * self.dt,
-            q1=torch.clamp(s.q1 + (dt_q1 + new_dyn[:, 1]) * self.dt,
-                           min=0.0),
-            qc=torch.clamp(s.qc + dt_qc * self.dt, min=0.0),
-            qi=torch.clamp(s.qi + dt_qi * self.dt, min=0.0),
+            q1=torch.maximum(s.q1 + (dt_q1 + new_dyn[:, 1]) * self.dt, zero),
+            qc=torch.maximum(s.qc + dt_qc * self.dt, zero),
+            qi=torch.maximum(s.qi + dt_qi * self.dt, zero),
             u=s.u + (dt_u + new_dyn[:, 2]) * self.dt,
             v=s.v + dt_v * self.dt,
             scalars=s.scalars,
@@ -305,31 +314,39 @@ class HybridDriver:
         if n_steps < 1:
             raise ValueError(f"n_steps={n_steps}: want at least 1")
         start = int(start_step)
-        sl = self._sl
-        c = self._consts(state0.t)
-        keys = ("t", "q1", "qn", "u", "precc", "water_res") + (
-            ("x4",) if collect_features else ())
-        traj = {k: [] for k in keys}
+        body = self._body
+        if self.remat and torch.is_grad_enabled():
+            body = lambda *a: checkpoint(self._body, *a,  # noqa: E731
+                                         use_reentrant=False)
+        traj: dict = {}
         s = state0
         for i in range(n_steps):
-            x = self.assemble_v4(s)
-            new, tend = self._advance(s, x, start + i)
-            ps = s.scalars[:, 0]
-            lhflx = s.scalars[:, 2]  # ps, SOLIN, LHFLX, ... scalar order
-            precc = tend[:, sl["cam_out_PRECC"].start]
-            wres = physics.column_water_residual(
-                (tend[:, sl["ptend_q0001"]], tend[:, sl["ptend_q0002"]],
-                 tend[:, sl["ptend_q0003"]]),
-                ps, c.hyai, c.hybi, precc,
-                tend[:, sl["cam_out_PRECSC"].start], lhflx)
-            for k, val in (("t", new.t), ("q1", new.q1),
-                           ("qn", new.qc + new.qi), ("u", new.u),
-                           ("precc", precc), ("water_res", wres)):
-                traj[k].append(val)
-            if collect_features:
-                traj["x4"].append(x)
-            s = new
+            s, out = body(s, start + i, collect_features)
+            for k, val in out.items():
+                traj.setdefault(k, []).append(val)
         return s, {k: torch.stack(v) for k, v in traj.items()}
+
+    def _body(self, s: ColumnState, step_idx: int,
+              collect_features: bool) -> tuple:
+        """One rollout step: (the next state, the step's trajectory
+        entries)."""
+        sl = self._sl
+        c = self._consts(s.t)
+        x = self.assemble_v4(s)
+        new, tend = self._advance(s, x, step_idx)
+        ps = s.scalars[:, 0]
+        lhflx = s.scalars[:, 2]  # ps, SOLIN, LHFLX, ... scalar order
+        precc = tend[:, sl["cam_out_PRECC"].start]
+        wres = physics.column_water_residual(
+            (tend[:, sl["ptend_q0001"]], tend[:, sl["ptend_q0002"]],
+             tend[:, sl["ptend_q0003"]]),
+            ps, c.hyai, c.hybi, precc,
+            tend[:, sl["cam_out_PRECSC"].start], lhflx)
+        out = {"t": new.t, "q1": new.q1, "qn": new.qc + new.qi, "u": new.u,
+               "precc": precc, "water_res": wres}
+        if collect_features:
+            out["x4"] = x
+        return new, out
 
     def rollout_ensemble(self, states0: ColumnState, n_steps: int,
                          start_step: int = 0):

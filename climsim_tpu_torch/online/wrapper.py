@@ -84,12 +84,7 @@ def make_wrapper(model_apply: Callable, stats: NormStats,
     if cfg.input_version not in ("v4", "v5"):
         raise ValueError(f"input_version {cfg.input_version!r}: want 'v4' "
                          "or 'v5'")
-    if cfg.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"dtype {cfg.dtype}: want float32 or float64")
-    oracle = cfg.dtype == torch.float64
-    if oracle and dev.type != "cpu":
-        raise ValueError("the float64 wrapper is the plain CPU path; the "
-                         f"kernels on {dev} take float32")
+    oracle = _oracle(cfg.dtype, dev)
     spec5 = get_varspec("v5")
     tcfg = T.TransformConfig(
         qn_transform=True, qinput_prune=True, strato_lev=cfg.qn_prune_lev,
@@ -134,25 +129,60 @@ V4_OUT_ZERO = {"ptend_q0001": 15, "ptend_q0002": 28, "ptend_q0003": 15,
                "ptend_u": 15, "ptend_v": 15}
 
 
-def _out_zero_mask(spec: VarSpec, depths: dict | None,
-                   device) -> torch.Tensor:
+def _oracle(dtype: torch.dtype, dev: torch.device) -> bool:
+    """True for the float64 wrapper (the plain versions, on the CPU only),
+    False for float32; raise for anything else."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"dtype {dtype}: want float32 or float64")
+    if dtype == torch.float64 and dev.type != "cpu":
+        raise ValueError("the float64 wrapper is the plain CPU path; the "
+                         f"kernels on {dev} take float32")
+    return dtype == torch.float64
+
+
+def _out_zero_mask(spec: VarSpec, depths: dict | None, device,
+                   dtype=torch.float32) -> torch.Tensor:
     mask = np.ones(spec.output_len, np.float64)
     for v, n in (depths or {}).items():
         s = spec.output_slices[v].start
         mask[s: s + n] = 0.0
-    return torch.as_tensor(mask, dtype=torch.float32, device=device)
+    return torch.as_tensor(mask, dtype=dtype, device=device)
 
 
-def _out_scale_inv(stats: NormStats, device) -> torch.Tensor:
-    return torch.as_tensor(1.0 / stats.out_scale, dtype=torch.float32,
+def _out_scale_inv(stats: NormStats, device,
+                   dtype=torch.float32) -> torch.Tensor:
+    return torch.as_tensor(1.0 / stats.out_scale, dtype=dtype,
                            device=device)
+
+
+def _raw_wrapper(model_apply: Callable, stats: NormStats, spec: VarSpec,
+                 tcfg: T.TransformConfig, out_zero: dict | None, device,
+                 dtype: torch.dtype) -> Callable:
+    """fn(x_raw) -> model_apply(transform(x_raw)) * zero * 1 / out_scale:
+    the v4- and v2_rh-family wrappers.  float32 runs the input transform
+    kernel; float64 its plain version (the CPU's oracle-parity path, as
+    the JAX wrappers' ``dtype``)."""
+    dev = torch.device(device)
+    if _oracle(dtype, dev):
+        consts = T.input_transform_consts(spec, stats, tcfg, dev, dtype)
+        in_t = lambda x: K.fused_input_transform_plain(  # noqa: E731
+            x.to(device=dev, dtype=dtype), consts)
+    else:
+        in_t = T.make_input_transform(spec, stats, tcfg, dev)
+    zero = _out_zero_mask(spec, out_zero, dev, dtype)
+    out_scale_inv = _out_scale_inv(stats, dev, dtype)
+
+    def wrapper(x_raw: torch.Tensor) -> torch.Tensor:
+        return model_apply(in_t(x_raw)) * zero * out_scale_inv
+
+    return wrapper
 
 
 def make_v4_wrapper(model_apply: Callable, stats: NormStats,
                     spec: VarSpec | None = None,
                     tcfg: T.TransformConfig | None = None,
                     out_zero: dict | None = None,
-                    device="cuda") -> Callable:
+                    device="cuda", dtype=torch.float32) -> Callable:
     """v4-family coupling wrapper: the host sends the raw v4 (B, 1525)
     feature vector, the model takes it natively (no v5 conversion) and the
     host receives the raw 368-wide tendencies with no cloud repartition
@@ -164,27 +194,23 @@ def make_v4_wrapper(model_apply: Callable, stats: NormStats,
     normalized (B, 368) output, e.g. ``partial(unet_apply_fused, model)``
     for the ``unet_v4`` preset.  The input transform is the
     ``fused_input_transform`` kernel, with the qc/qi rates where ``tcfg``
-    asks for them (the default does)."""
+    asks for them (the default does); ``dtype=torch.float64`` runs its
+    plain version, on the CPU only (``climsim_tpu/online/wrapper.py:147``'s
+    ``dtype``)."""
     spec = spec or get_varspec("v4")
     tcfg = tcfg or T.TransformConfig(
         qn_transform=True, qinput_prune=True, strato_lev=15,
         input_clip=True, input_clip_rhonly=True)
-    in_t = T.make_input_transform(spec, stats, tcfg, device)
-    zero = _out_zero_mask(spec, V4_OUT_ZERO if out_zero is None else out_zero,
-                          device)
-    out_scale_inv = _out_scale_inv(stats, device)
-
-    def wrapper(x_raw: torch.Tensor) -> torch.Tensor:
-        return model_apply(in_t(x_raw)) * zero * out_scale_inv
-
-    return wrapper
+    return _raw_wrapper(model_apply, stats, spec, tcfg,
+                        V4_OUT_ZERO if out_zero is None else out_zero,
+                        device, dtype)
 
 
 def make_v2rh_wrapper(model: Callable, stats: NormStats,
                       spec: VarSpec | None = None,
                       tcfg: T.TransformConfig | None = None,
                       out_zero: dict | None = None,
-                      device="cuda") -> Callable:
+                      device="cuda", dtype=torch.float32) -> Callable:
     """Wrapper for v2_rh-family online models (MLP_v2rh): normalize in,
     un-scale out; ``model`` maps normalized (B, 557) to the (B, 368)
     contract layout (v2_nn_wrapper.ipynb is the same flow without cloud
@@ -193,17 +219,11 @@ def make_v2rh_wrapper(model: Callable, stats: NormStats,
     The defaults keep the repo's online models' contract (clip-only: they
     train without the qc/qi exponential transform).  The reference's
     published v2 wrapper behavior is ``tcfg`` with the qc/qi rates and
-    cloud-input pruning plus ``out_zero=V4_OUT_ZERO``."""
+    cloud-input pruning plus ``out_zero=V4_OUT_ZERO``.  ``dtype`` as in
+    ``make_v4_wrapper`` (``climsim_tpu/online/wrapper.py:174``)."""
     spec = spec or get_varspec("v2_rh")
     tcfg = tcfg or T.TransformConfig(input_clip=True, input_clip_rhonly=True)
-    in_t = T.make_input_transform(spec, stats, tcfg, device)
-    zero = _out_zero_mask(spec, out_zero, device)
-    out_scale_inv = _out_scale_inv(stats, device)
-
-    def wrapper(x_raw: torch.Tensor) -> torch.Tensor:
-        return model(in_t(x_raw)) * zero * out_scale_inv
-
-    return wrapper
+    return _raw_wrapper(model, stats, spec, tcfg, out_zero, device, dtype)
 
 
 def make_fast_mlp_wrapper(model, stats: NormStats,

@@ -25,7 +25,9 @@ device; there is no fallback from the kernel to the plain version.  Each
 launch adds one to ``LAUNCHES[<name>]``, so a run can show that it went
 through the kernels.  The ``*_plain`` functions hold the same math in
 PyTorch: the CPU path, and the reference the kernels are checked against
-on the card.
+on the card.  Kernels 1 and 4 carry a gradient where one is wanted: their
+backward is autograd of the plain version (``_InputTransformGrad``,
+``_ConstraintHeadGrad``).
 
 No lane padding: the kernels mask their own ragged edges.
 """
@@ -278,7 +280,9 @@ def fused_input_transform_plain(x: torch.Tensor,
     x = (x - sub) * divinv
     x = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
     x = x * mask
-    return torch.clamp(x, lo, hi)
+    # jnp.clip's tie gradient (0.5 to x at a bound), where torch.clamp
+    # gives x all of it
+    return torch.minimum(torch.maximum(x, lo), hi)
 
 
 def fused_input_transform(x: torch.Tensor,
@@ -300,6 +304,14 @@ def fused_input_transform(x: torch.Tensor,
         return _input_transform_op(x, consts)
     if not (x.is_cuda or _on_cuda(x, "fused_input_transform")):
         return fused_input_transform_plain(x, consts)
+    if x.requires_grad and torch.is_grad_enabled():
+        return _InputTransformGrad.apply(x, consts)
+    return _transform_launch(x, consts, dev)
+
+
+def _transform_launch(x: torch.Tensor, consts: torch.Tensor,
+                      dev: torch.device) -> torch.Tensor:
+    """Kernel 1 on checked CUDA tensors: a fresh output, no autograd."""
     rows, d = x.shape
     out = torch.empty_like(x)   # x is contiguous: so is out
     if rows:
@@ -507,6 +519,17 @@ def fused_constraint_head(y_norm: torch.Tensor, t: torch.Tensor,
         return _constraint_head_op(y_norm, t, qc, qi, consts, dt)
     if not (y_norm.is_cuda or _on_cuda(y_norm, "fused_constraint_head")):
         return fused_constraint_head_plain(y_norm, t, qc, qi, consts, dt)
+    if torch.is_grad_enabled() and (y_norm.requires_grad or t.requires_grad
+                                    or qc.requires_grad or qi.requires_grad):
+        return _ConstraintHeadGrad.apply(y_norm, t, qc, qi, consts, dt, lds)
+    return _head_launch(y_norm, t, qc, qi, consts, dt, lds, dev)
+
+
+def _head_launch(y_norm, t, qc, qi, consts, dt: float, lds: tuple,
+                 dev: torch.device) -> torch.Tensor:
+    """Kernel 4 on checked CUDA tensors (t, qc, qi of row strides
+    ``lds``): a fresh output, no autograd."""
+    rows = y_norm.shape[0]
     out = torch.empty_like(_head_out(rows, dev))
     if rows:
         idx = dev.index
@@ -539,6 +562,58 @@ def _launch_head(y_norm, t, qc, qi, consts, dt: float,
                       plan.args(rows, lds), dt)
     _build.check(code, "fused_constraint_head")
     return out
+
+
+# --------------------------------------------------------------------------
+# kernels 1 and 4 under autograd
+# --------------------------------------------------------------------------
+# A launch writes into a fresh tensor through ctypes, which autograd cannot
+# see: its output has no grad_fn.  Where a gradient is wanted (an input
+# requires grad and grad mode is on: a differentiated rollout,
+# train/rollout_ft.py), the public functions launch through these
+# Functions instead.  The forward is the kernel; the backward is autograd
+# of the plain version at the saved inputs (the pattern of 5',
+# ops/unet_fused.py), so the gradient is exactly the plain chain's at the
+# same inputs.  The JAX kernels have no VJP either: the JAX wrapper
+# differentiates its XLA chain (climsim_tpu/online/wrapper.py:97-124).
+# The served path needs no gradient and keeps its direct launch.
+class _InputTransformGrad(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, consts):
+        ctx.save_for_backward(x, consts)
+        return _transform_launch(x, consts, consts.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, consts = ctx.saved_tensors
+        with torch.enable_grad():
+            x = x.detach().requires_grad_()
+            (dx,) = torch.autograd.grad(
+                fused_input_transform_plain(x, consts), x, g)
+        return dx, None
+
+
+class _ConstraintHeadGrad(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, y_norm, t, qc, qi, consts, dt, lds):
+        ctx.save_for_backward(y_norm, t, qc, qi, consts)
+        ctx.dt = dt
+        return _head_launch(y_norm, t, qc, qi, consts, dt, lds,
+                            consts.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        *ins, consts = ctx.saved_tensors
+        need = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            ins = [a.detach().requires_grad_(n) for a, n in zip(ins, need)]
+            want = [a for a in ins if a.requires_grad]
+            grads = iter(torch.autograd.grad(
+                fused_constraint_head_plain(*ins, consts, ctx.dt), want, g))
+        return (*(next(grads) if n else None for n in need), None, None,
+                None)
 
 
 # --------------------------------------------------------------------------

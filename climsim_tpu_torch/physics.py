@@ -64,9 +64,21 @@ def _polyval(coeffs, x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def maximum(x: torch.Tensor, v: float) -> torch.Tensor:
+    """``jnp.maximum(x, v)``: torch.maximum against a 0-d tensor, which
+    splits the gradient at a tie 0.5 / 0.5, as JAX does (``torch.clamp``
+    gives x all of it).  The values are clamp's."""
+    return torch.maximum(x, x.new_full((), v))
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``, with its tie gradient (see ``maximum``)."""
+    return torch.minimum(maximum(x, lo), x.new_full((), hi))
+
+
 def eliq(t: torch.Tensor) -> torch.Tensor:
     """Liquid saturation vapor pressure [Pa] from temperature [K]."""
-    dt = torch.clamp(t - T_FREEZE, min=-80.0)
+    dt = maximum(t - T_FREEZE, -80.0)
     return 100.0 * _polyval(_A_LIQ, dt)
 
 
@@ -75,7 +87,7 @@ def eice(t: torch.Tensor) -> torch.Tensor:
     dt = t - T_FREEZE
     warm = eliq(t)
     mid = 100.0 * _polyval(_A_ICE, dt)
-    dt_c = torch.clamp(dt, min=_C_ICE[2])
+    dt_c = maximum(dt, _C_ICE[2])
     cold = 100.0 * (_C_ICE[3] + dt_c * (_C_ICE[4] + dt_c * _C_ICE[5]))
     return torch.where(t > _C_ICE[0], warm,
                        torch.where(t > _C_ICE[1], mid, cold))
@@ -83,7 +95,7 @@ def eice(t: torch.Tensor) -> torch.Tensor:
 
 def liquid_fraction(t: torch.Tensor) -> torch.Tensor:
     """Linear liquid/ice partition ramp: 0 below 253.16K, 1 above 273.16K."""
-    return torch.clamp((t - T_ICE) / (T_FREEZE - T_ICE), 0.0, 1.0)
+    return clip((t - T_ICE) / (T_FREEZE - T_ICE), 0.0, 1.0)
 
 
 def saturation_pressure(t: torch.Tensor) -> torch.Tensor:

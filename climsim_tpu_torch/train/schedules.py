@@ -61,15 +61,19 @@ def warmup_then(base_schedule, warmup_steps: int, init_fraction: float = 0.0,
     return schedule
 
 
-def cosine(init_lr: float, decay_steps: int, alpha: float = 0.0):
-    """optax.cosine_decay_schedule (exponent 1)."""
+def cosine(init_lr: float, decay_steps: int, alpha: float = 0.0,
+           dtype=_F):
+    """optax.cosine_decay_schedule (exponent 1), computed in ``dtype``:
+    float32 as optax computes it, float64 as it does under jax_enable_x64
+    (the float64 parity path)."""
     if not decay_steps > 0:
         raise ValueError(f"cosine: decay_steps {decay_steps}, want > 0")
+    f = dtype
 
     def schedule(step):
-        t = np.minimum(_F(step), _F(decay_steps))
-        decay = _F(0.5) * (_F(1.0) + np.cos(_F(np.pi) * t / _F(decay_steps)))
-        return _F(init_lr) * (_F(1.0 - alpha) * decay + _F(alpha))
+        t = np.minimum(f(step), f(decay_steps))
+        decay = f(0.5) * (f(1.0) + np.cos(f(np.pi) * t / f(decay_steps)))
+        return f(init_lr) * (f(1.0 - alpha) * decay + f(alpha))
 
     return schedule
 

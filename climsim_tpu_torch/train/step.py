@@ -63,14 +63,16 @@ def create_train_state(params: torch.nn.Module, optimizer: Optimizer,
                       step=0, rng=rng, lr_scale=1.0)
 
 
-def _clip_by_global_norm(grads, max_norm: float) -> None:
+def _clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
     """optax.clip_by_global_norm in place: g * max_norm / |g| where the
-    global norm exceeds max_norm."""
+    global norm exceeds max_norm.  Returns the norm before the clip (a
+    device scalar)."""
     norm = torch.linalg.vector_norm(
         torch.stack([torch.linalg.vector_norm(g) for g in grads]))
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     torch._foreach_mul_(grads, scale)
+    return norm
 
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer, rules=None):

@@ -335,9 +335,9 @@ def test_rollout_ensemble_matches_member_loop_and_jax():
             close(getattr(ef, f)[mi], getattr(loop[mi][0], f), "f32", f)
 
 
-def test_remat_is_refused():
-    with pytest.raises(NotImplementedError, match="rollout_ft"):
-        PD.HybridDriver(lambda x: x, GRID, remat=True)
+def test_n_steps_is_refused():
+    """A rollout of no step raises.  (HybridDriver(remat=True) no longer
+    raises: test_torch_rollout_ft.py holds it to remat=False.)"""
     with pytest.raises(ValueError, match="n_steps"):
         PD.HybridDriver(lambda x: x, GRID).rollout(
             PD.initial_state(columns(np.float32), GRID, device="cpu"), 0)
