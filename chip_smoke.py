@@ -126,7 +126,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    plain version (kernel 4 within HEAD_TOL, bit-equality printed), the
    input gradients bit-equal to autograd of the plain chain, and the bare
    launch (F4, planted: no grad_fn) failing that check; the no-grad
-   path's host cost a call (phases 3 and 5) printed beside PR 7's.  Then
+   path's host cost a call (phases 3 and 5) printed beside the reading
+   taken when kernels 1 and 4 were redesigned (PERF.md section 6).  Then
    the full-width U-Net v5 (the unet_v5 preset with fused_gn_conv=True,
    the porter's weights from --seed as in 6) through make_wrapper at 384
    columns, against online_eval's oracle under its balanced Newtonian
@@ -2996,8 +2997,10 @@ FT_CHECK_K = 2            # the remat and all-plain checks' horizon
 # (the gradient through the state's features is a small share at K = 2).
 # The bound lies between, so that both plants fail it.
 FT_GRAD_TOL = 1.2e-3
-PR7_HOST_MS = {"fused_input_transform": 0.0162,     # PERF.md section 6
-               "fused_constraint_head": 0.0188}
+# the wrappers' host cost a call at B = 384 read when kernels 1 and 4 were
+# redesigned for Hopper (PERF.md section 6): the no-grad path must keep it
+REDESIGN_HOST_MS = {"fused_input_transform": 0.0162,
+                    "fused_constraint_head": 0.0188}
 # python -m climsim_tpu_torch.online_eval on the card: the script's own
 # smoke geometry (scripts/online_eval.py:61), a few hundred train steps,
 # one DAgger round, two fine-tune updates at K = 16, a one-day spin-up
@@ -3413,7 +3416,7 @@ def kernel_grad_checks(torch, K, T, PW, stats5, grid, seed, io, head):
     the input gradients bit-equal to autograd of the plain chain, and the
     bare launch (F4: its output handed back with no grad_fn) failing that
     check.  Prints the no-grad path's host cost a call (``io``, ``head``:
-    phases 3 and 5) beside PR 7's."""
+    phases 3 and 5) beside the redesign's (REDESIGN_HOST_MS)."""
     from climsim_tpu_torch import get_varspec
     from climsim_tpu_torch.data.synthetic import synthetic_inputs
 
@@ -3486,7 +3489,8 @@ def kernel_grad_checks(torch, K, T, PW, stats5, grid, seed, io, head):
         "fused_constraint_head": head["times"]["B=384"]["host_ms"]}
     for name, ms in res["host_ms"].items():
         print(f"  {name}: the no-grad path's host cost a call at B = 384 "
-              f"{ms:.4f} ms (phase 3 / 5), PR 7's {PR7_HOST_MS[name]:.4f}",
+              f"{ms:.4f} ms (phase 3 / 5), at the redesign "
+              f"{REDESIGN_HOST_MS[name]:.4f}",
               flush=True)
     return res
 
