@@ -56,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import physics
 from ..varspec import NUM_LEVELS, VarSpec
 from .common import out_dtype
 
@@ -155,8 +156,7 @@ class GroupNorm(nn.Module):
         xg = x.reshape(b, l, g, c // g)
         mean = xg.mean(dim=(1, 3), keepdim=True)
         mean2 = (xg * xg).mean(dim=(1, 3), keepdim=True)
-        # jnp.maximum(0, .), flax's, with its tie gradient
-        var = torch.maximum(mean2 - mean * mean, mean.new_zeros(()))
+        var = physics.maximum(mean2 - mean * mean, 0.0)   # flax's
         mul = torch.rsqrt(var + self.eps) * self.weight.reshape(1, 1, g, -1)
         y = ((xg - mean) * mul + self.bias.reshape(1, 1, g, -1)).reshape(
             b, l, c)

@@ -179,7 +179,6 @@ class _Consts:
     hyai: torch.Tensor
     hybi: torch.Tensor
     gases: torch.Tensor   # (3, 60)
-    zero: torch.Tensor    # () the water species' floor
 
 
 class HybridDriver:
@@ -227,7 +226,7 @@ class HybridDriver:
             self._consts_by[key] = _Consts(*(
                 torch.as_tensor(np.asarray(a), dtype=like.dtype,
                                 device=like.device)
-                for a in (g.hyam, g.hybm, g.hyai, g.hybi, gases, 0.0)))
+                for a in (g.hyam, g.hybm, g.hyai, g.hybi, gases)))
         return self._consts_by[key]
 
     # -- feature assembly --------------------------------------------------
@@ -271,12 +270,11 @@ class HybridDriver:
         # jnp.maximum(., 0), with its tie gradient: 0.5 where a species
         # stays at exactly 0 (a cloud-free stratospheric level every step),
         # where torch.clamp would pass all of it
-        zero = self._consts(s.q1).zero
         new = ColumnState(
             t=s.t + (dt_t + new_dyn[:, 0]) * self.dt,
-            q1=torch.maximum(s.q1 + (dt_q1 + new_dyn[:, 1]) * self.dt, zero),
-            qc=torch.maximum(s.qc + dt_qc * self.dt, zero),
-            qi=torch.maximum(s.qi + dt_qi * self.dt, zero),
+            q1=physics.maximum(s.q1 + (dt_q1 + new_dyn[:, 1]) * self.dt, 0.0),
+            qc=physics.maximum(s.qc + dt_qc * self.dt, 0.0),
+            qi=physics.maximum(s.qi + dt_qi * self.dt, 0.0),
             u=s.u + (dt_u + new_dyn[:, 2]) * self.dt,
             v=s.v + dt_v * self.dt,
             scalars=s.scalars,

@@ -55,7 +55,9 @@ writes beside them with ``.torch`` before the extension
 tensors, ...}`` with the JAX pickle's other entries), and it reads its
 own files first.  The fine-tune and the correction belong to the params
 they were fitted to: they are read from the JAX script's names only when
-the params were.
+the params were.  The report and figures take the same infix
+(``<out>/ONLINE_EVAL.torch.md``, ``<out>/figures/online_*.torch.png``),
+so that the port never overwrites the JAX script's outputs in ``docs/``.
 
 Usage: python -m climsim_tpu_torch.online_eval     (full 90-day run)
        python -m climsim_tpu_torch.online_eval --steps 216 --window 72 ...
@@ -1226,7 +1228,8 @@ def main(argv=None):
     figdir = os.path.join(args.out, "figures")
     # scheme-suffixed figure names so a two_stage run never clobbers the
     # regressor's in the same --out tree
-    fig_sfx = "" if args.scheme == "regressor" else f"_{args.scheme}"
+    fig_sfx = ("" if args.scheme == "regressor"
+               else f"_{args.scheme}") + ".torch"
     figures = _figures(
         figdir, fig_sfx, steps, growth, pairs, m_e2, floor_inst, days,
         saturating, lats, zbias, n_v, n_win, GATE_VARS, VAR_LABEL, mm_rmse,
@@ -1377,9 +1380,9 @@ def main(argv=None):
         "scalar curves, per-window (ncol, 60) sums and the precipitation "
         "series reach the host).",
     ]
-    report = os.path.join(
+    report = _torch_path(os.path.join(
         args.out, "ONLINE_EVAL.md" if args.scheme == "regressor"
-        else f"ONLINE_EVAL_{args.scheme}.md")
+        else f"ONLINE_EVAL_{args.scheme}.md"))
     with open(report, "w") as f:
         f.write("\n".join(lines) + "\n")
     lap("9 (report)")

@@ -280,9 +280,7 @@ def fused_input_transform_plain(x: torch.Tensor,
     x = (x - sub) * divinv
     x = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
     x = x * mask
-    # jnp.clip's tie gradient (0.5 to x at a bound), where torch.clamp
-    # gives x all of it
-    return torch.minimum(torch.maximum(x, lo), hi)
+    return physics.clip(x, lo, hi)   # jnp.clip's tie gradient
 
 
 def fused_input_transform(x: torch.Tensor,

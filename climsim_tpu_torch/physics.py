@@ -64,16 +64,22 @@ def _polyval(coeffs, x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def maximum(x: torch.Tensor, v: float) -> torch.Tensor:
-    """``jnp.maximum(x, v)``: torch.maximum against a 0-d tensor, which
+def _bound(x: torch.Tensor, v: float | torch.Tensor) -> torch.Tensor:
+    return v if isinstance(v, torch.Tensor) else x.new_full((), v)
+
+
+def maximum(x: torch.Tensor, v: float | torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum(x, v)``: torch.maximum against a tensor bound, which
     splits the gradient at a tie 0.5 / 0.5, as JAX does (``torch.clamp``
-    gives x all of it).  The values are clamp's."""
-    return torch.maximum(x, x.new_full((), v))
+    gives x all of it).  The values are clamp's.  The port takes JAX's
+    tie convention here and in ``clip`` only."""
+    return torch.maximum(x, _bound(x, v))
 
 
-def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+def clip(x: torch.Tensor, lo: float | torch.Tensor,
+         hi: float | torch.Tensor) -> torch.Tensor:
     """``jnp.clip(x, lo, hi)``, with its tie gradient (see ``maximum``)."""
-    return torch.minimum(maximum(x, lo), x.new_full((), hi))
+    return torch.minimum(maximum(x, lo), _bound(x, hi))
 
 
 def eliq(t: torch.Tensor) -> torch.Tensor:

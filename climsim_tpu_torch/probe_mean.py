@@ -16,7 +16,7 @@ oracle + wrapper pair and separates the two candidate failure modes:
 
 Usage: python -m climsim_tpu_torch.probe_mean <params.pkl> <stats.npz>
        [--oracle-mean 3] [--spinup-days 30] [--channels 64]
-       [--seg 540] [--device cuda]
+       [--device cuda]
 """
 
 from __future__ import annotations
@@ -28,6 +28,8 @@ import torch
 
 from .online_eval import (STEPS_PER_DAY, _load_params,
                           build_balanced_forcing, make_oracle_wrapper)
+
+SEG = 540   # rollout segment length, in steps
 
 
 def main(argv=None):
@@ -42,8 +44,6 @@ def main(argv=None):
     ap.add_argument("--spinup-days", type=float, default=30.0)
     ap.add_argument("--hybrid-days", type=float, default=30.0)
     ap.add_argument("--channels", type=int, default=64)
-    ap.add_argument("--seg", type=int, default=540,
-                    help="rollout segment length (the JAX script's 540)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -98,7 +98,7 @@ def main(argv=None):
                                  device=dev)
     hybrid_driver = HybridDriver(hybrid_wrap, grid, dyn_forcing=forcing)
 
-    seg = args.seg
+    seg = SEG
     with torch.no_grad():
         # --- spin the TRUE system onto its attractor --------------------
         s = initial_state(x0, grid, device=dev)

@@ -88,7 +88,7 @@ def _flow_checks(out, tmp_path, sfx=""):
     assert os.path.exists(out["report"]) and out["figures"]
     for f in ("online_error_growth", "online_zonal_bias",
               "online_monthly_rmse", "online_precip"):
-        assert os.path.exists(str(tmp_path / "figures" / f"{f}{sfx}.png")), f
+        assert os.path.exists(str(tmp_path / "figures" / f"{f}{sfx}.torch.png")), f
 
 
 def test_online_eval_flow(tmp_path):
@@ -112,7 +112,7 @@ def test_online_eval_two_stage_flow(tmp_path, capsys):
                   "--device", "cpu", "--out", str(tmp_path)])
     assert out["scheme"] == "two_stage"
     assert np.isfinite(out["cls_acc"]) and 0.0 <= out["cls_acc"] <= 1.0
-    assert out["report"].endswith("ONLINE_EVAL_two_stage.md")
+    assert out["report"].endswith("ONLINE_EVAL_two_stage.torch.md")
     assert np.isfinite(out["micro"]["frac_negative_qn"])
     _flow_checks(out, tmp_path, "_two_stage")
     txt = open(out["report"]).read()
@@ -280,11 +280,12 @@ def test_evaluation_half_matches_jax(jax_cache):
           {k: f"{v:.2e}" for k, v in gaps.items()})
 
 
-def test_probe_mean_on_the_jax_cache(jax_cache, capsys):
+def test_probe_mean_on_the_jax_cache(jax_cache, capsys, monkeypatch):
     _, _, _, paths = jax_cache
+    monkeypatch.setattr(probe_mean, "SEG", 12)
     probe_mean.main([paths["params"], paths["stats"], "--channels", "8",
                      "--spinup-days", "0", "--hybrid-days", "0.2",
-                     "--seg", "12", "--device", "cpu"])
+                     "--device", "cpu"])
     out = capsys.readouterr().out
     assert "(a) supervised mean-tendency error" in out
     assert "(b) coupled per-level state bias" in out
