@@ -225,15 +225,35 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
    trainer with the plain chain forward: the losses within
    UNET_CURVE_TOL, the parameters' moves within UNET_MOVE_TOL, which a
    planted fault (dw dropped in 5''s backward) must fail.
-12. With --profile, prints the fused MLPs' plans and traces the served
+12. The NeurIPS'23 zoo through python -m climsim_tpu_torch.run's
+   run_experiment on the card: mlp_v1, mlp_v2, cnn_v1, ed_v1, hsr_v1,
+   rpn_v1 and cvae_v1, each at its published widths and batch, and a
+   3-seed hsr_v1 (train.seeds), each on ZOO_STEPS synthetic training
+   batches and one validation batch an epoch, ZOO_EPOCHS epochs (HSR 6:
+   2 of its MSE stage, 4 of its NLL stage).  Each starts from a
+   flax-layout parameter tree drawn from --seed (a replica from --seed +
+   k) and moved across by the model's porter: the single models by the
+   warm restart (train.restart_path), the RPN ensemble and the replicas
+   as they are built.  The first loss on ZOO_FIRST_ROWS rows must match
+   the CPU's within ZOO_FIRST_LOSS_TOL, every epoch's losses be finite,
+   the last training loss below the first (HSR: in each stage), and
+   kernel 1 have been launched exactly once a training step and once a
+   validation batch of each replica (no other kernel).  HSR's and the
+   cVAE's samples and the RPN's posterior on ZOO_SAMPLE_ROWS rows must
+   be finite (B, D_out, S), scored by eval.metrics.crps.  Prints each
+   preset's ms a step and samples/s (fit's median epoch), its peak
+   memory and seconds; then bench_cnn's table (406 channels against
+   384 and 512, dropout off, float32 convolutions; CUDA events).
+13. With --profile, prints the fused MLPs' plans and traces the served
    paths (MLP bf16 and int8, U-Net v5, two-stage v5, v4) with
    torch.profiler (device time per kernel and copy, the card's busy
    share, kernel 5's share of it, the costliest host ops).
-13. Prints one JSON line of the kernels' results (each with its bound:
+14. Prints one JSON line of the kernels' results (each with its bound:
    the larger of its bytes over the memory rate and its operations over
-   the peak, at the timed shape; the launches include 6d's rollouts and
-   6f's updates and entry) and the paths' results (6d's under "rollouts",
-   6f's under "finetune" and "online_eval"), then, last,
+   the peak, at the timed shape; the launches include 6d's rollouts,
+   6f's updates and entry, and 12's zoo) and the paths' results (6d's
+   under "rollouts", 6f's under "finetune" and "online_eval", 12's under
+   "zoo"), then, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each phase prints its seconds (kept in the result line as
@@ -3775,6 +3795,297 @@ def entry_phase(torch, card, K, tmp):
             "ft_loss": out["ft_loss"], "figures": out["figures"]}, launches
 
 
+# --------------------------------------------------------------------------
+# phase 12: the NeurIPS'23 zoo through the run entry
+# --------------------------------------------------------------------------
+# (preset, overrides): each at its published widths and batch, cut in
+# epochs and rows only: ZOO_STEPS training batches and one validation
+# batch an epoch.  mlp_v2's norms are computed from its split (the v2
+# asset norms turn the synthetic v2 rows' unfilled features into NaN, in
+# the JAX runner as in the port).  HSR runs 6 epochs: 2 of its MSE stage,
+# then 4 of its NLL stage (epochs // 3).
+ZOO_STEPS = 4
+ZOO_RUNS = (("mlp_v1", ()), ("mlp_v2", ("data.norms=compute",)),
+            ("cnn_v1", ()), ("ed_v1", ()), ("hsr_v1", ("train.epochs=6",)),
+            ("rpn_v1", ()), ("cvae_v1", ()),
+            ("hsr_v1", ("train.epochs=6", "train.seeds=[0, 1, 2]")))
+ZOO_EPOCHS = 3
+ZOO_SAMPLES = 32          # stochastic samples a column (the recipes' 32)
+ZOO_SAMPLE_ROWS = 1024
+ZOO_FIRST_ROWS = 16
+# The first loss on ZOO_FIRST_ROWS rows, card against CPU, relative: the
+# same bf16 roundings of the operands, float32 sums in other orders
+# (cuBLAS and cuDNN against the CPU's), whose bf16-rounded activations flip
+# now and then.  On an H100 (700 W) at --seed 0: 0 (ed_v1, cvae_v1),
+# 7.5e-8 (mlp_v1), 7.5e-7 (mlp_v2), 1.3e-5 (rpn_v1), 2.4e-5 (cnn_v1) and
+# 6.5e-5 (hsr_v1, whose evaluation loss is the NLL: exp(logprec) scales
+# each flipped rounding of the log-precision net).
+ZOO_FIRST_LOSS_TOL = 1e-4
+ZOO_BENCH_STEPS = 5       # bench_cnn's timed steps an arm
+
+
+def _np_dense(rng, din, dout, lead=()):
+    return {"kernel": (rng.standard_normal((*lead, din, dout))
+                       / np.sqrt(din)).astype(np.float32),
+            "bias": (0.01 * rng.standard_normal((*lead, dout))).astype(
+                np.float32)}
+
+
+def _np_trunk(rng, din, hidden, layernorm=False, lead=()):
+    tree = {}
+    for i, h in enumerate(hidden):
+        tree[f"Dense_{i}"] = _np_dense(rng, din, h, lead)
+        if layernorm:
+            tree[f"LayerNorm_{i}"] = {
+                "scale": (1 + 0.05 * rng.standard_normal(h)).astype(
+                    np.float32),
+                "bias": (0.05 * rng.standard_normal(h)).astype(np.float32)}
+        din = h
+    return tree
+
+
+def _np_conv(rng, k, cin, cout, bias=0.0):
+    return {"Conv_0": {
+        "kernel": (rng.standard_normal((k, cin, cout))
+                   / np.sqrt(k * cin)).astype(np.float32),
+        "bias": (bias + 0.01 * rng.standard_normal(cout)).astype(
+            np.float32)}}
+
+
+def zoo_state(cfg, spec, seed):
+    """The flax-layout parameter tree of ``cfg``'s model (numpy, drawn from
+    ``seed``: kernels of variance 1 / fan-in, small biases, LayerNorm
+    scales near 1) carried over by the model's porter: the port's
+    state_dict."""
+    from climsim_tpu_torch.data import transforms as T
+    from climsim_tpu_torch.utils import migrate as PM
+
+    rng = np.random.default_rng(seed)
+    kw = cfg.model_kw
+    din, dout = spec.input_len, spec.output_len
+    if cfg.model in ("mlp", "mlp_v2"):
+        hidden = tuple(kw["hidden"])
+        if cfg.model == "mlp_v2":
+            din = len(T.utls_feature_indices(spec))
+        lin = dout - len(spec.output_scalar_vars)
+        return PM.port_flax_mlp({
+            "MLPTrunk_0": _np_trunk(rng, din, hidden),
+            "prehead": _np_dense(rng, hidden[-1], dout),
+            "LinReluHead_0": {"out_linear": _np_dense(rng, dout, lin),
+                              "out_relu": _np_dense(rng, dout, dout - lin)}})
+    if cfg.model == "ed":   # the recipe's published widths
+        m, lat = 463, 5
+        enc = (m, m, m // 2, m // 4, m // 8, m // 16, lat)
+        dec = (m // 16, m // 8, m // 4, m // 2, m, m)
+        return PM.port_flax_ed({"encoder": _np_trunk(rng, din, enc),
+                                "decoder": _np_trunk(rng, lat, dec),
+                                "out": _np_dense(rng, m, dout)})
+    if cfg.model == "hsr":
+        h = (kw["hidden"],) * kw["layers"]
+        return PM.port_flax_hsr({
+            "mean_trunk": _np_trunk(rng, din, h, True),
+            "mean_out": _np_dense(rng, h[-1], dout),
+            "logprec_trunk": _np_trunk(rng, din, h, True),
+            "logprec_out": _np_dense(rng, h[-1], dout)})
+    if cfg.model == "cvae":
+        h, lat = (kw["hidden"],) * kw["layers"], kw["latent"]
+        return PM.port_flax_cvae({
+            "enc_trunk": _np_trunk(rng, dout + din, h, True),
+            "enc_mean": _np_dense(rng, h[-1], lat),
+            "enc_logstd": _np_dense(rng, h[-1], lat),
+            "dec_trunk": _np_trunk(rng, lat + din, h, True),
+            "dec_mean": _np_dense(rng, h[-1], dout),
+            "dec_logstd": _np_dense(rng, h[-1], dout)})
+    if cfg.model == "cnn":
+        c, cin = kw["channels"], len(spec.inputs)
+        n_p, n_s = len(spec.output_profile_vars), len(spec.output_scalar_vars)
+        tree = {f"ResBlock_{i}": {
+            "Conv1d_0": _np_conv(rng, 3, cin if i == 0 else c, c),
+            "Conv1d_1": _np_conv(rng, 3, c, c),
+            "Conv1d_2": _np_conv(rng, 1, cin if i == 0 else c, c)}
+            for i in range(kw["depth"])}
+        tree.update(Conv1d_0=_np_conv(rng, 1, c, n_p + n_s),
+                    Conv1d_1=_np_conv(rng, 1, n_p + n_s, n_p),
+                    Conv1d_2=_np_conv(rng, 1, n_p + n_s, n_s, 0.5))
+        return PM.port_flax_cnn(tree)
+    if cfg.model == "rpn":
+        e, hidden = kw["ensemble_size"], tuple(kw["hidden"])
+
+        def stacked():
+            return {"MLPTrunk_0": _np_trunk(rng, din, hidden, lead=(e,)),
+                    "out": _np_dense(rng, hidden[-1], dout, (e,))}
+
+        return PM.port_flax_rpn(stacked(), stacked())
+    raise ValueError(cfg.model)
+
+
+def zoo_run(torch, K, PRUN, preset, extra, seed, tmp, device):
+    """One preset through run_experiment on ``device``: its first loss
+    against the CPU's, the launches of the run, its losses, its samples.
+    """
+    from climsim_tpu_torch.config import PRESETS
+    from climsim_tpu_torch.eval.metrics import crps
+    from climsim_tpu_torch.train.checkpoints import save_state
+
+    base = PRESETS[preset]
+    b = base.data.batch_size
+    cfg = base.override(f"data.num_synthetic={(ZOO_STEPS + 1) * b}",
+                        f"train.epochs={ZOO_EPOCHS}", *extra)
+    seeds = list(cfg.train.seeds) or [cfg.seed]
+    grid = PRUN.load_default_grid()
+    spec, x, y, stats = PRUN.load_data(cfg, grid)
+    states = [zoo_state(cfg, spec, seed + k) for k in range(len(seeds))]
+    label = preset + (f" x{len(seeds)} seeds" if cfg.train.seeds else "")
+
+    # the first loss on ZOO_FIRST_ROWS rows: the card's trainer against the
+    # CPU's, from the same weights
+    xf, yf = (torch.from_numpy(np.asarray(a[:ZOO_FIRST_ROWS]))
+              for a in (x, y))
+    first = {}
+    for dev in (device, "cpu"):
+        if cfg.model == "rpn":
+            tr = PRUN.rpn_trainer(spec, stats, x, cfg.seed, cfg=cfg.transform,
+                                  device=dev, **cfg.model_kw)
+            tr.ensemble.load_state_dict(states[0])
+            first[dev] = float(tr.eval_losses(xf, yf).mean())
+        else:
+            tr = PRUN.build_trainer(cfg, spec, stats, (x[:4], y[:4]),
+                                    cfg.seed, None, ZOO_STEPS, grid, False,
+                                    dev)
+            tr.model.load_state_dict(states[0])
+            first[dev] = float(tr.eval_step(tr.model, xf, yf)["loss"])
+        del tr
+    gap = abs(first[device] - first["cpu"]) / abs(first["cpu"])
+    require(gap <= ZOO_FIRST_LOSS_TOL, f"{label}: first loss "
+            f"{first[device]} on the card, {first['cpu']} on the CPU")
+
+    # the run: single models start from the ported weights by the warm
+    # restart (train.restart_path); the RPN ensemble and the replicas are
+    # given theirs as they are built
+    built = []
+    if cfg.model == "rpn" or cfg.train.seeds:
+        orig = PRUN.rpn_trainer if cfg.model == "rpn" else PRUN.build_trainer
+
+        def build(*a, **kw):
+            tr = orig(*a, **kw)
+            (tr.ensemble if cfg.model == "rpn" else tr.model).load_state_dict(
+                states[len(built)])
+            built.append(tr)
+            return tr
+
+        name = "rpn_trainer" if cfg.model == "rpn" else "build_trainer"
+        setattr(PRUN, name, build)
+    else:
+        path = os.path.join(tmp, f"{preset}.pt")
+        save_state(path, states[0])
+        cfg = cfg.override(f"train.restart_path={json.dumps(path)}")
+        name = None
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out, launches, _ = counted(torch, K, lambda: PRUN.run_experiment(
+            cfg, verbose=False, device=device))
+    finally:
+        if name is not None:
+            setattr(PRUN, name, orig)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    require(name is None or len(built) == len(seeds),
+            f"{label}: {len(built)} trainers built, {len(seeds)} expected")
+    rows = out["history"].rows
+    losses = [r["train_loss"] for r in rows]
+    vals = [r["val_loss"] for r in rows]
+    require(all(np.isfinite(losses + vals)), f"{label}: a non-finite "
+            f"loss: train {losses}, val {vals}")
+    # HSR: the MSE stage's epochs and the NLL's each fall (their losses
+    # are of two kinds)
+    stage = cfg.train.epochs // 3 if cfg.model == "hsr" else len(losses)
+    spans = [(0, stage)] + ([(stage, len(losses))] if stage < len(losses)
+                            else [])
+    for lo, hi in spans:
+        require(losses[hi - 1] < losses[lo], f"{label}: the train loss did "
+                f"not fall over epochs {lo}..{hi - 1}: {losses[lo:hi]}")
+    # kernel 1 once a step and once an evaluation batch (each replica's)
+    steps = cfg.train.epochs * ZOO_STEPS * len(seeds)
+    evals = cfg.train.epochs * len(seeds)
+    require_per_step(launches, 1, {"fused_input_transform": steps + evals},
+                     label)
+
+    samples = None
+    tr = out["trainer"]
+    n_rows = x.shape[0] - b
+    # the fit path's and the RPN loop's rate (the multi-seed loop keeps none)
+    sps = (float(np.median([r["samples_per_sec"] for r in rows]))
+           if "samples_per_sec" in rows[0] else None)
+    ms_step = None if sps is None else b / sps * 1e3
+    if cfg.model in ("hsr", "cvae", "rpn"):
+        xs = torch.from_numpy(np.asarray(x[:ZOO_SAMPLE_ROWS]))
+        with torch.no_grad():
+            if cfg.model == "rpn":
+                s, slaunch, _ = counted(torch, K, lambda: tr.posterior(xs))
+                yt = tr.target_transform(torch.from_numpy(np.asarray(
+                    y[:ZOO_SAMPLE_ROWS])))
+            else:
+                t1 = tr.trainers[0] if cfg.train.seeds else tr
+                s, slaunch, _ = counted(torch, K, lambda: t1.sample(
+                    t1.model, xs, seed, ZOO_SAMPLES))
+                yt = None
+        if yt is None:
+            from climsim_tpu_torch.data import transforms as T
+
+            yt = T.make_target_transform(spec, stats, cfg.transform,
+                                         device)(torch.from_numpy(
+                                             np.asarray(y[:ZOO_SAMPLE_ROWS])))
+        require(tuple(s.shape[:2]) == (ZOO_SAMPLE_ROWS, spec.output_len),
+                f"{label}: samples of shape {tuple(s.shape)}")
+        require(bool(torch.isfinite(s).all()), f"{label}: non-finite samples")
+        require(slaunch["fused_input_transform"] == 1,
+                f"{label}: kernel 1 launched {slaunch} times for samples")
+        launches["fused_input_transform"] += 1
+        score = float(crps(s.double().cpu().numpy(),
+                           yt.double().cpu().numpy()))
+        require(np.isfinite(score), f"{label}: CRPS {score}")
+        samples = {"shape": list(s.shape), "crps": score}
+    print(f"zoo {label}: first loss card {first[device]:.8f} CPU "
+          f"{first['cpu']:.8f} (gap {gap:.3e}); train "
+          + " ".join(f"{v:.5f}" for v in losses) + "; val "
+          + " ".join(f"{v:.5f}" for v in vals)
+          + f"; kernel 1 launched {launches['fused_input_transform']}; "
+          + (f"{ms_step:.3f} ms a step, {sps:.1f} samples/s (median epoch)"
+             if sps else "no rate kept") + f"; peak {peak:.2f} GB; "
+          f"{wall:.1f} s" + (f"; samples {samples['shape']} CRPS "
+                             f"{samples['crps']:.5f}" if samples else ""),
+          flush=True)
+    return label, {"first_loss": first[device], "first_loss_cpu": first["cpu"],
+                   "first_gap": gap, "train_loss": losses, "val_loss": vals,
+                   "ms_per_step": ms_step, "samples_per_s": sps,
+                   "batch": b, "train_rows": n_rows, "peak_gb": peak,
+                   "seconds": wall, "samples": samples,
+                   "launches": launches}
+
+
+def zoo_phase(torch, K, card, seed, device="cuda"):
+    """Phase 12: every offline preset and a 3-seed HSR through the run
+    entry, then bench_cnn's table.  Returns (results, the launches)."""
+    from climsim_tpu_torch import bench_cnn
+    from climsim_tpu_torch import run as PRUN
+
+    results, total = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for preset, extra in ZOO_RUNS:
+            label, r = zoo_run(torch, K, PRUN, preset, extra, seed, tmp,
+                               device)
+            results[label] = r
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+    bench = bench_cnn.bench(steps=ZOO_BENCH_STEPS, seed=seed)
+    print(f"{card}: bench_cnn (cnn_v1, B = {bench_cnn.BATCH}, depth 12, "
+          f"{ZOO_BENCH_STEPS} steps an arm, CUDA events)\n"
+          + bench_cnn.table(bench), flush=True)
+    results["bench_cnn"] = bench
+    return results, total
+
+
 def io_entry(name, source, replaces, launched, r, at):
     """The JSON entry of kernel 1 or 4: "ms" and "plain_ms" device times
     (CUDA-graph replays), "host_ms" the wrapper's host cost a call, and the
@@ -4150,6 +4461,13 @@ def main(argv=None) -> int:
           f"{unet_train['samples_per_s']['plain']:.1f} samples/s", flush=True)
     lap("11 (U-Net v5 training)")
 
+    # -- 12: the NeurIPS'23 zoo through the run entry ----------------------
+    print("12: the NeurIPS'23 zoo through python -m climsim_tpu_torch.run "
+          "on the card:", flush=True)
+    zoo, zoo_launches = zoo_phase(torch, K, card, args.seed)
+    slice_launches.append(zoo_launches)
+    lap("12 (the zoo)")
+
     if args.profile:
         profile(torch, K, model, stats, spec, chunks[0])
     require("jax" not in sys.modules, "the port must not load jax")
@@ -4272,6 +4590,7 @@ def main(argv=None) -> int:
                       "bundles": bundles, "rollouts": rollouts,
                       "finetune": finetune, "online_eval": online_eval,
                       "bench_server": server, "streaming": stream,
+                      "zoo": zoo,
                       "phase_seconds": seconds}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

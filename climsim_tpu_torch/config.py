@@ -4,9 +4,8 @@
 ``ExperimentConfig`` is a plain dataclass tree -- serializable to and from
 JSON, overridable with dotted key=value strings (CLI).  ``PRESETS`` holds
 each reference model's shipped training configuration, the JAX package's
-table field for field over the port's own ``TransformConfig``.  Presets
-whose model the port does not have yet (cnn, ed, hsr, rpn, cvae, mlp_v2)
-stay in the table; ``models.build_model`` raises for them.
+table field for field over the port's own ``TransformConfig``;
+``python -m climsim_tpu_torch.run --preset NAME`` trains any of them.
 """
 
 from __future__ import annotations

@@ -14,6 +14,8 @@ Semantics mirrored (with citations):
   * qinput_prune / tinput prune    climsim_datapip.py:136-143
   * input_clip (rh / dyn / phy)    climsim_datapip.py:145-151
   * output_prune                   climsim_datapip.py:154-158
+  * the CNN's channelized views    data_utils.py:1692-1757
+  * the MLP v2 UTLS subset         hpo_baseline_v2.py:169-177
 """
 
 from __future__ import annotations
@@ -205,5 +207,80 @@ def make_target_transform(spec: VarSpec, stats: NormStats,
         y = y.to(device=device, dtype=torch.float32) * scale
         y = torch.where(torch.isfinite(y), y, torch.zeros_like(y))
         return y * mask_t
+
+    return transform
+
+
+# --- channelized (profile-as-channel) views for the CNN --------------------
+def channel_indices(spec: VarSpec, which: str = "inputs") -> np.ndarray:
+    """The channelized layout as (60, C) column indices into the flat
+    (B, D) features of ``which`` ("inputs" or "outputs"): channel c is the
+    c-th variable in registry order, a profile's level l at row l, a
+    scalar repeated on every row.  ``channelize_*`` is one gather by it."""
+    names = getattr(spec, which)
+    slices = spec.input_slices if which == "inputs" else spec.output_slices
+    cols = []
+    for v in names:
+        sl = slices[v]
+        cols.append(np.arange(sl.start, sl.stop) if sl.stop - sl.start
+                    == NUM_LEVELS else np.full(NUM_LEVELS, sl.start))
+    return np.stack(cols, axis=-1).astype(np.int64)
+
+
+def _channelize(x: torch.Tensor, spec: VarSpec, which: str) -> torch.Tensor:
+    idx = torch.as_tensor(channel_indices(spec, which), device=x.device)
+    return x[:, idx]
+
+
+def channelize_input(x: torch.Tensor, spec: VarSpec) -> torch.Tensor:
+    """(B, D_in) -> (B, 60, C) with scalars broadcast over levels
+    (data_utils.reshape_input_for_cnn, data_utils.py:1692-1712, for every
+    varspec: profile and scalar variables in registry order)."""
+    return _channelize(x, spec, "inputs")
+
+
+def channelize_target(y: torch.Tensor, spec: VarSpec) -> torch.Tensor:
+    """(B, D_out) -> (B, 60, C_out), scalars broadcast (the CNN's training
+    targets; data_utils.reshape_target_for_cnn :1714-1738)."""
+    return _channelize(y, spec, "outputs")
+
+
+def dechannelize_output(y_ch: torch.Tensor, spec: VarSpec) -> torch.Tensor:
+    """(B, 60, C_out) -> (B, D_out): profile channels flatten, a scalar
+    channel is its mean over the levels
+    (data_utils.reshape_target_from_cnn :1740-1757)."""
+    parts = []
+    for c, v in enumerate(spec.outputs):
+        sl = spec.output_slices[v]
+        parts.append(y_ch[:, :, c] if sl.stop - sl.start == NUM_LEVELS
+                     else y_ch[:, :, c].mean(dim=1, keepdim=True))
+    return torch.cat(parts, dim=1)
+
+
+# --- feature subsetting (the MLP v2 UTLS variant) ---------------------------
+def utls_feature_indices(spec: VarSpec, utls_vars=("pbuf_ozone", "pbuf_CH4",
+                                                   "pbuf_N2O"),
+                         lo: int = 5, hi: int = 21) -> np.ndarray:
+    """Indices keeping only UTLS levels [lo, hi) of the trace-gas profiles.
+
+    The MLP_v2 baseline truncates ozone/CH4/N2O to levels 5-21 where their
+    variance is non-negligible (hpo_baseline_v2.py:169-177); v2: 557 -> 425.
+    """
+    keep = []
+    for v in spec.inputs:
+        sl = spec.input_slices[v]
+        if v in utls_vars:
+            keep.extend(range(sl.start + lo, sl.start + hi))
+        else:
+            keep.extend(range(sl.start, sl.stop))
+    return np.asarray(keep, dtype=np.int64)
+
+
+def make_subset_transform(indices: np.ndarray, device="cuda"):
+    """x (B, D) -> x[:, indices], the index vector kept on ``device``."""
+    idx = torch.as_tensor(np.asarray(indices), device=device)
+
+    def transform(x: torch.Tensor) -> torch.Tensor:
+        return x[:, idx]
 
     return transform

@@ -34,19 +34,22 @@ def _head_split(spec: VarSpec) -> tuple[int, int]:
 
 
 class ClimSimMLP(nn.Module):
-    """Trunk, then ``prehead`` Dense + activation, then ``LinReluHead``."""
+    """Trunk, then ``prehead`` Dense + activation, then ``LinReluHead``.
+    ``in_features``: the trunk's input width where a feature subset (MLP
+    v2's UTLS levels) narrows the spec's."""
 
     def __init__(self, spec: VarSpec,
                  hidden: Sequence[int] = (768, 640, 512, 640, 640),
                  activation: str = "relu",
                  compute_dtype: torch.dtype = torch.bfloat16, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 in_features: int | None = None):
         super().__init__()
         self.spec = spec
         self.act = ACTIVATIONS[activation]
         lin, rel = _head_split(spec)
-        self.trunk = MLPTrunk(spec.input_len, hidden, activation,
-                              compute_dtype, device, generator)
+        self.trunk = MLPTrunk(in_features or spec.input_len, hidden,
+                              activation, compute_dtype, device, generator)
         self.prehead = Dense(hidden[-1], lin + rel, compute_dtype, device,
                              generator)
         self.head = LinReluHead(lin + rel, lin, rel, compute_dtype, device,

@@ -58,7 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import physics
 from ..varspec import NUM_LEVELS, VarSpec
-from .common import out_dtype
+from .common import dropout, out_dtype, step_generator
 
 N_LOC = 385       # rows of the column-location embedding (icol 0..384)
 LOC_DIM = 8
@@ -200,12 +200,9 @@ class Attention(nn.Module):
 
 
 def _dropout(h: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
-    """flax ``nn.Dropout(rate)`` in training: each element kept with
-    probability 1 - rate and scaled by 1 / (1 - rate), the mask drawn from
-    a generator on ``h``'s device seeded with ``seed``."""
-    gen = torch.Generator(device=h.device).manual_seed(seed)
-    keep = torch.rand(h.shape, generator=gen, device=h.device) < 1.0 - rate
-    return torch.where(keep, h / (1.0 - rate), torch.zeros_like(h))
+    """``common.dropout`` with its mask drawn from a generator on ``h``'s
+    device seeded with ``seed``."""
+    return dropout(h, rate, step_generator(seed, h.device))
 
 
 class UNetBlock(nn.Module):

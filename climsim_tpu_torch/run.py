@@ -1,0 +1,412 @@
+"""Experiment runner: config -> data -> trainer -> fit (the counterpart of
+``climsim_tpu.run``).
+
+CLI:  python -m climsim_tpu_torch.run --preset mlp_v1 [k.ey=value ...]
+      python -m climsim_tpu_torch.run --config exp.json
+      python -m climsim_tpu_torch.run --device cpu --preset cnn_v1 ...
+
+Every preset of ``config.PRESETS`` trains on one device (the card unless
+``--device`` says otherwise): the single-model ``fit`` path (HSR's loss
+staged at a third of the epochs, a warm restart from ``train.
+restart_path``), the RPN ensemble's loop over ``BootstrapLoader`` and the
+multi-seed loop (``train.seeds``).  Data-parallel runs
+(``train.num_data_shards`` > 1) and ``train.elastic`` belong to the
+distribution slice (ROADMAP.md, Queue 1 item 7) and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .config import PRESETS, ExperimentConfig
+from .data.pipeline import BatchLoader, BootstrapLoader, DeviceResidentLoader
+from .data.synthetic import synthetic_split
+from .grid import load_default_grid
+from .norms import compute_norms_from_data, identity_norms, load_asset_norms
+from .train import recipes
+from .train.checkpoints import (TimedCheckpointer, TopKCheckpointer,
+                                load_state)
+from .train.loop import EarlyStopping, History, PlateauController, fit
+from .train.multiseed import multiseed
+from .train.rpn_recipe import rpn_trainer
+from .varspec import get_varspec
+
+# splits up to this many bytes stay on the card for the whole run
+# (DeviceResidentLoader), about the JAX runner's share of one chip
+DEVICE_SPLIT_BYTES = 9e9
+
+
+def load_data(cfg: ExperimentConfig, grid):
+    spec = get_varspec(cfg.data.varspec)
+    if cfg.data.source == "synthetic":
+        x, y = synthetic_split(spec, cfg.data.num_synthetic, grid,
+                               cfg.data.seed)
+        if "icol" in spec.inputs:
+            x[:, spec.input_slices["icol"]] = (
+                np.arange(x.shape[0]) % grid.ncol + 1)[:, None]
+    else:
+        x = np.load(cfg.data.input_path, mmap_mode="r")
+        y = np.load(cfg.data.target_path, mmap_mode="r")
+    if cfg.data.norms == "asset":
+        stats = load_asset_norms(cfg.data.varspec)
+    elif cfg.data.norms == "compute":
+        stats = compute_norms_from_data(spec, np.asarray(x), np.asarray(y),
+                                        qn_transform=cfg.transform.qn_transform)
+    else:
+        stats = identity_norms(spec)
+    return spec, x, y, stats
+
+
+def build_trainer(cfg: ExperimentConfig, spec, stats, sample, rng, rules,
+                  steps_per_epoch, grid, verbose=True, device="cuda"):
+    common = dict(rules=rules, steps_per_epoch=steps_per_epoch,
+                  cfg=cfg.transform, device=device)
+    t = cfg.train
+    if verbose and cfg.model in ("mlp", "mlp_v2", "ed", "cnn") \
+            and t.lr != 1e-3:
+        # these recipes pin the papers' published LR schedules (cyclic
+        # triangular for the MLPs, Adam 1e-4 with /5-every-7-epochs for
+        # ED, the CNN's cyclic Adam): train.lr does not apply to them
+        print(f"note: {cfg.model!r} uses its published reference LR "
+              f"schedule; train.lr={t.lr:g} is ignored")
+    if cfg.model == "mlp":
+        return recipes.mlp_trainer(spec, stats, sample, rng,
+                                   **cfg.model_kw, **common)
+    if cfg.model == "mlp_v2":
+        return recipes.mlp_v2_trainer(spec, stats, sample, rng,
+                                      **cfg.model_kw, **common)
+    if cfg.model == "ed":
+        return recipes.ed_trainer(spec, stats, sample, rng, **common)
+    if cfg.model == "cnn":
+        return recipes.cnn_trainer(spec, stats, sample, rng,
+                                   loss_kind=t.loss, **cfg.model_kw,
+                                   **common)
+    if cfg.model == "hsr":
+        return recipes.hsr_trainer(spec, stats, sample, rng, lr=t.lr,
+                                   **cfg.model_kw, **common)
+    if cfg.model == "cvae":
+        return recipes.cvae_trainer(spec, stats, sample, rng, lr=t.lr,
+                                    **cfg.model_kw, **common)
+    if cfg.model == "mlp_online":
+        return recipes.online_mlp_trainer(
+            spec, stats, sample, rng, loss_kind=t.loss,
+            block_weights=t.block_weights or None,
+            energy_weight=t.energy_weight, grid=grid, lr=t.lr,
+            **cfg.model_kw, **common)
+    if cfg.model == "unet":
+        return recipes.unet_trainer(
+            spec, stats, sample, rng, model_kw=cfg.model_kw,
+            loss_kind=t.loss, block_weights=t.block_weights or None,
+            energy_weight=t.energy_weight, grid=grid, lr=t.lr,
+            schedule_name=t.schedule, total_epochs=t.epochs, **common)
+    if cfg.model == "unet_classifier":
+        return recipes.unet_classifier_trainer(
+            spec, stats, sample, rng, model_kw=cfg.model_kw, lr=t.lr,
+            **common)
+    raise ValueError(f"unknown model {cfg.model!r} "
+                     "(rpn uses climsim_tpu_torch.train.rpn_recipe directly)")
+
+
+def write_manifest(cfg: ExperimentConfig, directory: str,
+                   device="cuda") -> None:
+    """Reproducibility manifest next to the checkpoints: the full config,
+    library versions, the device, the git SHA where there is one."""
+    device = torch.device(device)
+    info = {
+        "config": json.loads(cfg.to_json()),
+        "time": time.strftime("%Y-%m-%d %H:%M:%S %Z"),
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "numpy": np.__version__,
+        "python": sys.version.split()[0],
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+    }
+    try:
+        info["git_sha"] = subprocess.run(
+            ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
+            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            timeout=5).stdout.strip() or None
+    except (OSError, subprocess.SubprocessError):
+        info["git_sha"] = None
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "run_manifest.json"), "w") as f:
+        json.dump(info, f, indent=2)
+
+
+def _host(values) -> np.ndarray:
+    """Device tensors -> one float64 host array (one wait for the card)."""
+    return torch.stack(values).double().cpu().numpy()
+
+
+def _rpn(cfg, spec, stats, x_tr, y_tr, x_val, y_val, steps, grid, verbose,
+         device):
+    """The RPN ensemble: a per-epoch ensemble-mean validation loss,
+    History, top-K checkpoints (params and prior) and early stopping, the
+    control flow every other model gets from fit()."""
+    tr = rpn_trainer(spec, stats, x_tr, cfg.seed, cfg=cfg.transform,
+                     device=device, **cfg.model_kw)
+    loader = BootstrapLoader(
+        np.asarray(x_tr), np.asarray(y_tr), cfg.data.batch_size,
+        cfg.model_kw.get("ensemble_size", 32), steps_per_epoch=steps,
+        seed=cfg.data.seed, device=device)
+    ckpt = (TopKCheckpointer(cfg.train.checkpoint_dir, cfg.train.top_k)
+            if cfg.train.checkpoint_dir else None)
+    early = (EarlyStopping(cfg.train.early_stop_patience)
+             if cfg.train.early_stop_patience else None)
+    history = History()
+    bs = cfg.data.batch_size
+    for epoch in range(cfg.train.epochs):
+        losses, n_seen = [], 0
+        t0 = time.perf_counter()
+        for xb, yb in loader:
+            losses.append(tr.train_step(xb, yb).mean())
+            # data rows a step (xb is (E, B, D); E * B would inflate the
+            # rate E times against every other path's accounting)
+            n_seen += xb.shape[1]
+        train_loss = float(np.mean(_host(losses)))
+        sps = n_seen / max(time.perf_counter() - t0, 1e-9)
+        val_loss = np.nan
+        if x_val.shape[0]:
+            vls = [tr.eval_losses(*(torch.as_tensor(np.asarray(a[s:s + bs]))
+                                    for a in (x_val, y_val))).mean()
+                   for s in range(0, x_val.shape[0], bs)]
+            val_loss = float(np.mean(_host(vls)))
+        history.log(epoch=epoch, train_loss=train_loss, val_loss=val_loss,
+                    samples_per_sec=sps)
+        if ckpt is not None and np.isfinite(val_loss):
+            tree = {"params": tr.ensemble.net, "prior": tr.ensemble.prior}
+            ckpt.maybe_save(val_loss, epoch, tree)
+            ckpt.save_last(epoch, tree)
+        if verbose:
+            print(f"epoch {epoch}: train {train_loss:.5f} "
+                  f"val {val_loss:.5f} ({sps:,.0f} samples/s)", flush=True)
+        if early is not None and np.isfinite(val_loss) and \
+                early.should_stop(val_loss):
+            break
+    return dict(trainer=tr, params=tr.ensemble.net, stats=stats, spec=spec,
+                history=history, grid=grid)
+
+
+def _multiseed(cfg, spec, stats, x_tr, y_tr, x_val, y_val, steps, grid,
+               verbose, device):
+    """K replicas, one a seed of ``train.seeds``, advanced by one step
+    call: fit()'s control flow with per-seed validation losses, HSR's
+    staged loss, the plateau on the mean validation loss (composed with
+    the per-seed ``lr_scales``), early stopping and the replicas'
+    checkpoints.  One seed in the list still takes this path."""
+    sample = (np.asarray(x_tr[:4]), np.asarray(y_tr[:4]))
+    base_scales = np.asarray(
+        list(cfg.train.lr_scales) or [1.0] * len(cfg.train.seeds),
+        np.float32)
+    ms = multiseed(
+        lambda sp, st, sa, r: build_trainer(cfg, sp, st, sa, r, None, steps,
+                                            grid, verbose, device),
+        spec, stats, sample, list(cfg.train.seeds),
+        lr_scales=base_scales.tolist())
+    loader = BatchLoader(x_tr, y_tr, cfg.data.batch_size,
+                         seed=cfg.data.seed, device=device)
+    ckpt = (TopKCheckpointer(cfg.train.checkpoint_dir, cfg.train.top_k)
+            if cfg.train.checkpoint_dir else None)
+    plateau = (PlateauController(cfg.train.plateau_patience)
+               if cfg.train.plateau_patience else None)
+    early = (EarlyStopping(cfg.train.early_stop_patience)
+             if cfg.train.early_stop_patience else None)
+    stage1 = (cfg.train.epochs // 3
+              if cfg.model == "hsr" and cfg.train.epochs >= 3 else None)
+    history = History()
+    state = ms.state
+    bs = cfg.data.batch_size
+    for epoch in range(cfg.train.epochs):
+        step_fn = (ms.stage2_step if stage1 is not None and epoch >= stage1
+                   else ms.train_step)
+        tls = []
+        for xb, yb in loader:
+            state, m = step_fn(state, xb, yb)
+            tls.append(m["loss"])
+        if not tls:
+            raise ValueError(
+                f"no training batches: fewer train rows ({x_tr.shape[0]}) "
+                f"than batch_size ({bs})")
+        train_losses = _host(tls).mean(axis=0)
+        val_losses = np.full(ms.num_seeds, np.nan)
+        if x_val.shape[0]:
+            vls = [ms.eval_step(state.params,
+                                *(torch.as_tensor(np.asarray(a[s:s + bs]))
+                                  for a in (x_val, y_val)))["loss"]
+                   for s in range(0, x_val.shape[0] - bs + 1, bs)]
+            if vls:
+                val_losses = _host(vls).mean(axis=0)
+        mean_val = float(np.nanmean(val_losses))
+        if plateau is not None and np.isfinite(mean_val):
+            state.set_lr_scale(base_scales * plateau.update(mean_val))
+        history.log(epoch=epoch, train_loss=float(train_losses.mean()),
+                    val_loss=mean_val)
+        if ckpt is not None and np.all(np.isfinite(val_losses)):
+            ckpt.maybe_save(float(val_losses.mean()), epoch, state.params)
+            ckpt.save_last(epoch, state.params)
+        if verbose:
+            per = ", ".join(f"{s}:{v:.5f}" for s, v in
+                            zip(cfg.train.seeds, val_losses))
+            print(f"epoch {epoch}: train {train_losses.mean():.5f} "
+                  f"val per-seed [{per}]", flush=True)
+        if early is not None and np.isfinite(mean_val) and \
+                early.should_stop(mean_val):
+            break
+    return dict(trainer=ms, state=state, history=history, stats=stats,
+                spec=spec, grid=grid)
+
+
+def _restart(tr, path: str, verbose: bool) -> None:
+    """A weights-only warm restart (the reference's restart_path,
+    train_unet_h5loader.py:177-189), the optimizer state fresh: the
+    loaded weights are copied into the live parameters, on their device."""
+    if os.path.isdir(path):
+        last = os.path.join(path, "last.pt")
+        if os.path.exists(last):
+            load_state(last, tr.model)
+        elif TopKCheckpointer(path).load_best(tr.model) is None:
+            raise ValueError(f"no checkpoints in {path}")
+    else:
+        load_state(path, tr.model)
+    if verbose:
+        print(f"warm restart: loaded weights from {path}")
+
+
+def run_experiment(cfg: ExperimentConfig, verbose: bool = True,
+                   device="cuda"):
+    # a copy first: this function clamps the batch size, and callers
+    # commonly pass shared PRESETS entries
+    cfg = cfg.override()
+    if cfg.train.restart_path and (cfg.model == "rpn" or cfg.train.seeds):
+        raise ValueError(
+            "train.restart_path is only supported on the single-model "
+            "fit() path; the rpn and multi-seed branches would silently "
+            "train from scratch")
+    if cfg.train.elastic or cfg.train.num_data_shards > 1:
+        raise NotImplementedError(
+            "train.elastic and train.num_data_shards > 1 run across devices:"
+            " the distribution slice (ROADMAP.md, Queue 1 item 7) is not "
+            "ported yet")
+    grid = load_default_grid()
+    spec, x, y, stats = load_data(cfg, grid)
+    if cfg.train.checkpoint_dir:
+        write_manifest(cfg, cfg.train.checkpoint_dir, device)
+
+    n = x.shape[0]
+    if cfg.data.val_fraction > 0:
+        # hold out at least one full eval batch when the data allows it,
+        # but never more than half the rows
+        n_val = min(max(int(n * cfg.data.val_fraction), 1,
+                        cfg.data.batch_size), n // 2)
+    else:
+        n_val = 0
+    if cfg.data.batch_size > n - n_val:
+        clamped = max(n - n_val, 1)
+        if verbose:
+            print(f"batch_size {cfg.data.batch_size} exceeds the "
+                  f"{n - n_val}-row train split; clamping to {clamped}")
+        cfg.data.batch_size = clamped
+    x_tr, y_tr = x[: n - n_val], y[: n - n_val]
+    x_val, y_val = x[n - n_val:], y[n - n_val:]
+    steps = max(x_tr.shape[0] // cfg.data.batch_size, 1)
+    args = (cfg, spec, stats, x_tr, y_tr, x_val, y_val, steps, grid,
+            verbose, device)
+    if cfg.model == "rpn":
+        return _rpn(*args)
+    if cfg.train.seeds:
+        return _multiseed(*args)
+
+    tr = build_trainer(cfg, spec, stats, (np.asarray(x_tr[:4]),
+                                          np.asarray(y_tr[:4])), cfg.seed,
+                       None, steps, grid, verbose, device)
+    if cfg.train.restart_path:
+        _restart(tr, cfg.train.restart_path, verbose)
+
+    # the split stays on the card when it fits; else the host streams it
+    use_device = cfg.data.loader == "device" or (
+        cfg.data.loader == "auto" and torch.device(device).type == "cuda"
+        and (x_tr.nbytes + y_tr.nbytes) < DEVICE_SPLIT_BYTES)
+    if use_device:
+        train_loader = DeviceResidentLoader(
+            np.asarray(x_tr), np.asarray(y_tr), cfg.data.batch_size,
+            seed=cfg.data.seed, block_shuffle=cfg.data.block_shuffle or None,
+            device=device)
+        val_loader = (DeviceResidentLoader(
+            np.asarray(x_val), np.asarray(y_val), cfg.data.batch_size,
+            shuffle=False, device=device) if n_val else None)
+    else:
+        train_loader = BatchLoader(x_tr, y_tr, cfg.data.batch_size,
+                                   seed=cfg.data.seed, device=device)
+        val_loader = (BatchLoader(x_val, y_val, cfg.data.batch_size,
+                                  shuffle=False, device=device)
+                      if n_val else None)
+    ckpt = (TopKCheckpointer(cfg.train.checkpoint_dir, cfg.train.top_k)
+            if cfg.train.checkpoint_dir else None)
+    timed = None
+    if cfg.train.timed_interval > 0:
+        if not cfg.train.checkpoint_dir:
+            raise ValueError(
+                "train.timed_interval needs train.checkpoint_dir -- "
+                "periodic saves have nowhere to go")
+        timed = TimedCheckpointer(
+            os.path.join(cfg.train.checkpoint_dir, "timed.pt"),
+            cfg.train.timed_interval)
+    plateau = (PlateauController(cfg.train.plateau_patience)
+               if cfg.train.plateau_patience else None)
+    early = (EarlyStopping(cfg.train.early_stop_patience)
+             if cfg.train.early_stop_patience else None)
+    kw = dict(ckpt=ckpt, plateau=plateau, early=early, verbose=verbose,
+              timed_ckpt=timed)
+    if cfg.model == "hsr" and cfg.train.epochs >= 3:
+        # the staged loss: MSE for the first third, NLL after
+        # (hsr.py:128-134)
+        stage1 = cfg.train.epochs // 3
+        state, history = fit(tr.train_step, tr.eval_step, tr.state,
+                             train_loader, val_loader, stage1, **kw)
+        state, history2 = fit(tr.stage2_step, tr.eval_step, state,
+                              train_loader, val_loader,
+                              cfg.train.epochs - stage1, **kw)
+        history.rows.extend(history2.rows)
+    else:
+        state, history = fit(tr.train_step, tr.eval_step, tr.state,
+                             train_loader, val_loader, cfg.train.epochs,
+                             **kw)
+    return dict(trainer=tr, state=state, history=history, stats=stats,
+                spec=spec, grid=grid)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--preset", choices=sorted(PRESETS))
+    ap.add_argument("--config", help="path to ExperimentConfig json")
+    ap.add_argument("overrides", nargs="*", help="dotted key=value")
+    ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the card) or cpu")
+    args = ap.parse_args(argv)
+    if args.config:
+        with open(args.config) as f:
+            d = json.load(f)
+        # a bare ExperimentConfig json, or the run_manifest.json written
+        # beside every checkpointed run
+        cfg = ExperimentConfig.from_dict(d.get("config", d))
+    elif args.preset:
+        cfg = PRESETS[args.preset]
+    else:
+        ap.error("need --preset or --config")
+    if args.overrides:
+        cfg = cfg.override(*args.overrides)
+    return run_experiment(cfg, verbose=not args.quiet, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

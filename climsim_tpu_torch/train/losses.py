@@ -1,10 +1,10 @@
 """Training losses (the counterpart of ``climsim_tpu.train.losses``).
 
-Ported so far: mse/mae/huber with optional per-variable block weights
-(train_unet_h5loader.py:237-268), ``block_weight_vector``, and the column
-energy and water penalties of the U-Net trainers (``energy_loss``,
-``water_loss``).  The CNN's channel-adjusted loss and the HSR and cVAE
-losses come with their models.
+All of them: mse/mae/huber with optional per-variable block weights
+(train_unet_h5loader.py:237-268), ``block_weight_vector``, the CNN's
+channel-adjusted loss (hpo_train.py:114-122), the column energy and water
+penalties of the U-Net trainers (``energy_loss``, ``water_loss``), the
+staged HSR loss (hsr.py:128-134) and the cVAE's ELBO (cvae.py:187-199).
 """
 
 from __future__ import annotations
@@ -52,6 +52,36 @@ def huber(pred, target, weight=None, delta: float = 1.0):
 
 
 LOSS_FNS = {"mse": mse, "mae": mae, "huber": huber}
+
+
+def channel_adjusted(pred_ch, target_ch, spec: VarSpec, kind: str = "mae"):
+    """The CNN's loss on the (B, 60, C) view: the profile channels' mean
+    error weighted by their share of the flat output, the scalar channels'
+    by theirs (hpo_train.py:114-122)."""
+    n_prof = len(spec.output_profile_vars)
+    d = spec.output_len
+    err = (torch.abs(pred_ch - target_ch) if kind == "mae"
+           else (pred_ch - target_ch) ** 2)
+    w_prof = n_prof * 60 / d
+    w_scal = (d - n_prof * 60) / d
+    return (torch.mean(err[:, :, :n_prof]) * w_prof
+            + torch.mean(err[:, :, n_prof:]) * w_scal)
+
+
+def hsr_loss(mean, logprec, target, mse_stage: bool):
+    """Stage 1 (the first third of training): MSE on the mean.  Stage 2:
+    the Gaussian NLL prec * (y - mu)^2 - log(prec) (hsr.py:128-134)."""
+    if mse_stage:
+        return torch.mean((target - mean) ** 2)
+    return torch.mean(torch.exp(logprec) * (target - mean) ** 2 - logprec)
+
+
+def cvae_loss(y_mean, y_std, kl, target, beta: float = 0.01):
+    """The reference's ELBO (cvae.py:193), which divides the squared error
+    by std, not std^2: kept as it is."""
+    recon = torch.mean(0.5 * (target - y_mean) ** 2 / y_std
+                       + torch.log(y_std))
+    return recon + beta * kl
 
 
 def energy_loss(pred, target, ps, hyai, hybi, out_scale, spec: VarSpec):

@@ -91,6 +91,13 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, rules=None):
         seed = int(torch.randint(2**62, (), generator=state.rng))
         loss, aux = loss_fn(model, seed, xb, yb)
         loss.backward()
+        # optax updates every parameter, with a zero gradient where the
+        # loss does not reach it (HSR's log-precision net in its MSE
+        # stage): its moments decay and its count advances.  torch's
+        # optimizers skip a parameter whose grad is None, so give it zeros
+        for p in model.parameters():
+            if p.grad is None and p.requires_grad:
+                p.grad = torch.zeros_like(p)
         if optimizer.clip is not None:
             _clip_by_global_norm(
                 [p.grad for p in model.parameters() if p.grad is not None],

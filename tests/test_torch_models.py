@@ -118,5 +118,11 @@ def test_build_model_and_init():
     assert torch.equal(again.trunk.layers[0].weight, w)
     assert out_dtype(torch.bfloat16) == torch.float32
     assert out_dtype(torch.float64) == torch.float64
+    # the CNN, once refused, is ported (tests/test_torch_zoo.py holds it
+    # to flax); a name the registry lacks still raises
+    from climsim_tpu_torch.models import ClimSimCNN
+
+    assert isinstance(build_model("cnn", SPEC, depth=1, channels=8),
+                      ClimSimCNN)
     with pytest.raises(KeyError):
-        build_model("cnn", SPEC)
+        build_model("gan", SPEC)

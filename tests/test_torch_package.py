@@ -2,6 +2,7 @@
 and builds nothing without a CUDA toolkit, and a kernel entry given a CPU
 tensor takes the plain version and launches nothing."""
 
+import functools
 import inspect
 import os
 import subprocess
@@ -46,6 +47,11 @@ SLICE_MODULES = (
     "climsim_tpu_torch.data.kaggle", "climsim_tpu_torch.data.ingest",
     "climsim_tpu_torch.data.native", "climsim_tpu_torch.bench_chunked",
     "climsim_tpu_torch.bench_server", "climsim_tpu_torch.quickstart",
+    "climsim_tpu_torch.models.ed", "climsim_tpu_torch.models.hsr",
+    "climsim_tpu_torch.models.cvae", "climsim_tpu_torch.models.cnn",
+    "climsim_tpu_torch.models.rpn", "climsim_tpu_torch.train.multiseed",
+    "climsim_tpu_torch.train.rpn_recipe", "climsim_tpu_torch.run",
+    "climsim_tpu_torch.bench_cnn", "climsim_tpu_torch.utils.flax_migrate",
 )
 
 # the port's byte-for-byte copies of the JAX package's numpy-only modules
@@ -59,6 +65,7 @@ BYTE_COPIES = (
     ("climsim_tpu_torch/data/kaggle.py", "climsim_tpu/data/kaggle.py"),
     ("climsim_tpu_torch/data/ingest.py", "climsim_tpu/data/ingest.py"),
     ("climsim_tpu_torch/data/csrc/climload.cpp", "runtime/climload.cpp"),
+    ("climsim_tpu_torch/utils/flax_migrate.py", "climsim_tpu/utils/migrate.py"),
 )
 
 
@@ -157,6 +164,29 @@ def test_copies_equal_the_jax_package():
         np.testing.assert_array_equal(a, b)
     assert pg.replace(p0=1.0).p0 == 1.0 and pg.p0 == jg.p0
 
+    # the zoo's helpers: seed_spread, and the channelized and UTLS index
+    # layouts (the JAX functions applied to a row of column numbers)
+    from climsim_tpu.data import transforms as JT
+    from climsim_tpu.train import multiseed as JMS
+    from climsim_tpu_torch.data import transforms as PT
+    from climsim_tpu_torch.train import multiseed as PMS
+
+    preds = np.random.default_rng(3).standard_normal((3, 5, 7))
+    for k, v in JMS.seed_spread(preds).items():
+        np.testing.assert_array_equal(PMS.seed_spread(preds)[k], v)
+    for name in JV.available():
+        j = JV.get_varspec(name)
+        p = PV.get_varspec(name)
+        for which, fn in (("inputs", JT.channelize_input),
+                          ("outputs", JT.channelize_target)):
+            n = j.input_len if which == "inputs" else j.output_len
+            cols = np.asarray(fn(np.arange(n, dtype=np.float64)[None], j))[0]
+            np.testing.assert_array_equal(PT.channel_indices(p, which),
+                                          cols)
+        if "pbuf_ozone" in j.inputs:
+            np.testing.assert_array_equal(PT.utls_feature_indices(p),
+                                          JT.utls_feature_indices(j))
+
     import test_torch_eval as TE
 
     first = {}
@@ -190,6 +220,9 @@ def _entry_points():
     from climsim_tpu_torch.online_coupling import run_coupling
     from climsim_tpu_torch.package_e3sm import build_bundle
     from climsim_tpu_torch.varspec import get_varspec
+    from climsim_tpu_torch import run as PRUN
+    from climsim_tpu_torch.config import PRESETS
+    from climsim_tpu_torch.train import rpn_recipe as PRR
 
     spec, stats = get_varspec("v2_rh"), load_asset_norms("v2_rh")
     grid = load_default_grid()
@@ -243,6 +276,23 @@ def _entry_points():
         "BootstrapLoader": lambda: PP.BootstrapLoader(x, x, 4, 2),
         "NativeLoader": lambda: PN.NativeLoader(os.devnull, os.devnull, 8),
         "make_loader": lambda: PN.make_loader(os.devnull, os.devnull, 8),
+        **{f"{m}_trainer": functools.partial(
+            getattr(PR, f"{m}_trainer"), get_varspec("v1"),
+            load_asset_norms("v1"), None, 0, **kw)
+           for m, kw in (("mlp_v2", {}), ("ed", {}),
+                         ("cnn", dict(depth=1, channels=8)),
+                         ("hsr", dict(hidden=8, layers=1)),
+                         ("cvae", dict(hidden=8, layers=1)))},
+        "rpn_trainer": lambda: PRR.rpn_trainer(
+            get_varspec("v1"), load_asset_norms("v1"), None, 0,
+            ensemble_size=2, hidden=(8,)),
+        "make_subset_transform": lambda: PT.make_subset_transform(
+            np.arange(3)),
+        "run_experiment": lambda: PRUN.run_experiment(
+            PRESETS["mlp_v1"].override('model_kw={"hidden": [8]}',
+                                       "data.num_synthetic=64",
+                                       "data.batch_size=16",
+                                       "train.epochs=1"), verbose=False),
     }
 
 
@@ -256,7 +306,9 @@ ENTRY_POINTS = ("mlp_trainer", "online_mlp_trainer", "unet_trainer",
                 "make_two_stage_apply", "export_aot", "build_bundle",
                 "initial_state", "newtonian_relaxation", "run_coupling",
                 "BatchLoader", "ChunkedLoader", "BootstrapLoader",
-                "NativeLoader", "make_loader")
+                "NativeLoader", "make_loader", "mlp_v2_trainer",
+                "ed_trainer", "cnn_trainer", "hsr_trainer", "cvae_trainer",
+                "rpn_trainer", "make_subset_transform", "run_experiment")
 
 
 def _default_device(name):
@@ -273,8 +325,10 @@ def _default_device(name):
 
     from climsim_tpu_torch.data import native as PN
     from climsim_tpu_torch.data import pipeline as PDP
+    from climsim_tpu_torch import run as PRUN
+    from climsim_tpu_torch.train import rpn_recipe as PRR
 
-    for mod in (PR, PT, PW, PL, PK, PP, PS, PD, PC, PDP, PN):
+    for mod in (PR, PT, PW, PL, PK, PP, PS, PD, PC, PDP, PN, PRR, PRUN):
         if hasattr(mod, name):
             fn = getattr(mod, name)
             break

@@ -132,10 +132,34 @@ def test_porter_rejects_other_trees():
 
 
 def test_trunk_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        MLPTrunk(8, (4,), layernorm=True)
-    with pytest.raises(NotImplementedError):
-        MLPTrunk(8, (4,), dropout=0.1)
+    """LayerNorm and dropout, once refused, are ported: the trunk with
+    both equals flax's MLPTrunk deterministically (float32, rtol 1e-5 /
+    atol 1e-6), and given a generator it drops as flax's nn.Dropout does:
+    relu of the LayerNorm's output, kept with probability 1 - p and
+    scaled by 1 / (1 - p)."""
+    from climsim_tpu.models.common import MLPTrunk as FlaxTrunk
+    from climsim_tpu_torch.models.common import step_generator
+    from climsim_tpu_torch.utils.migrate import _trunk
+
+    x = np.random.default_rng(2).standard_normal((16, 8)).astype(np.float32)
+    fl = FlaxTrunk((4,), "relu", layernorm=True, dropout=0.1,
+                   compute_dtype=jnp.float32)
+    tree = jax.tree.map(np.asarray, fl.init(jax.random.PRNGKey(0),
+                                            jnp.asarray(x))["params"])
+    tree["LayerNorm_0"]["scale"] = tree["LayerNorm_0"]["scale"] + 0.3
+    tree["LayerNorm_0"]["bias"] = tree["LayerNorm_0"]["bias"] - 0.2
+    want = np.asarray(fl.apply({"params": tree}, jnp.asarray(x)))
+    m = MLPTrunk(8, (4,), layernorm=True, dropout=0.1,
+                 compute_dtype=torch.float32)
+    m.load_state_dict(_trunk(tree, ""))
+    with torch.no_grad():
+        got = m(torch.from_numpy(x))
+        dropped = m(torch.from_numpy(x), step_generator(5, "cpu"))
+        ln = m.norms[0](m.layers[0](torch.from_numpy(x)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    keep = torch.rand(ln.shape, generator=step_generator(5, "cpu")) < 0.9
+    torch.testing.assert_close(dropped, torch.relu(torch.where(
+        keep, ln / 0.9, torch.zeros_like(ln))), rtol=0, atol=0)
 
 
 @pytest.fixture(scope="module")
@@ -250,9 +274,24 @@ def test_clipped_adam_step_matches_optax():
 
 
 def test_recipes_refuse_what_is_not_ported(data):
+    import optax
+
     x, y, stats = data
-    with pytest.raises(NotImplementedError):
-        PR._optimizer(PS.constant(1e-3), "radam")
+    # radam, once refused, is optax.radam (its rectified steps in
+    # test_torch_zoo_train.py::test_radam_matches_optax): one update
+    opt = PR._optimizer(PS.constant(1e-3), "radam")
+    p = torch.nn.Parameter(torch.ones(3))
+    o = opt.init([p])
+    p.grad = torch.tensor([0.5, -1.0, 2.0])
+    o.param_groups[0]["lr"] = float(opt.schedule(0))
+    o.step()
+    u, _ = optax.radam(1e-3).update(jnp.asarray([0.5, -1.0, 2.0]),
+                                    optax.radam(1e-3).init(jnp.ones(3)))
+    np.testing.assert_allclose(p.detach().numpy(),
+                               np.asarray(optax.apply_updates(jnp.ones(3), u)),
+                               rtol=1e-5, atol=1e-7)
+    with pytest.raises(KeyError):
+        PR._optimizer(PS.constant(1e-3), "lion")
     with pytest.raises(NotImplementedError):
         PR.mlp_trainer(SPEC, stats, (x, y), 0, hidden=(8,), rules=object(),
                        device="cpu")

@@ -219,5 +219,11 @@ def test_build_model_unet_and_classifier():
     w = u.enc64_block0.conv0.weight
     assert w.abs().max() <= np.sqrt(6 / (3 * (32 + 32)))
     assert u.enc64_block0.conv1.weight.abs().max() < 1e-5
+    # the CNN, once refused, is ported (tests/test_torch_zoo.py holds it
+    # to flax); a name the registry lacks still raises
+    from climsim_tpu_torch.models import ClimSimCNN
+
+    assert isinstance(build_model("cnn", SPEC, depth=1, channels=8),
+                      ClimSimCNN)
     with pytest.raises(KeyError):
-        build_model("cnn", SPEC)
+        build_model("gan", SPEC)
