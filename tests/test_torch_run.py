@@ -226,3 +226,33 @@ def test_bench_cnn_arms_and_its_refusal(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert bench_cnn.main([]) != 0
     assert "arms" not in capsys.readouterr().out
+
+
+def test_bench_cnn_trace_parts_and_its_refusal(capsys, monkeypatch):
+    """--trace files each aten op of a cnn_v1 step under one part (the k = 3
+    convolutions forward and backward, the 1x1 convolutions' products, the
+    casts and copies, dropout, Adam) and, without a card, refuses and
+    prints no result."""
+    from climsim_tpu_torch import bench_cnn
+
+    want = {"aten::cudnn_convolution": "k = 3 convolutions",
+            "aten::convolution_backward": "k = 3 convolutions",
+            "aten::mm": "1x1 convolutions (products)",
+            "aten::copy_": "casts and copies",
+            "aten::_to_copy": "casts and copies",
+            "aten::uniform_": "dropout",
+            "aten::where": "dropout",
+            "aten::_foreach_mul_": "Adam",
+            "aten::elu": "the rest"}
+    assert {op: bench_cnn._part(op) for op in want} == want
+    report = bench_cnn.trace_report({
+        "step_ms": 3.0, "kernels_ms": 3.5,
+        "by_part": {"k = 3 convolutions": 2.0, "the rest": 1.0},
+        "by_op": {"aten::convolution_backward": 2.0},
+        "by_kernel": {"sm90_xmma": 2.0},
+        "conv3": {"float32, transposed view (the model's)":
+                  {"ms": 1.0, "tflop_s": 2.5}}})
+    assert "66.7%" in report and "2.50 TFLOP/s" in report
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert bench_cnn.main(["--trace"]) != 0
+    assert "trace" not in capsys.readouterr().out
