@@ -3,7 +3,8 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 (--zoo-first-seeds 0,1,2,3 builds the kernels, then only reads the
-zoo's first-loss gaps of phase 12 at those seeds, and exits.)
+zoo's first-loss gaps of phase 12 at those seeds, and exits;
+--data-parallel-only builds them and runs phase 13 alone.)
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from climsim_tpu_torch/ops/csrc (nvcc, sm_90a)
@@ -254,16 +255,51 @@ zoo's first-loss gaps of phase 12 at those seeds, and exits.)
    preset's ms a step and samples/s (fit's median epoch), its peak
    memory and seconds; then bench_cnn's table (406 channels against
    384 and 512, dropout off, float32 convolutions; CUDA events).
-13. With --profile, prints the fused MLPs' plans and traces the served
+13. Data-parallel training, the HPO sweep and the profiling helpers
+   (parallel.mesh, train.step's rules, train.step_shardmap,
+   DistributedCheckpointer, run_hpo_sweep, utils.profiling):
+   a. a 1-rank NCCL group: mlp_v1 at its published widths and batch
+      (3072) for DP_STEPS steps through the DDP step and the explicit
+      all-reduce step, and unet_v5 (fused_gn_conv, B = 1024, cuDNN off)
+      for DP_UNET_STEPS through the DDP step, each bit-equal to the step
+      without rules (losses, every parameter); kernel 1 once a step,
+      kernel 5 82 times a U-Net step.
+   b. DP_RANKS processes sharing the card over gloo (NCCL refuses two
+      ranks on one GPU), each python -m climsim_tpu_torch.run's
+      run_experiment for mlp_v1 (published widths, float32 compute,
+      DP_STEPS steps, one validation batch) at train.num_data_shards =
+      DP_RANKS: the ranks' losses and weights equal; every step's loss,
+      the validation loss and the weights bit-equal to 1 process taking
+      each step as DP_RANKS micro-batches (the ranks' sums, in their
+      order); the first step's loss within DP_RTOL of the plain
+      1-process run's (the later steps' gaps printed: DP_RTOL says why
+      they grow); the checkpoint the ranks wrote (DistributedCheckpointer)
+      restored here at world size 1, bit-equal to rank 0's live state;
+      kernel 1 once a step and validation batch on each rank; ms a step
+      at 1 process and at DP_RANKS ranks (two ranks on one card: not a
+      scaling figure).
+   c. run_hpo_sweep on the card: HPO_TRIALS trials, HPO_WORKERS worker
+      processes, the victim SIGKILLed holding a claim, a stale timeout of
+      HPO_STALE_S s: every trial has a result, a claim_N.retryK takeover
+      completed, Hyperband and retrain_best finite, each trial's kernel 1
+      launches (steps + 1) summed into the tally; its seconds.
+   d. cost_analysis of the mlp_v1 step (StepInfo, on a copy of the
+      state) within FLOP_TOL of 6 B sum(in out) - 2 B in_0 out_0; the
+      unet_v5 forward (B = 384) through kernel 5's registered formula,
+      its share equal to the 82 chains' 2 B L C Cout 3, the total within
+      FLOP_TOL of the plain model's count, printed beside the count
+      without the formula; trace writes a file; time_fn's median.
+14. With --profile, prints the fused MLPs' plans and traces the served
    paths (MLP bf16 and int8, U-Net v5, two-stage v5, v4) with
    torch.profiler (device time per kernel and copy, the card's busy
    share, kernel 5's share of it, the costliest host ops).
-14. Prints one JSON line of the kernels' results (each with its bound:
+15. Prints one JSON line of the kernels' results (each with its bound:
    the larger of its bytes over the memory rate and its operations over
    the peak, at the timed shape; the launches include 6d's rollouts,
-   6f's updates and entry, and 12's zoo) and the paths' results (6d's
-   under "rollouts", 6f's under "finetune" and "online_eval", 12's under
-   "zoo"), then, last,
+   6f's updates and entry, 12's zoo and 13's runs, the ranks' and the
+   HPO workers' among them) and the paths' results (6d's under
+   "rollouts", 6f's under "finetune" and "online_eval", 12's under
+   "zoo", 13's under "data_parallel"), then, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each phase prints its seconds (kept in the result line as
@@ -4242,6 +4278,552 @@ def zoo_phase(torch, K, card, seed, device="cuda"):
     return results, total
 
 
+# --------------------------------------------------------------------------
+# phase 13: data-parallel training, the HPO sweep, the profiling helpers
+# --------------------------------------------------------------------------
+DP_STEPS = 4              # steps of each data-parallel run
+DP_UNET_STEPS = 2
+DP_RANKS = 2              # ranks sharing the one card over gloo in 13b
+# 2 ranks against 1 process on the same global batches, relative: the
+# same sums in another order (tests/test_multihost.py:168), held on the
+# first step's loss, before any update.  After it the two differ in the
+# order of their gradient sums (two half-batch sums added, against one
+# sum), and Adam's first updates move every weight by about the learning
+# rate in the sign of its gradient, so a near-zero gradient whose sign
+# the order flips moves a weight the other way: on an H100 (PR 14, call
+# 1) the 4-step epoch's losses of 2 ranks were 1.1e-4 from 1 process.
+# So the whole run is held, bit for bit, to 1 process taking each step as
+# 2 micro-batches whose gradients and losses it averages: the sums the
+# ranks make, in their order.  Both run the mlp recipe at float32
+# compute: at bf16 a product's roundings flip between a batch and its
+# halves before any update.
+DP_RTOL = 1e-6
+# the sweep of 13c: about a dozen trials, three workers on the one card.
+# A trial of 100 steps takes about a second there (PR 14, call 2: 200
+# steps, 12 trials on 2 survivors in 42.7 s with a 20 s stale timeout),
+# so 10 s is a wide margin against taking over a live claim.
+HPO_TRIALS, HPO_WORKERS, HPO_STEPS = 12, 3, 100
+HPO_STALE_S, HPO_KILL_AFTER_S = 10.0, 3.0
+FLOP_TOL = 0.01           # the profiler's count against the analytic one
+
+
+def dp_config(seed):
+    """mlp_v1 at its published widths and batch, DP_STEPS training
+    batches and one validation batch, one epoch."""
+    from climsim_tpu_torch.config import PRESETS
+
+    base = PRESETS["mlp_v1"]
+    return base.override(
+        f"data.num_synthetic={(DP_STEPS + 1) * base.data.batch_size}",
+        "train.epochs=1", f"seed={seed}")
+
+
+def recording_mlp(torch, parts=1):
+    """The mlp recipe patched for 13b: float32 compute (DP_RTOL says why)
+    and each step's loss kept in ``record``; with ``parts`` > 1 a step
+    and an evaluation run as that many micro-batches whose gradients and
+    losses are averaged (divided by ``parts``, a power of 2: exact), the
+    sums ``parts`` ranks make.  Returns (undo, record)."""
+    from climsim_tpu_torch.train import recipes
+    from climsim_tpu_torch.train.step import (_apply_update,
+                                              _fill_missing_grads,
+                                              _step_seed)
+
+    real = recipes.mlp_trainer
+    record = []
+
+    def trainer(*a, **kw):
+        tr = real(*a, **dict(kw, compute_dtype=torch.float32))
+        step = tr.train_step
+        evaluate = base_eval = tr.eval_step
+        if parts > 1:
+            def step(state, xb, yb):
+                model = state.params
+                state.opt_state.zero_grad(set_to_none=True)
+                seed = _step_seed(state, None)
+                losses = []
+                for xh, yh in zip(xb.chunk(parts), yb.chunk(parts)):
+                    loss, _ = tr.loss_fn(model, seed, xh, yh)
+                    loss.backward()
+                    losses.append(loss.detach())
+                _fill_missing_grads(model)
+                for prm in model.parameters():
+                    prm.grad.div_(parts)
+                _apply_update(tr.optimizer, state)
+                return state, {"loss": torch.stack(losses).sum() / parts}
+
+            def evaluate(model, xb, yb):
+                ls = [base_eval(model, xh, yh)["loss"]
+                      for xh, yh in zip(xb.chunk(parts), yb.chunk(parts))]
+                return {"loss": torch.stack(ls).sum() / parts}
+
+        def recorded(state, xb, yb):
+            state, m = step(state, xb, yb)
+            record.append(m["loss"])
+            return state, m
+
+        tr.train_step, tr.eval_step = recorded, evaluate
+        return tr
+
+    recipes.mlp_trainer = trainer
+    return (lambda: setattr(recipes, "mlp_trainer", real)), record
+
+
+def same_params(torch, label, got, want):
+    for k, v in want.items():
+        require(torch.equal(got[k].cpu(), v.cpu()),
+                f"{label}: {k} differs (max |d| "
+                f"{float((got[k].cpu() - v.cpu()).abs().max()):.3e})")
+
+
+def dp_steps(torch, K, tr, step, xs, ys):
+    """The losses of ``step`` over the batches, its launches, and ms a
+    step after the first (which sets up DDP and warms the libraries)."""
+    t1 = []
+
+    def run():
+        state, losses = tr.state, []
+        for i, (xb, yb) in enumerate(zip(xs, ys)):
+            if i == 1:
+                torch.cuda.synchronize()
+                t1.append(time.perf_counter())
+            state, m = step(state, xb, yb)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        t1.append(time.perf_counter())
+        return [float(v) for v in losses]
+
+    losses, launches, _ = counted(torch, K, run)
+    return losses, launches, (t1[1] - t1[0]) * 1e3 / (len(xs) - 1)
+
+
+def dp_one_rank(torch, K, card, seed, tmp):
+    """13a: a 1-rank NCCL group.  mlp_v1 (published widths, B = 3072,
+    DP_STEPS steps) through the DDP step and the explicit all-reduce step,
+    and unet_v5 (fused_gn_conv, B = 1024, DP_UNET_STEPS steps) through the
+    DDP step, each bit-equal to the step without rules: losses and every
+    parameter.  Kernel 1 once a step, kernel 5 82 times a U-Net step."""
+    import torch.distributed as dist
+
+    from climsim_tpu_torch import bench_unet_train as BU
+    from climsim_tpu_torch import (get_varspec, load_asset_norms,
+                                   load_default_grid)
+    from climsim_tpu_torch.data.synthetic import synthetic_split
+    from climsim_tpu_torch.parallel.mesh import ShardingRules, make_mesh
+    from climsim_tpu_torch.train import recipes
+    from climsim_tpu_torch.train.step_shardmap import (
+        make_shardmap_train_step)
+
+    out, total = {}, {}
+
+    def tally(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store_a"), 1), rank=0, world_size=1)
+    try:
+        rules = ShardingRules(make_mesh(num_data=1, device="cuda"))
+        require(dist.get_backend() == "nccl", "13a: not NCCL")
+        spec, stats = get_varspec("v1"), load_asset_norms("v1")
+        b = dp_config(seed).data.batch_size
+        x, y = synthetic_split(spec, DP_STEPS * b, load_default_grid(),
+                               seed=seed)
+        xs = torch.from_numpy(x).cuda().split(b)
+        ys = torch.from_numpy(y).cuda().split(b)
+        w = recipes.mlp_trainer(spec, stats, None, seed,
+                                device="cuda").model.state_dict()
+        runs = {}
+        for arm in ("plain", "ddp", "explicit"):
+            tr = recipes.mlp_trainer(spec, stats, None, seed,
+                                     rules=None if arm == "plain" else rules,
+                                     device="cuda")
+            tr.model.load_state_dict(w)
+            step = (make_shardmap_train_step(tr.loss_fn, tr.optimizer, rules)
+                    if arm == "explicit" else tr.train_step)
+            losses, launches, ms = dp_steps(torch, K, tr, step, xs, ys)
+            tally(launches)
+            require_per_step(launches, DP_STEPS,
+                             {"fused_input_transform": 1}, f"13a mlp {arm}")
+            runs[arm] = (losses, tr.model.state_dict(), ms)
+        for arm in ("ddp", "explicit"):
+            require(runs[arm][0] == runs["plain"][0], f"13a mlp {arm}: "
+                    f"losses {runs[arm][0]} against {runs['plain'][0]}")
+            same_params(torch, f"13a mlp {arm}", runs[arm][1],
+                        runs["plain"][1])
+        out["mlp_v1"] = {"batch": b, "losses": runs["plain"][0],
+                         "ms_a_step": {a: r[2] for a, r in runs.items()}}
+
+        # the U-Net: reproducible convolutions (cuDNN off, deterministic,
+        # as phase 10), so that two runs can be bit-equal at all
+        cudnn = torch.backends.cudnn
+        saved = (cudnn.deterministic, cudnn.enabled,
+                 torch.are_deterministic_algorithms_enabled())
+        cudnn.deterministic, cudnn.enabled = True, False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            ub = UNET_BATCH
+            ux, uy = BU.pool(DP_UNET_STEPS * ub, seed)
+            uxs = torch.from_numpy(ux).cuda().split(ub)
+            uys = torch.from_numpy(uy).cuda().split(ub)
+            uruns = {}
+            for arm in ("plain", "ddp"):
+                tr = recipes.unet_trainer(
+                    get_varspec("v5"), load_asset_norms("v5"),
+                    (ux[:ub], uy[:ub]), seed, steps_per_epoch=DP_UNET_STEPS,
+                    model_kw=BU.model_kw("fused"),
+                    rules=None if arm == "plain" else rules, device="cuda")
+                losses, launches, ms = dp_steps(torch, K, tr, tr.train_step,
+                                                uxs, uys)
+                tally(launches)
+                require_per_step(launches, DP_UNET_STEPS, {
+                    "fused_input_transform": 1, "fused_gn_silu_conv3": 82},
+                    f"13a unet_v5 {arm}")
+                uruns[arm] = (losses, tr.model.state_dict(), ms)
+            require(uruns["ddp"][0] == uruns["plain"][0], "13a unet_v5: "
+                    f"losses {uruns['ddp'][0]} against {uruns['plain'][0]}")
+            same_params(torch, "13a unet_v5", uruns["ddp"][1],
+                        uruns["plain"][1])
+        finally:
+            cudnn.deterministic, cudnn.enabled = saved[:2]
+            torch.use_deterministic_algorithms(saved[2])
+        out["unet_v5"] = {"batch": ub, "losses": uruns["plain"][0],
+                          "ms_a_step": {a: r[2] for a, r in uruns.items()}}
+    finally:
+        dist.destroy_process_group()
+    print(f"{card}: 13a, 1-rank NCCL: mlp_v1 B={b} {DP_STEPS} steps, DDP "
+          "and explicit all-reduce steps bit-equal to the step without "
+          "rules (losses, every parameter), ms a step after the first "
+          "(host clock, synchronized) " + ", ".join(
+              f"{a} {v:.3f}" for a, v in out["mlp_v1"]["ms_a_step"].items())
+          + f"; unet_v5 B={ub} {DP_UNET_STEPS} steps (cuDNN off) DDP "
+          "bit-equal, ms a step " + ", ".join(
+              f"{a} {v:.1f}" for a, v in out["unet_v5"]["ms_a_step"].items())
+          + "; kernel 1 once a step, kernel 5 82 times a U-Net step",
+          flush=True)
+    return out, total
+
+
+def dp_rank_main(torch, rank, world, tmp, seed) -> int:
+    """One of 13b's ranks (``--dp-rank``): a gloo group through a
+    FileStore in ``tmp``, run_experiment at train.num_data_shards=world
+    on cuda:0 (LOCAL_RANK 0: the ranks share the card), the trained state
+    saved by DistributedCheckpointer, the results written for the
+    parent."""
+    import torch.distributed as dist
+
+    from climsim_tpu_torch import run as PRUN
+    from climsim_tpu_torch.ops import kernels as K
+    from climsim_tpu_torch.train.checkpoints import DistributedCheckpointer
+
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store_b"), world), rank=rank, world_size=world)
+    try:
+        _, record = recording_mlp(torch)
+        cfg = dp_config(seed).override(f"train.num_data_shards={world}")
+        out, launches, _ = counted(torch, K, lambda: PRUN.run_experiment(
+            cfg, verbose=False, device="cuda"))
+        st = out["state"]
+        ck = DistributedCheckpointer(os.path.join(tmp, "dcp"))
+        ck.save(st.step, st)
+        ck.wait()
+        torch.save({
+            "steps": [float(v) for v in record],
+            "history": [(r["train_loss"], r["val_loss"])
+                        for r in out["history"].rows],
+            "samples_per_sec": out["history"].rows[0]["samples_per_sec"],
+            "launches": launches, "step": st.step,
+            "params": {k: v.cpu() for k, v in st.params.state_dict().items()},
+            "opt": [{n: t.cpu() for n, t in s.items()}
+                    for s in st.opt_state.state.values()],
+            "rng": st.rng.get_state()}, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dp_reference(torch, K, cfg, parts):
+    """run_experiment for ``cfg`` in this process, through
+    ``recording_mlp(parts)``: (result, per-step losses, launches)."""
+    from climsim_tpu_torch import run as PRUN
+
+    undo, record = recording_mlp(torch, parts)
+    try:
+        out, launches, _ = counted(torch, K, lambda: PRUN.run_experiment(
+            cfg, verbose=False, device="cuda"))
+    finally:
+        undo()
+    return out, [float(v) for v in record], launches
+
+
+def dp_two_ranks(torch, K, card, seed, tmp):
+    """13b: DP_RANKS processes on the one card over gloo (NCCL refuses two
+    ranks on one GPU), run_experiment for mlp_v1 at train.num_data_shards
+    = DP_RANKS.  The ranks equal; bit-equal to 1 process taking each step
+    as DP_RANKS micro-batches; the first step's loss within DP_RTOL of
+    the plain 1-process run's (the later steps' gaps printed); the
+    checkpoint the ranks wrote restored here, at world size 1."""
+    from climsim_tpu_torch import run as PRUN
+    from climsim_tpu_torch.train.checkpoints import DistributedCheckpointer
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    env["LOCAL_RANK"] = "0"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--dp-rank", str(r), "--dp-world", str(DP_RANKS), "--dp-dir", tmp],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(DP_RANKS)]
+    try:
+        for r, p in enumerate(procs):
+            log, _ = p.communicate(timeout=600)
+            require(p.returncode == 0,
+                    f"13b rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(DP_RANKS)]
+    cfg = dp_config(seed)
+    b = cfg.data.batch_size
+    one, plain_steps, launches1 = dp_reference(torch, K, cfg, 1)
+    micro, micro_steps, launches_m = dp_reference(torch, K, cfg, DP_RANKS)
+    r0 = ranks[0]
+    for r, rk in enumerate(ranks[1:], 1):
+        require(rk["steps"] == r0["steps"] and rk["history"] ==
+                r0["history"], f"13b: rank {r}'s losses {rk['steps']} "
+                f"against rank 0's {r0['steps']}")
+        same_params(torch, f"13b rank {r} against rank 0", rk["params"],
+                    r0["params"])
+    micro_hist = [(h["train_loss"], h["val_loss"])
+                  for h in micro["history"].rows]
+    require(r0["steps"] == micro_steps and r0["history"] == micro_hist,
+            f"13b: {DP_RANKS} ranks {r0['steps']} {r0['history']} against "
+            f"1 process in micro-batches {micro_steps} {micro_hist}")
+    same_params(torch, "13b ranks against 1 process in micro-batches",
+                micro["state"].params.state_dict(), r0["params"])
+    first_gap = abs(r0["steps"][0] - plain_steps[0]) / abs(plain_steps[0])
+    require(first_gap <= DP_RTOL, f"13b: the first step's loss "
+            f"{r0['steps'][0]} on {DP_RANKS} ranks, {plain_steps[0]} on 1 "
+            f"process: {first_gap:.3e} relative")
+    step_gaps = [abs(a - w) / abs(w) for a, w in zip(r0["steps"],
+                                                      plain_steps)]
+    val_gap = abs(r0["history"][0][1] - one["history"].rows[0]["val_loss"]) \
+        / abs(one["history"].rows[0]["val_loss"])
+    for r, rk in enumerate(ranks):
+        require(rk["launches"]["fused_input_transform"] == DP_STEPS + 1,
+                f"13b rank {r}: kernel 1 launched "
+                f"{rk['launches']['fused_input_transform']} times in "
+                f"{DP_STEPS} steps and 1 validation batch")
+    require(launches1["fused_input_transform"] == DP_STEPS + 1
+            and launches_m["fused_input_transform"]
+            == DP_RANKS * (DP_STEPS + 1), "13b, 1 process: kernel 1 "
+            f"launched {launches1['fused_input_transform']} and "
+            f"{launches_m['fused_input_transform']} times")
+    tmpl = PRUN.build_trainer(cfg, one["spec"], one["stats"], None,
+                              seed + 1, None, DP_STEPS, one["grid"], False,
+                              "cuda").state
+    ck = DistributedCheckpointer(os.path.join(tmp, "dcp"))
+    require(ck.steps() == [r0["step"]], f"13b: steps {ck.steps()}")
+    got_state = ck.restore(tmpl)
+    same_params(torch, "13b restored", got_state.params.state_dict(),
+                r0["params"])
+    for a, w in zip(got_state.opt_state.state.values(), r0["opt"]):
+        for n in ("exp_avg", "exp_avg_sq", "step"):
+            require(torch.equal(a[n].cpu(), w[n]), f"13b restored Adam {n}")
+    require(got_state.step == r0["step"]
+            and torch.equal(got_state.rng.get_state(), r0["rng"]),
+            "13b restored step or generator")
+    # ms a step from fit's rate (global rows over the epoch's wall time:
+    # DP_STEPS steps with the epoch's permutation, and on the ranks the
+    # first step's DDP set-up)
+    ms1 = b / one["history"].rows[0]["samples_per_sec"] * 1e3
+    ms2 = [b / rk["samples_per_sec"] * 1e3 for rk in ranks]
+    print(f"{card}: 13b, {DP_RANKS} ranks on ONE card over gloo (not a "
+          f"scaling figure: the ranks share the card and the all-reduce "
+          f"goes through the host): mlp_v1 B={b} (float32 compute), "
+          f"{DP_STEPS} steps and 1 validation batch: the ranks equal, "
+          f"bit-equal to 1 process in {DP_RANKS} micro-batches; the first "
+          f"step's loss {first_gap:.3e} from the plain 1-process run's "
+          f"(bound {DP_RTOL:g}), the steps' " + ", ".join(
+              f"{g:.3e}" for g in step_gaps) + f", validation {val_gap:.3e}"
+          f"; ms a step 1 process {ms1:.3f}, {DP_RANKS} ranks "
+          + ", ".join(f"{v:.3f}" for v in ms2)
+          + f"; the ranks' checkpoint restored at world size 1 bit-equal; "
+          f"kernel 1 {DP_STEPS + 1} times a rank; ranks' wall "
+          f"{spawn_s:.1f} s", flush=True)
+    total = {}
+    for launches in (launches1, launches_m, *(rk["launches"]
+                                              for rk in ranks)):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return {"batch": b, "step_losses_ranks": r0["steps"],
+            "step_losses_1_process": plain_steps,
+            "first_step_rel_gap": first_gap, "step_rel_gaps": step_gaps,
+            "val_rel_gap": val_gap, "ms_a_step_1_process": ms1,
+            "ms_a_step_ranks": ms2, "ranks_wall_s": spawn_s,
+            "launches_a_rank": [rk["launches"]["fused_input_transform"]
+                                for rk in ranks]}, total
+
+
+def hpo_phase(torch, K, card, seed, tmp):
+    """13c: run_hpo_sweep on the card: HPO_TRIALS trials, HPO_WORKERS
+    worker processes, the victim SIGKILLed holding a claim, a stale
+    timeout of HPO_STALE_S; every trial has a result, a takeover
+    happened, Hyperband and retrain_best gave finite scores, and the
+    workers' kernel 1 launches add up."""
+    from climsim_tpu_torch import run_hpo_sweep as HS
+
+    t0 = time.perf_counter()
+    res, launches, _ = counted(torch, K, lambda: HS.main([
+        "--device", "cuda", "--trials", str(HPO_TRIALS),
+        "--workers", str(HPO_WORKERS), "--steps", str(HPO_STEPS),
+        "--stale-timeout", str(HPO_STALE_S),
+        "--kill-after", str(HPO_KILL_AFTER_S), "--dir",
+        os.path.join(tmp, "hpo")]))
+    secs = time.perf_counter() - t0
+    require(len(res["results"]) == HPO_TRIALS and res["takeovers"],
+            f"13c: {len(res['results'])} results, takeovers "
+            f"{res['takeovers']}")
+    require(np.isfinite(res["hyperband_score"])
+            and np.isfinite(res["final_score"]), "13c: scores")
+    per_trial = [r["kernel1_launches"] for r in res["results"].values()]
+    require(per_trial == [HPO_STEPS + 1] * HPO_TRIALS,
+            f"13c: kernel 1 a trial {per_trial}, want {HPO_STEPS} steps "
+            "and 1 evaluation")
+    own = launches["fused_input_transform"]
+    require(res["kernel1_launches"] == sum(per_trial) + own,
+            "13c: the tally of kernel 1's launches")
+    print(f"{card}: 13c, run_hpo_sweep: {HPO_TRIALS} trials, {HPO_WORKERS} "
+          f"workers on the card, the victim killed holding a claim, "
+          f"trial(s) {res['takeovers']} taken over and completed; "
+          f"Hyperband {res['hyperband_score']:.5f}, retrain_best "
+          f"{res['final_score']:.5f}; kernel 1 {sum(per_trial)} in the "
+          f"workers + {own} here; {secs:.1f} s (sweep "
+          f"{res['seconds']['sweep']:.1f}, Hyperband "
+          f"{res['seconds']['hyperband']:.1f}, retrain "
+          f"{res['seconds']['retrain']:.1f})", flush=True)
+    launches["fused_input_transform"] += sum(per_trial)
+    return {"seconds": res["seconds"], "takeovers": res["takeovers"],
+            "hyperband_score": res["hyperband_score"],
+            "final_score": res["final_score"],
+            "kernel1_launches": res["kernel1_launches"]}, launches
+
+
+def profiling_phase(torch, K, card, seed, tmp):
+    """13d: cost_analysis of the mlp_v1 step (B = 3072) against the
+    analytic count, StepInfo on a copy, the unet_v5 forward's count with
+    kernel 5's formula beside the count without it, trace and time_fn."""
+    from climsim_tpu_torch import bench_unet_train as BU
+    from climsim_tpu_torch import (get_varspec, load_asset_norms,
+                                   load_default_grid)
+    from climsim_tpu_torch.config import PRESETS
+    from climsim_tpu_torch.data import transforms as T
+    from climsim_tpu_torch.data.synthetic import synthetic_inputs
+    from climsim_tpu_torch.models.common import Dense
+    from climsim_tpu_torch.models.unet import ClimSimUNet
+    from climsim_tpu_torch.ops.unet_infer import unet_apply_fused
+    from climsim_tpu_torch.train import recipes
+    from climsim_tpu_torch.train.step import StepInfo
+    from climsim_tpu_torch.utils import profiling as PF
+
+    total = {}
+    spec, stats = get_varspec("v1"), load_asset_norms("v1")
+    b = dp_config(seed).data.batch_size
+    tr = recipes.mlp_trainer(spec, stats, None, seed, device="cuda")
+    xb = torch.from_numpy(synthetic_inputs(spec, b, load_default_grid(),
+                                           seed=seed)).cuda()
+    yb = torch.randn(b, spec.output_len, device="cuda")
+    layers = [m.weight.shape for m in tr.model.modules()
+              if isinstance(m, Dense)]
+    w0 = tr.model.trunk.layers[0].weight.shape
+    # a Dense layer: 2 B in out forward, as much for dW, and for dx but at
+    # the first layer, whose input needs no gradient
+    analytic = 6 * b * sum(o * i for o, i in layers) - 2 * b * w0[0] * w0[1]
+    before = tr.state.step
+    (info, launches, _) = counted(torch, K, lambda: StepInfo.from_step(
+        tr.train_step, tr.state, xb, yb))
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    require(tr.state.step == before, "13d: StepInfo advanced the state")
+    mlp_gap = abs(info.flops_per_step - analytic) / analytic
+    require(mlp_gap <= FLOP_TOL, f"13d: mlp_v1 step {info.flops_per_step} "
+            f"FLOPs against the analytic {analytic}")
+
+    unet = ClimSimUNet(get_varspec("v5"),
+                       **PRESETS["unet_v5"].model_kw).cuda().eval()
+    ub = 384
+    x5 = torch.from_numpy(synthetic_inputs(get_varspec("v5"), ub,
+                                           load_default_grid(), seed=seed))
+    xn = T.make_input_transform(get_varspec("v5"), load_asset_norms("v5"),
+                                T.v5_online_config(), "cuda")(x5.cuda())
+    with torch.no_grad():
+        c, launches, _ = counted(torch, K, lambda: PF.cost_analysis(
+            unet_apply_fused, unet, xn))
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    require(launches["fused_gn_silu_conv3"] == 82,
+            f"13d: kernel 5 launched {launches['fused_gn_silu_conv3']} "
+            "times in the counted forward")
+    share = sum(v for k, v in c["flops_by_op"].items()
+                if "fused_gn_silu_conv3" in k)
+    want_share = sum(n * 2 * ub * l * ci * co * 3
+                     for (l, ci, co), n in UNET_CHAINS.items())
+    require(share == want_share, f"13d: kernel 5's formula gave {share}, "
+            f"its chains {want_share}")
+    plain = ub * BU.forward_flops_per_sample()["total"]   # a sample's
+    unet_gap = abs(c["flops"] - plain) / plain
+    require(unet_gap <= FLOP_TOL, f"13d: unet_v5 forward {c['flops']} "
+            f"FLOPs against the plain model's {plain}")
+
+    trace_dir = os.path.join(tmp, "trace")
+    with PF.trace(trace_dir):
+        for _ in range(2):
+            tr.train_step(tr.state, xb, yb)
+        torch.cuda.synchronize()
+    traces = os.listdir(trace_dir)
+    require(len(traces) == 1, f"13d: trace files {traces}")
+    trace_mb = os.path.getsize(os.path.join(trace_dir, traces[0])) / 1e6
+    step_ms = PF.time_fn(tr.train_step, tr.state, xb, yb, iters=10,
+                         warmup=2) * 1e3
+    require(step_ms > 0, "13d: time_fn")
+    print(f"{card}: 13d, profiling: mlp_v1 step B={b} {info.flops_per_step:.6g}"
+          f" FLOPs (analytic {analytic:.6g}, {mlp_gap:.2e}), peak "
+          f"{info.peak_memory_bytes / 1e9:.3f} GB; unet_v5 forward B={ub} "
+          f"{c['flops']:.6g} FLOPs with kernel 5's formula, "
+          f"{c['flops'] - share:.6g} without (the plain model: {plain:.6g}),"
+          f" peak {c['peak_memory_bytes'] / 1e9:.3f} GB; trace "
+          f"{trace_mb:.2f} MB; time_fn: mlp_v1 step median {step_ms:.3f} "
+          "ms (host clock, synchronized)", flush=True)
+    return {"mlp_v1_step_flops": info.flops_per_step,
+            "mlp_v1_analytic_flops": analytic,
+            "mlp_v1_peak_bytes": info.peak_memory_bytes,
+            "unet_v5_forward_flops": c["flops"],
+            "unet_v5_forward_flops_without_formula": c["flops"] - share,
+            "unet_v5_plain_model_flops": plain,
+            "trace_mb": trace_mb, "time_fn_step_ms": step_ms}, total
+
+
+def dp_phase(torch, K, card, seed):
+    """Phase 13: 13a-13d.  Returns (results, the launches)."""
+    results, total = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fn in (("13a", dp_one_rank), ("13b", dp_two_ranks),
+                         ("13c", hpo_phase), ("13d", profiling_phase)):
+            t0 = time.perf_counter()
+            r, launches = fn(torch, K, card, seed, tmp)
+            r["phase_s"] = time.perf_counter() - t0
+            print(f"  {name}: {r['phase_s']:.1f} s", flush=True)
+            results[name] = r
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+    return results, total
+
+
 def io_entry(name, source, replaces, launched, r, at):
     """The JSON entry of kernel 1 or 4: "ms" and "plain_ms" device times
     (CUDA-graph replays), "host_ms" the wrapper's host cost a call, and the
@@ -4305,6 +4887,12 @@ def main(argv=None) -> int:
                     help="only read the zoo's first-loss gaps, card against "
                     "CPU, at these seeds (the readings their tolerances "
                     "rest on), print them and exit")
+    ap.add_argument("--data-parallel-only", action="store_true",
+                    help="build the kernels, run phase 13 alone, exit")
+    # one rank of phase 13b, started by the script itself
+    ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-dir", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -4314,6 +4902,9 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this check runs on the GPU",
               file=sys.stderr)
         return 1
+    if args.dp_rank is not None:
+        return dp_rank_main(torch, args.dp_rank, args.dp_world, args.dp_dir,
+                            args.seed)
 
     from climsim_tpu_torch import (get_varspec, load_asset_norms,
                                    load_default_grid)
@@ -4352,6 +4943,13 @@ def main(argv=None) -> int:
         gaps = zoo_first_gaps(torch, card, [int(v) for v in
                                             args.zoo_first_seeds.split(",")])
         print(json.dumps({"card": card, "zoo_first_gaps": gaps}))
+        return 0
+    if args.data_parallel_only:
+        t0 = time.perf_counter()
+        dp, dp_launches = dp_phase(torch, K, card, args.seed)
+        print(json.dumps({"card": card, "data_parallel": dp,
+                          "launches": dp_launches,
+                          "seconds": time.perf_counter() - t0}))
         return 0
     log = _build.build_log().splitlines()
     for line in log:
@@ -4633,6 +5231,13 @@ def main(argv=None) -> int:
     slice_launches.append(zoo_launches)
     lap("12 (the zoo)")
 
+    # -- 13: data-parallel training, the HPO sweep, profiling --------------
+    print("13: data-parallel training (1-rank NCCL, 2 ranks on the card), "
+          "the HPO sweep and the profiling helpers on the card:", flush=True)
+    data_parallel, dp_launches = dp_phase(torch, K, card, args.seed)
+    slice_launches.append(dp_launches)
+    lap("13 (data parallel, HPO, profiling)")
+
     if args.profile:
         profile(torch, K, model, stats, spec, chunks[0])
     require("jax" not in sys.modules, "the port must not load jax")
@@ -4755,7 +5360,7 @@ def main(argv=None) -> int:
                       "bundles": bundles, "rollouts": rollouts,
                       "finetune": finetune, "online_eval": online_eval,
                       "bench_server": server, "streaming": stream,
-                      "zoo": zoo,
+                      "zoo": zoo, "data_parallel": data_parallel,
                       "phase_seconds": seconds}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -26,7 +26,8 @@ from pathlib import Path
 
 import numpy as np
 
-from .pipeline import BatchLoader, _no_rules, _Streaming
+from ..parallel.mesh import BATCH
+from .pipeline import BatchLoader, _process_split, _Streaming
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "climload.cpp"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
@@ -104,13 +105,22 @@ class NativeLoader(_Streaming):
     C order, 2-D), gathered by the C++ engine's ``threads`` workers into
     its ``ring`` of batches, streamed to ``device``.  Epoch e shuffles
     with the engine's mt19937_64 seeded ``seed + e``, as the JAX loader
-    does, so the two yield the same batches."""
+    does, so the two yield the same batches.
+
+    Over several processes (``rules``, ``process_index``,
+    ``process_count``) every rank's engine gathers the whole global batch
+    (its permutation lives in the engine) and the rank stages only its
+    contiguous 1/process_count of the rows, as the numpy loaders do."""
 
     def __init__(self, input_path: str, target_path: str, batch_size: int,
                  threads: int = 4, ring: int = 4, shuffle: bool = True,
                  seed: int = 0, rules=None, prefetch: int = 2,
-                 device="cuda"):
-        _no_rules(rules)
+                 process_index: int | None = None,
+                 process_count: int | None = None, device="cuda"):
+        self.pidx, self.pcount = _process_split(
+            rules, process_index, process_count, batch_size)
+        if rules is not None:
+            device = rules.device
         self._init_streaming(device, prefetch)
         lib = load()
         self._lib = lib
@@ -155,13 +165,23 @@ class NativeLoader(_Streaming):
                                  1 if self.shuffle else 0)
         self._epoch += 1
 
+        # the whole batch lands here first where it is split over ranks
+        whole = ((np.empty((b, self.dx), np.float32),
+                  np.empty((b, self.dy), np.float32))
+                 if self.pcount > 1 else None)
+
         def fill(ox, oy):
-            got = lib.climload_next(h, _f32(ox), _f32(oy))
+            wx, wy = whole or (ox, oy)
+            got = lib.climload_next(h, _f32(wx), _f32(wy))
             if got != b:
                 raise RuntimeError(f"the native loader returned {got} rows "
                                    f"of a batch of {b}")
+            if whole:
+                ox[...] = BATCH.local(wx, self.pidx, self.pcount)
+                oy[...] = BATCH.local(wy, self.pidx, self.pcount)
 
-        shapes = [(b, self.dx), (b, self.dy)]
+        per = b // self.pcount
+        shapes = [(per, self.dx), (per, self.dy)]
         for _ in range(self.steps_per_epoch):
             yield shapes, (np.float32, np.float32), fill
 

@@ -27,8 +27,13 @@ does not hand its memory to a later copy while the step still reads it.
 On the CPU the rows are gathered into fresh arrays and yielded as they
 are.  A fault on the producer thread is raised in the consumer.
 
-Sharding rules and multi-process loading wait for the distribution
-slice; passing them raises.
+Data-parallel loading (``rules``, ``process_index``, ``process_count``,
+as ``climsim_tpu/data/pipeline.py:49-107``): ``batch_size`` stays the
+global batch; every rank draws the same permutation (the same seed) and
+stages only its contiguous 1/process_count of each global batch
+(``local_indices``), through its own pinned ring and copy stream, onto
+its device.  The global batch must divide over the ranks, and a
+remainder batch is never drawn (``drop_remainder``).
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..parallel.mesh import BATCH, CHUNK, ENSEMBLE_BATCH
+
 
 def _epoch_seed(seed: int, epoch: int) -> int:
     """The generator seed of ``epoch``: a hash of (seed, epoch), so any
@@ -48,11 +55,26 @@ def _epoch_seed(seed: int, epoch: int) -> int:
                                                                     np.uint64)[0])
 
 
-def _no_rules(rules, process_count=None) -> None:
-    if rules is not None:
-        raise NotImplementedError("sharding rules are not ported yet")
-    if process_count is not None and process_count > 1:
-        raise NotImplementedError("multi-process loading is not ported yet")
+def _process_split(rules, process_index, process_count, batch_size: int,
+                   drop_remainder: bool = True) -> tuple[int, int]:
+    """(this process's index, the process count): given, else the rules'
+    rank and world size, else (0, 1).  More than one process needs a
+    global batch that divides over them and drop_remainder: a remainder
+    batch would not divide, and local_indices would drop its rows."""
+    pcount = (process_count if process_count is not None
+              else rules.world_size if rules is not None else 1)
+    pidx = (process_index if process_index is not None
+            else rules.rank if rules is not None else 0)
+    if pcount > 1:
+        if batch_size % pcount:
+            raise ValueError(f"global batch {batch_size} does not divide "
+                             f"over {pcount} processes")
+        if not drop_remainder:
+            raise ValueError("multi-process loading needs "
+                             "drop_remainder=True")
+    if not 0 <= pidx < pcount:
+        raise ValueError(f"process_index {pidx} of {pcount}")
+    return pidx, pcount
 
 
 @dataclass
@@ -197,9 +219,12 @@ class BatchLoader(_Streaming):
     The epoch's order is ``default_rng(seed).permutation(n)``, as the JAX
     loader draws it; each batch's rows are gathered on the producer thread
     into a pinned buffer and copied on the loader's copy stream.
-    ``batch_size`` is the global batch.  ``rules`` and ``process_count >
-    1`` (multi-process loading) are not ported and raise.
+    ``batch_size`` is the global batch; with ``process_count`` > 1 (or
+    ``rules`` of more than one rank) this process gathers and stages only
+    its ``local_indices`` of each, onto ``rules.device``.
     """
+
+    placement = BATCH       # how a draw's indices lie over the ranks
 
     def __init__(self, inputs: np.ndarray, targets: np.ndarray,
                  batch_size: int, rules=None, shuffle: bool = True,
@@ -207,7 +232,10 @@ class BatchLoader(_Streaming):
                  drop_remainder: bool = True,
                  process_index: int | None = None,
                  process_count: int | None = None, device="cuda"):
-        _no_rules(rules, process_count)
+        self.pidx, self.pcount = _process_split(
+            rules, process_index, process_count, batch_size, drop_remainder)
+        if rules is not None:
+            device = rules.device
         if inputs.shape[0] != targets.shape[0]:
             raise ValueError(f"{inputs.shape[0]} input rows, "
                              f"{targets.shape[0]} target rows")
@@ -232,6 +260,12 @@ class BatchLoader(_Streaming):
     def steps_per_epoch(self) -> int:
         return self.plan.steps
 
+    def local_indices(self, global_batch_idx: np.ndarray) -> np.ndarray:
+        """The rows of a global batch this process contributes: its
+        contiguous slice (``climsim_tpu/data/pipeline.py:103-107``)."""
+        return self.placement.local(global_batch_idx, self.pidx,
+                                    self.pcount)
+
     def _index_stream(self):
         n = self.inputs.shape[0]
         order = self.rng.permutation(n) if self.shuffle else np.arange(n)
@@ -252,6 +286,7 @@ class BatchLoader(_Streaming):
 
     def _jobs(self):
         for idx in self._index_stream():
+            idx = self.local_indices(idx)
             yield self._rows_job(idx.reshape(-1), idx.shape)
 
 
@@ -262,13 +297,22 @@ class ChunkedLoader(BatchLoader):
     next superbatch gathered and copied meanwhile.  Each permutation step
     draws K*B rows, so the batch order equals ``BatchLoader(batch_size=
     K*B)``'s with the same seed, consumed K steps at a time; a partial
-    superbatch is dropped."""
+    superbatch is dropped.  Over several processes each gets its columns
+    of every step's batch, (K, B / process_count, D) (the JAX loader's
+    chunk sharding, ``climsim_tpu/data/pipeline.py:176-180``)."""
+
+    placement = CHUNK
 
     def __init__(self, inputs, targets, batch_size: int,
                  steps_per_chunk: int = 8, rules=None, shuffle=True,
-                 seed: int = 0, prefetch: int = 2, device="cuda"):
+                 seed: int = 0, prefetch: int = 2,
+                 process_index: int | None = None,
+                 process_count: int | None = None, device="cuda"):
+        _process_split(rules, process_index, process_count, batch_size)
         super().__init__(inputs, targets, batch_size * steps_per_chunk,
-                         rules, shuffle, seed, prefetch, device=device)
+                         rules, shuffle, seed, prefetch,
+                         process_index=process_index,
+                         process_count=process_count, device=device)
         self.micro_batch = batch_size
         self.steps_per_chunk = steps_per_chunk
 
@@ -277,9 +321,10 @@ class ChunkedLoader(BatchLoader):
         return self.plan.steps * self.steps_per_chunk
 
     def _jobs(self):
-        lead = (self.steps_per_chunk, self.micro_batch)
         for idx in self._index_stream():
-            yield self._rows_job(idx, lead)
+            idx = self.local_indices(
+                idx.reshape(self.steps_per_chunk, self.micro_batch))
+            yield self._rows_job(idx.reshape(-1), idx.shape)
 
     def make_chunk_runner(self, train_step):
         """``run(state, xc, yc) -> (state, metrics)``: the K steps of one
@@ -304,14 +349,20 @@ class BootstrapLoader(BatchLoader):
     pattern, rpn_model_v1_data.py:134-144): each draw yields (E, B, D)
     stacks, every member sampling its own bootstrap subset.  The subsets
     and the draws are the JAX loader's, from the same ``default_rng``
-    stream."""
+    stream.  Over several processes (a model axis of size 1: every member
+    on every rank) each gets its slice of each member's batch, (E, B /
+    process_count, D) (``climsim_tpu/data/pipeline.py:258-262``)."""
+
+    placement = ENSEMBLE_BATCH
 
     def __init__(self, inputs, targets, batch_size, ensemble_size,
                  subset_fraction: float = 0.8, rules=None, seed: int = 0,
                  steps_per_epoch: int = 100, prefetch: int = 2,
-                 device="cuda"):
+                 process_index: int | None = None,
+                 process_count: int | None = None, device="cuda"):
         super().__init__(inputs, targets, batch_size, rules, True, seed,
-                         prefetch, device=device)
+                         prefetch, process_index=process_index,
+                         process_count=process_count, device=device)
         n = inputs.shape[0]
         m = int(subset_fraction * n)
         self.member_subsets = np.stack([
@@ -355,12 +406,24 @@ class DeviceResidentLoader:
     The per-epoch permutations come from a ``torch.Generator`` on the
     device, seeded from (``seed``, epoch).  They are not JAX's threefry
     draws: the two packages shuffle alike, not identically.
+
+    Over several processes every rank keeps the WHOLE split resident (the
+    v1 split is 2.11 GB, 3% of an H100) and draws the same permutation;
+    each batch is its contiguous 1/process_count of the global batch, so
+    the ranks' batches are the 1-process loader's, split by rank.  (A rank
+    holding only its rows could not take its part of a batch drawn from
+    the whole split without exchanging rows.)
     """
 
     def __init__(self, inputs, targets, batch_size: int, rules=None,
                  shuffle: bool = True, seed: int = 0,
-                 block_shuffle: int | None = None, device="cuda"):
-        _no_rules(rules)
+                 block_shuffle: int | None = None,
+                 process_index: int | None = None,
+                 process_count: int | None = None, device="cuda"):
+        self.pidx, self.pcount = _process_split(
+            rules, process_index, process_count, batch_size)
+        if rules is not None:
+            device = rules.device
         self.block = block_shuffle if shuffle else None
         if self.block:
             n0 = inputs.shape[0]
@@ -413,7 +476,8 @@ class DeviceResidentLoader:
         xp, yp = self._permuted()
         b = self.batch_size
         for s in range(self.steps_per_epoch):
-            yield xp[s * b:(s + 1) * b], yp[s * b:(s + 1) * b]
+            yield tuple(BATCH.local(a[s * b:(s + 1) * b], self.pidx,
+                                    self.pcount) for a in (xp, yp))
 
     def make_epoch_runner(self, train_step):
         """``run(state, num_epochs) -> (state, metrics)``: whole epochs of

@@ -32,6 +32,7 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from ..models.unet import _num_groups
 from . import _build
@@ -264,7 +265,10 @@ def fused_gn_silu_conv3(x: torch.Tensor, gamma: torch.Tensor,
     _check(w, "w", w.dtype, (3, c, cout), dev)
     for name, t, n in (("gamma", gamma, c), ("beta", beta, c), ("b", b, cout)):
         _check(t, name, torch.float32, (n,), dev)
-    if torch.compiler.is_compiling():
+    # a dispatch mode (utils.profiling's FLOP counter) sees the kernel's
+    # work only as this operator; inside the mode's handler the mode is
+    # off, so the operator's implementation (this function) launches
+    if torch.compiler.is_compiling() or _get_current_dispatch_mode():
         return _gn_silu_conv3_op(x, gamma, beta, w, b)
     if not _on_cuda(x, "fused_gn_silu_conv3"):
         if w.dtype not in (torch.bfloat16, torch.float32):

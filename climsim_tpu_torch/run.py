@@ -5,13 +5,24 @@ CLI:  python -m climsim_tpu_torch.run --preset mlp_v1 [k.ey=value ...]
       python -m climsim_tpu_torch.run --config exp.json
       python -m climsim_tpu_torch.run --device cpu --preset cnn_v1 ...
 
-Every preset of ``config.PRESETS`` trains on one device (the card unless
-``--device`` says otherwise): the single-model ``fit`` path (HSR's loss
-staged at a third of the epochs, a warm restart from ``train.
-restart_path``), the RPN ensemble's loop over ``BootstrapLoader`` and the
-multi-seed loop (``train.seeds``).  Data-parallel runs
-(``train.num_data_shards`` > 1) and ``train.elastic`` belong to the
-distribution slice (ROADMAP.md, Queue 1 item 7) and raise.
+Every preset of ``config.PRESETS`` trains on the card unless ``--device``
+says otherwise: the single-model ``fit`` path (HSR's loss staged at a
+third of the epochs, a warm restart from ``train.restart_path``), the RPN
+ensemble's loop over ``BootstrapLoader`` and the multi-seed loop
+(``train.seeds``).
+
+Data-parallel training over N cards, one process a card (the
+counterpart of ``scripts/launch_multihost.sh``):
+
+  torchrun --nproc-per-node N -m climsim_tpu_torch.run --preset mlp_v1 \
+      train.num_data_shards=N
+
+``train.num_data_shards`` must equal torchrun's world size (0, the
+default, means the world size); the process group is NCCL on the card
+and gloo with ``--device cpu``.  ``data.batch_size`` stays the global
+batch.  Rank 0 alone writes the manifest, the checkpoints and the log.
+``train.elastic`` (in-flight recovery) waits for the next distribution
+slice and raises.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from .data.pipeline import BatchLoader, BootstrapLoader, DeviceResidentLoader
 from .data.synthetic import synthetic_split
 from .grid import load_default_grid
 from .norms import compute_norms_from_data, identity_norms, load_asset_norms
+from .parallel.mesh import ShardingRules, distributed_init_if_needed, make_mesh
 from .train import recipes
 from .train.checkpoints import (TimedCheckpointer, TopKCheckpointer,
                                 load_state)
@@ -147,19 +159,42 @@ def _host(values) -> np.ndarray:
     return torch.stack(values).double().cpu().numpy()
 
 
+def data_parallel_rules(cfg: ExperimentConfig, device="cuda"):
+    """The run's ShardingRules, or None for one process.
+
+    Under torchrun this joins the process group (NCCL on the card, gloo
+    for ``device="cpu"``; no fallback from one to the other) unless one
+    exists.  ``train.num_data_shards`` (0: the world size) must equal the
+    world size: a run never trains on fewer ranks than it asked for."""
+    distributed_init_if_needed(
+        "gloo" if torch.device(device).type == "cpu" else None)
+    world = (torch.distributed.get_world_size()
+             if torch.distributed.is_initialized() else 1)
+    n = cfg.train.num_data_shards or world
+    if n != world:
+        raise ValueError(
+            f"train.num_data_shards={n} needs {n} processes, one a device "
+            f"(torchrun --nproc-per-node {n} -m climsim_tpu_torch.run ...); "
+            f"this run has {world}")
+    return (ShardingRules(make_mesh(num_data=n, device=device)) if n > 1
+            else None)
+
+
 def _rpn(cfg, spec, stats, x_tr, y_tr, x_val, y_val, steps, grid, verbose,
-         device):
+         device, rules):
     """The RPN ensemble: a per-epoch ensemble-mean validation loss,
     History, top-K checkpoints (params and prior) and early stopping, the
-    control flow every other model gets from fit()."""
+    control flow every other model gets from fit().  Under ``rules``
+    each rank trains on its slice of each member's batch; the
+    validation runs whole on every rank."""
     tr = rpn_trainer(spec, stats, x_tr, cfg.seed, cfg=cfg.transform,
-                     device=device, **cfg.model_kw)
+                     rules=rules, device=device, **cfg.model_kw)
     loader = BootstrapLoader(
         np.asarray(x_tr), np.asarray(y_tr), cfg.data.batch_size,
-        cfg.model_kw.get("ensemble_size", 32), steps_per_epoch=steps,
-        seed=cfg.data.seed, device=device)
+        cfg.model_kw.get("ensemble_size", 32), rules=rules,
+        steps_per_epoch=steps, seed=cfg.data.seed, device=device)
     ckpt = (TopKCheckpointer(cfg.train.checkpoint_dir, cfg.train.top_k)
-            if cfg.train.checkpoint_dir else None)
+            if cfg.train.checkpoint_dir and _lead(rules) else None)
     early = (EarlyStopping(cfg.train.early_stop_patience)
              if cfg.train.early_stop_patience else None)
     history = History()
@@ -170,8 +205,8 @@ def _rpn(cfg, spec, stats, x_tr, y_tr, x_val, y_val, steps, grid, verbose,
         for xb, yb in loader:
             losses.append(tr.train_step(xb, yb).mean())
             # data rows a step (xb is (E, B, D); E * B would inflate the
-            # rate E times against every other path's accounting)
-            n_seen += xb.shape[1]
+            # rate E times against every other path's accounting), global
+            n_seen += xb.shape[1] * (rules.world_size if rules else 1)
         train_loss = float(np.mean(_host(losses)))
         sps = n_seen / max(time.perf_counter() - t0, 1e-9)
         val_loss = np.nan
@@ -186,6 +221,8 @@ def _rpn(cfg, spec, stats, x_tr, y_tr, x_val, y_val, steps, grid, verbose,
             tree = {"params": tr.ensemble.net, "prior": tr.ensemble.prior}
             ckpt.maybe_save(val_loss, epoch, tree)
             ckpt.save_last(epoch, tree)
+        if rules is not None:
+            rules.barrier()
         if verbose:
             print(f"epoch {epoch}: train {train_loss:.5f} "
                   f"val {val_loss:.5f} ({sps:,.0f} samples/s)", flush=True)
@@ -197,25 +234,27 @@ def _rpn(cfg, spec, stats, x_tr, y_tr, x_val, y_val, steps, grid, verbose,
 
 
 def _multiseed(cfg, spec, stats, x_tr, y_tr, x_val, y_val, steps, grid,
-               verbose, device):
+               verbose, device, rules):
     """K replicas, one a seed of ``train.seeds``, advanced by one step
     call: fit()'s control flow with per-seed validation losses, HSR's
     staged loss, the plateau on the mean validation loss (composed with
     the per-seed ``lr_scales``), early stopping and the replicas'
-    checkpoints.  One seed in the list still takes this path."""
+    checkpoints.  One seed in the list still takes this path.  Under
+    ``rules`` every rank holds every replica and its rows of each
+    batch."""
     sample = (np.asarray(x_tr[:4]), np.asarray(y_tr[:4]))
     base_scales = np.asarray(
         list(cfg.train.lr_scales) or [1.0] * len(cfg.train.seeds),
         np.float32)
     ms = multiseed(
-        lambda sp, st, sa, r: build_trainer(cfg, sp, st, sa, r, None, steps,
-                                            grid, verbose, device),
-        spec, stats, sample, list(cfg.train.seeds),
+        lambda sp, st, sa, r, rules=None: build_trainer(
+            cfg, sp, st, sa, r, rules, steps, grid, verbose, device),
+        spec, stats, sample, list(cfg.train.seeds), rules=rules,
         lr_scales=base_scales.tolist())
-    loader = BatchLoader(x_tr, y_tr, cfg.data.batch_size,
+    loader = BatchLoader(x_tr, y_tr, cfg.data.batch_size, rules,
                          seed=cfg.data.seed, device=device)
     ckpt = (TopKCheckpointer(cfg.train.checkpoint_dir, cfg.train.top_k)
-            if cfg.train.checkpoint_dir else None)
+            if cfg.train.checkpoint_dir and _lead(rules) else None)
     plateau = (PlateauController(cfg.train.plateau_patience)
                if cfg.train.plateau_patience else None)
     early = (EarlyStopping(cfg.train.early_stop_patience)
@@ -240,8 +279,8 @@ def _multiseed(cfg, spec, stats, x_tr, y_tr, x_val, y_val, steps, grid,
         val_losses = np.full(ms.num_seeds, np.nan)
         if x_val.shape[0]:
             vls = [ms.eval_step(state.params,
-                                *(torch.as_tensor(np.asarray(a[s:s + bs]))
-                                  for a in (x_val, y_val)))["loss"]
+                                *_val_rows(rules, x_val[s:s + bs],
+                                           y_val[s:s + bs]))["loss"]
                    for s in range(0, x_val.shape[0] - bs + 1, bs)]
             if vls:
                 val_losses = _host(vls).mean(axis=0)
@@ -253,6 +292,8 @@ def _multiseed(cfg, spec, stats, x_tr, y_tr, x_val, y_val, steps, grid,
         if ckpt is not None and np.all(np.isfinite(val_losses)):
             ckpt.maybe_save(float(val_losses.mean()), epoch, state.params)
             ckpt.save_last(epoch, state.params)
+        if rules is not None:
+            rules.barrier()
         if verbose:
             per = ", ".join(f"{s}:{v:.5f}" for s, v in
                             zip(cfg.train.seeds, val_losses))
@@ -263,6 +304,19 @@ def _multiseed(cfg, spec, stats, x_tr, y_tr, x_val, y_val, steps, grid,
             break
     return dict(trainer=ms, state=state, history=history, stats=stats,
                 spec=spec, grid=grid)
+
+
+def _lead(rules) -> bool:
+    """Whether this process writes: the only one, or rank 0."""
+    return rules is None or rules.rank == 0
+
+
+def _val_rows(rules, xv, yv):
+    """A validation batch as tensors: this rank's rows under ``rules``."""
+    xv, yv = np.asarray(xv), np.asarray(yv)
+    if rules is not None:
+        return rules.shard_batch(xv, yv)
+    return torch.as_tensor(xv), torch.as_tensor(yv)
 
 
 def _restart(tr, path: str, verbose: bool) -> None:
@@ -291,14 +345,19 @@ def run_experiment(cfg: ExperimentConfig, verbose: bool = True,
             "train.restart_path is only supported on the single-model "
             "fit() path; the rpn and multi-seed branches would silently "
             "train from scratch")
-    if cfg.train.elastic or cfg.train.num_data_shards > 1:
+    if cfg.train.elastic:
         raise NotImplementedError(
-            "train.elastic and train.num_data_shards > 1 run across devices:"
-            " the distribution slice (ROADMAP.md, Queue 1 item 7) is not "
-            "ported yet")
+            "train.elastic (in-flight recovery: torchrun's elastic agent and "
+            "a resharding restore from DistributedCheckpointer) waits for "
+            "the next distribution slice (ROADMAP.md, Queue 1 item 7)")
+    rules = data_parallel_rules(cfg, device)
+    n_dev = 1
+    if rules is not None:
+        n_dev, device = rules.world_size, rules.device
+        verbose = verbose and _lead(rules)
     grid = load_default_grid()
     spec, x, y, stats = load_data(cfg, grid)
-    if cfg.train.checkpoint_dir:
+    if cfg.train.checkpoint_dir and _lead(rules):
         write_manifest(cfg, cfg.train.checkpoint_dir, device)
 
     n = x.shape[0]
@@ -310,7 +369,8 @@ def run_experiment(cfg: ExperimentConfig, verbose: bool = True,
     else:
         n_val = 0
     if cfg.data.batch_size > n - n_val:
-        clamped = max(n - n_val, 1)
+        # a global batch the ranks divide (climsim_tpu/run.py:164)
+        clamped = max((n - n_val) // n_dev * n_dev, n_dev)
         if verbose:
             print(f"batch_size {cfg.data.batch_size} exceeds the "
                   f"{n - n_val}-row train split; clamping to {clamped}")
@@ -319,7 +379,7 @@ def run_experiment(cfg: ExperimentConfig, verbose: bool = True,
     x_val, y_val = x[n - n_val:], y[n - n_val:]
     steps = max(x_tr.shape[0] // cfg.data.batch_size, 1)
     args = (cfg, spec, stats, x_tr, y_tr, x_val, y_val, steps, grid,
-            verbose, device)
+            verbose, device, rules)
     if cfg.model == "rpn":
         return _rpn(*args)
     if cfg.train.seeds:
@@ -327,7 +387,7 @@ def run_experiment(cfg: ExperimentConfig, verbose: bool = True,
 
     tr = build_trainer(cfg, spec, stats, (np.asarray(x_tr[:4]),
                                           np.asarray(y_tr[:4])), cfg.seed,
-                       None, steps, grid, verbose, device)
+                       rules, steps, grid, verbose, device)
     if cfg.train.restart_path:
         _restart(tr, cfg.train.restart_path, verbose)
 
@@ -337,35 +397,36 @@ def run_experiment(cfg: ExperimentConfig, verbose: bool = True,
         and (x_tr.nbytes + y_tr.nbytes) < DEVICE_SPLIT_BYTES)
     if use_device:
         train_loader = DeviceResidentLoader(
-            np.asarray(x_tr), np.asarray(y_tr), cfg.data.batch_size,
+            np.asarray(x_tr), np.asarray(y_tr), cfg.data.batch_size, rules,
             seed=cfg.data.seed, block_shuffle=cfg.data.block_shuffle or None,
             device=device)
         val_loader = (DeviceResidentLoader(
-            np.asarray(x_val), np.asarray(y_val), cfg.data.batch_size,
+            np.asarray(x_val), np.asarray(y_val), cfg.data.batch_size, rules,
             shuffle=False, device=device) if n_val else None)
     else:
-        train_loader = BatchLoader(x_tr, y_tr, cfg.data.batch_size,
+        train_loader = BatchLoader(x_tr, y_tr, cfg.data.batch_size, rules,
                                    seed=cfg.data.seed, device=device)
-        val_loader = (BatchLoader(x_val, y_val, cfg.data.batch_size,
+        val_loader = (BatchLoader(x_val, y_val, cfg.data.batch_size, rules,
                                   shuffle=False, device=device)
                       if n_val else None)
+    lead = _lead(rules)
     ckpt = (TopKCheckpointer(cfg.train.checkpoint_dir, cfg.train.top_k)
-            if cfg.train.checkpoint_dir else None)
+            if cfg.train.checkpoint_dir and lead else None)
     timed = None
     if cfg.train.timed_interval > 0:
         if not cfg.train.checkpoint_dir:
             raise ValueError(
                 "train.timed_interval needs train.checkpoint_dir -- "
                 "periodic saves have nowhere to go")
-        timed = TimedCheckpointer(
+        timed = (TimedCheckpointer(
             os.path.join(cfg.train.checkpoint_dir, "timed.pt"),
-            cfg.train.timed_interval)
+            cfg.train.timed_interval) if lead else None)
     plateau = (PlateauController(cfg.train.plateau_patience)
                if cfg.train.plateau_patience else None)
     early = (EarlyStopping(cfg.train.early_stop_patience)
              if cfg.train.early_stop_patience else None)
     kw = dict(ckpt=ckpt, plateau=plateau, early=early, verbose=verbose,
-              timed_ckpt=timed)
+              timed_ckpt=timed, rules=rules)
     if cfg.model == "hsr" and cfg.train.epochs >= 3:
         # the staged loss: MSE for the first third, NLL after
         # (hsr.py:128-134)

@@ -7,8 +7,10 @@ reference's Modulus .mdlus top-K dance (train_unet_h5loader.py:296-307,
 ``torch.save`` of state_dicts (a module is saved as its state_dict),
 read back with ``weights_only=True``: no pickled code runs on load.
 
-The JAX package's ``OrbaxCheckpointer`` (sharded, asynchronous, restored
-onto another mesh) belongs with distribution and is not ported here.
+``DistributedCheckpointer`` is the counterpart of the JAX package's
+``OrbaxCheckpointer``: the whole train state, saved asynchronously by
+every rank through ``torch.distributed.checkpoint`` and restored onto
+another world size.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
 
 
 def _tensors(tree):
@@ -139,3 +142,97 @@ class TimedCheckpointer:
         save_state(self.path, tree)
         self._last = now
         return True
+
+
+class DistributedCheckpointer:
+    """Asynchronous checkpoints of a whole ``TrainState`` on
+    ``torch.distributed.checkpoint`` (the counterpart of
+    ``OrbaxCheckpointer``, ``climsim_tpu/train/checkpoints.py:128-197``).
+
+    ``save`` stages the state (model, optimizer, ``step``, ``lr_scale``,
+    the generator's state) and writes it on a background thread
+    (``dcp.async_save``): training continues during the write.  Every rank
+    of the default process group calls it; the parameters are replicated
+    plain tensors, which DCP writes once.  Its collectives run on a gloo
+    group of its own, so a write in flight never interleaves with the
+    training step's on NCCL.  Without a process group the save is a
+    single process's; with one, never.  A run saved by N ranks restores
+    into any world size, one process included.
+
+    Reference analog: the .mdlus save/from_checkpoint pair
+    (train_unet_h5loader.py:296-307,513), synchronous and single-device.
+    """
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        # a collective where a group exists: every rank makes it together
+        self._group = (dist.new_group(backend="gloo")
+                       if dist.is_initialized() else None)
+        self._pending = None
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step}")
+
+    @staticmethod
+    def _state_dict(state) -> dict:
+        from torch.distributed.checkpoint.state_dict import get_state_dict
+
+        model, optim = get_state_dict(state.params, state.opt_state)
+        return {"model": model, "optim": optim, "step": state.step,
+                "lr_scale": state.lr_scale, "rng": state.rng.get_state()}
+
+    def save(self, step: int, state) -> None:
+        """Start writing ``state`` as ``step``; a save still in flight is
+        waited for first."""
+        import torch.distributed.checkpoint as dcp
+
+        self.wait()
+        self._pending = dcp.async_save(self._state_dict(state),
+                                       checkpoint_id=self._path(step),
+                                       process_group=self._group)
+
+    def wait(self) -> None:
+        """Block until the save in flight, if any, is committed."""
+        if self._pending is not None:
+            self._pending.result()
+            self._pending = None
+
+    def steps(self) -> list[int]:
+        """Committed steps.  A directory without DCP's ``.metadata`` (an
+        in-flight or crashed write) or without an integer suffix is
+        skipped, as ``climsim_tpu/train/checkpoints.py:163-175`` skips
+        orbax's temporary directories."""
+        out = []
+        for d in os.listdir(self.directory):
+            suffix = d[len("step_"):]
+            if (d.startswith("step_") and suffix.isdigit()
+                    and os.path.exists(os.path.join(self.directory, d,
+                                                    ".metadata"))):
+                out.append(int(suffix))
+        return sorted(out)
+
+    def restore(self, template, step: int | None = None):
+        """Load ``step`` (default: the latest) into ``template``, a
+        ``TrainState`` of the same model and optimizer on the current
+        world size, in place; returns it, or None when nothing is
+        committed."""
+        import torch.distributed.checkpoint as dcp
+        from torch.distributed.checkpoint.state_dict import set_state_dict
+
+        self.wait()
+        if step is None:
+            ss = self.steps()
+            if not ss:
+                return None
+            step = ss[-1]
+        sd = self._state_dict(template)
+        dcp.load(sd, checkpoint_id=self._path(step),
+                 process_group=self._group)
+        set_state_dict(template.params, template.opt_state,
+                       model_state_dict=sd["model"],
+                       optim_state_dict=sd["optim"])
+        template.step = int(sd["step"])
+        template.lr_scale = float(sd["lr_scale"])
+        template.rng.set_state(sd["rng"])
+        return template

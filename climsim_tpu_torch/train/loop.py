@@ -120,7 +120,7 @@ def fit(train_step, eval_step, state: TrainState, train_loader, val_loader,
         plateau: PlateauController | None = None,
         early: EarlyStopping | None = None, verbose: bool = True,
         history: History | None = None, fused: bool = True,
-        timed_ckpt=None):
+        timed_ckpt=None, rules=None):
     """The reference trainers' control flow; returns (state, history).
 
     Where the train loader has ``make_epoch_runner``
@@ -132,7 +132,16 @@ def fit(train_step, eval_step, state: TrainState, train_loader, val_loader,
     superbatches' means.  The plateau writes
     ``state.lr_scale``; the top-K and last checkpoints take the model's
     weights after each validated epoch.
+
+    With ``rules`` (data-parallel, one process a rank) the steps' and
+    evaluation's losses are already means over the ranks, so every rank
+    takes the same plateau, early-stop and top-K decisions.  Only rank 0
+    writes checkpoints and prints; the other ranks wait at a barrier
+    until its writes of the epoch are done.  (JAX's ``fit`` never needed
+    this: one controller saw the global arrays.)
     """
+    lead = rules is None or rules.rank == 0
+    world = 1 if rules is None else rules.world_size   # rates: global rows
     history = history if history is not None else History()
     runner = (train_loader.make_epoch_runner(train_step)
               if fused and hasattr(train_loader, "make_epoch_runner")
@@ -146,7 +155,7 @@ def fit(train_step, eval_step, state: TrainState, train_loader, val_loader,
             for xc, yc in train_loader:
                 state, m = chunk_run(state, xc, yc)
                 losses.append(m["loss"])
-                n += xc.shape[0] * xc.shape[1]
+                n += xc.shape[0] * xc.shape[1] * world
             train_loss = float(np.mean(_host(losses))) if losses else np.nan
             sps = n / max(time.perf_counter() - t0, 1e-9)
         elif runner is not None:
@@ -158,20 +167,23 @@ def fit(train_step, eval_step, state: TrainState, train_loader, val_loader,
         else:
             state, train_loss, sps = run_epoch(train_step, state,
                                                train_loader)
+            sps *= world
         val_loss = (evaluate(eval_step, state.params, val_loader)
                     if val_loader is not None else np.nan)
         if plateau is not None and np.isfinite(val_loss):
             state.lr_scale = plateau.update(val_loss)
-        if ckpt is not None and np.isfinite(val_loss):
+        if lead and ckpt is not None and np.isfinite(val_loss):
             ckpt.maybe_save(val_loss, state.step, state.params)
             ckpt.save_last(state.step, state.params)
-        if timed_ckpt is not None:
+        if lead and timed_ckpt is not None:
             # wall-clock periodic save (the reference: every 1200 s,
             # hsr.py:120-121); an epoch's end is where it is checked
             timed_ckpt.maybe_save(state.params)
+        if rules is not None:   # every rank, whichever holds checkpointers
+            rules.barrier()
         history.log(epoch=epoch, train_loss=train_loss, val_loss=val_loss,
                     samples_per_sec=sps)
-        if verbose:
+        if verbose and lead:
             print(f"epoch {epoch}: train {train_loss:.5f} "
                   f"val {val_loss:.5f} ({sps:,.0f} samples/s)", flush=True)
         if early is not None and np.isfinite(val_loss) and \

@@ -5,9 +5,11 @@ one ``train_step`` call (the counterpart of
 JAX stacks the K states and vmaps the recipe's step over them.  Here the
 K trainers stay separate and the step loops over them, each on the same
 batch: a replica is its single-seed run, step for step.  Per-replica
-``lr_scales`` make the same machinery a learning-rate sweep.  Sharding
-the replicas over devices (``rules``) waits for the distribution slice;
-passing rules raises.
+``lr_scales`` make the same machinery a learning-rate sweep.  With
+``rules`` the seed axis is replicated over the data axis (a model axis
+of size 1, ``climsim_tpu/train/multiseed.py:90-114``): each replica's
+recipe gets ``rules`` and trains through its own DDP wrapper on this
+rank's rows, so every rank holds every replica.
 """
 
 from __future__ import annotations
@@ -107,9 +109,10 @@ def multiseed(recipe_fn: Callable, spec, stats, sample_batch,
               **recipe_kw) -> MultiSeedTrainer:
     """K replicas of ``recipe_fn(spec, stats, sample_batch, seed,
     **recipe_kw)``, one a seed, with optional per-replica learning-rate
-    multipliers (``TrainState.lr_scale``)."""
+    multipliers (``TrainState.lr_scale``); ``rules``, where given, goes to
+    every replica's recipe."""
     if rules is not None:
-        raise NotImplementedError("sharding rules are not ported yet")
+        recipe_kw["rules"] = rules
     if lr_scales is not None and len(lr_scales) != len(seeds):
         raise ValueError(f"{len(lr_scales)} lr_scales for {len(seeds)} "
                          "seeds")

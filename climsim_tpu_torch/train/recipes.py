@@ -47,6 +47,10 @@ class Trainer:
     input_transform: Callable | None = None
     apply: Callable | None = None   # (model, x_raw) -> preds
     stage2_step: Callable | None = None   # HSR: the NLL stage's step
+    # the step's parts, for another step over them (step_shardmap's);
+    # set by the flat-output recipes (_common)
+    loss_fn: Callable | None = None
+    optimizer: Optimizer | None = None
 
 
 class _OptaxRMSprop(torch.optim.Optimizer):
@@ -223,6 +227,8 @@ def _common(model, spec, stats, cfg, rules, rng, sample_batch,
         predict=make_predict_fn(apply_norm, rules),
         input_transform=in_t,
         apply=apply_norm,
+        loss_fn=loss_fn,
+        optimizer=opt,
     )
 
 

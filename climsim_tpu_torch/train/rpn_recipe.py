@@ -12,6 +12,13 @@ the members share no parameter, so member e's gradient is that of its own
 loss, and Adam is elementwise, so the update equals E separate Adams.  The
 input transform (kernel 1 on the card) runs once a step on the (E * B, D)
 rows.
+
+With ``rules`` (a model axis of size 1, ``climsim_tpu/run.py:150``) every
+rank holds all the members, rank 0's after the broadcast, and trains them
+on its slice of each member's bootstrap batch (``BootstrapLoader``); the
+gradients and the losses go through one all-reduce (a mean over the
+ranks) before Adam, so every rank takes the same update.  Validation
+(``eval_losses``, ``posterior``) runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -35,7 +42,11 @@ class RPNTrainer:
     the card."""
 
     def __init__(self, ensemble: RPNEnsemble, schedule: Callable,
-                 input_transform: Callable, target_transform: Callable):
+                 input_transform: Callable, target_transform: Callable,
+                 rules=None):
+        if rules is not None:
+            rules.params(ensemble)
+        self.rules = rules
         self.ensemble = ensemble
         self.opt_state = torch.optim.Adam(ensemble.net.parameters(), lr=0.0,
                                           betas=(0.9, 0.999), eps=1e-8)
@@ -59,6 +70,13 @@ class RPNTrainer:
         opt.zero_grad(set_to_none=True)
         losses = self._losses(x, yb)
         losses.sum().backward()
+        if self.rules is not None:
+            params = [p for p in self.ensemble.net.parameters()
+                      if p.grad is not None]
+            *grads, losses = self.rules.mean([p.grad for p in params]
+                                             + [losses])
+            for p, g in zip(params, grads):
+                p.grad.copy_(g)
         lr = float(np.float32(self.schedule(self.step)))
         for group in opt.param_groups:
             group["lr"] = lr
@@ -84,9 +102,12 @@ def rpn_trainer(spec: VarSpec, stats: NormStats, sample_x, rng,
                 decay_rate: float = 0.99,
                 cfg: T.TransformConfig | None = None,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                device="cuda") -> RPNTrainer:
+                rules=None, device="cuda") -> RPNTrainer:
     """``rng``: an int seed or a torch.Generator; the ensemble is drawn on
-    the host from it and moved to ``device``."""
+    the host from it and moved to ``device`` (``rules.device`` with
+    ``rules``)."""
+    if rules is not None:
+        device = rules.device
     del sample_x   # shapes come from the spec
     gen = rng if isinstance(rng, torch.Generator) else \
         torch.Generator().manual_seed(int(rng))
@@ -95,4 +116,5 @@ def rpn_trainer(spec: VarSpec, stats: NormStats, sample_x, rng,
     return RPNTrainer(ens, schedules.exponential(init_lr, decay_steps,
                                                  decay_rate),
                       T.make_input_transform(spec, stats, cfg, device),
-                      T.make_target_transform(spec, stats, cfg, device))
+                      T.make_target_transform(spec, stats, cfg, device),
+                      rules)

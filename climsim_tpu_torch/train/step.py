@@ -12,22 +12,33 @@ The state's ``rng`` is a host ``torch.Generator``: each step draws the
 step's dropout seed from it (JAX splits its key, ``step.py:55``), so the
 generator advances once a step and the card never waits for it.
 
-Distribution (the JAX ``rules=`` argument) waits for its slice; passing
-rules raises.
+With ``rules`` (``parallel.mesh.ShardingRules``) each rank runs the step
+on its rows of the global batch.  The train step runs the model through
+DDP (``rules.ddp``): its bucketed all-reduce of the gradients overlaps
+the backward, the counterpart of the psum XLA places in the JAX step
+(``climsim_tpu/train/step.py:46-79``).  ``state.params`` stays the bare
+module, so checkpoints and wrappers never meet DDP's ``module.`` keys.
+The metrics, train and eval, are means over the ranks, so every rank
+holds the global value.  ``train.step_shardmap`` spells the same
+reduction out as one explicit all-reduce.
+
+Dropout under ``rules``: every rank draws the same step seed from its
+generator (all ranks' generators are equal), and a rank other than 0
+folds its rank into it (``_step_seed``), as the JAX shard_map step does
+(``climsim_tpu/train/step_shardmap.py:40``).  So a rank's masks are not
+the global batch's mask at its rows, which the JAX auto-partitioned step
+draws; the two agree only without dropout.  Rank 0 keeps the seed, so a
+1-rank run is the run without rules, bit for bit.
 """
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Any, Callable
 
 import numpy as np
 import torch
-
-
-def _no_rules(rules) -> None:
-    if rules is not None:
-        raise NotImplementedError("sharding rules are not ported yet")
 
 
 @dataclass(frozen=True)
@@ -57,7 +68,10 @@ class TrainState:
 
 def create_train_state(params: torch.nn.Module, optimizer: Optimizer,
                        rng: torch.Generator, rules=None) -> TrainState:
-    _no_rules(rules)
+    """The state of ``params``; with ``rules``, rank 0's parameters are
+    broadcast first, so every rank starts equal."""
+    if rules is not None:
+        rules.params(params)
     return TrainState(params=params,
                       opt_state=optimizer.init(params.parameters()),
                       step=0, rng=rng, lr_scale=1.0)
@@ -75,62 +89,93 @@ def _clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
     return norm
 
 
+def _step_seed(state: TrainState, rules) -> int:
+    """The step's dropout seed: one draw of the state's generator, with
+    the rank folded in on a rank other than 0."""
+    seed = int(torch.randint(2**62, (), generator=state.rng))
+    if rules is not None and rules.rank:
+        seed = int(np.random.SeedSequence([seed, rules.rank]).generate_state(
+            1, np.uint64)[0] >> np.uint64(2))
+    return seed
+
+
+def _fill_missing_grads(model: torch.nn.Module) -> None:
+    """optax updates every parameter, with a zero gradient where the loss
+    does not reach it (HSR's log-precision net in its MSE stage): its
+    moments decay and its count advances.  torch's optimizers skip a
+    parameter whose grad is None, so give it zeros.  Under DDP a
+    parameter no rank reached has no grad on any rank, so every rank
+    fills the same zeros (F6)."""
+    for p in model.parameters():
+        if p.grad is None and p.requires_grad:
+            p.grad = torch.zeros_like(p)
+
+
+def _apply_update(optimizer: Optimizer, state: TrainState) -> None:
+    """Clip, set the learning rate and step the optimizer on the
+    gradients in place; advances ``state.step``."""
+    model, opt = state.params, state.opt_state
+    if optimizer.clip is not None:
+        _clip_by_global_norm(
+            [p.grad for p in model.parameters() if p.grad is not None],
+            optimizer.clip)
+    # lr_scale multiplies the learning rate, which is the same as scaling
+    # Adam's update, as the JAX step does (step.py:62); scaling the
+    # gradients instead would do nothing under Adam
+    lr = float(np.float32(optimizer.schedule(state.step))) * state.lr_scale
+    for group in opt.param_groups:
+        group["lr"] = lr
+    opt.step()
+    state.step += 1
+
+
 def make_train_step(loss_fn: Callable, optimizer: Optimizer, rules=None):
     """loss_fn(model, seed, xb, yb) -> (scalar loss, aux dict), where
     ``seed`` is the step's dropout seed (an int; None in evaluation).
 
     Returns step(state, xb, yb) -> (state, metrics); the state is updated
     in place (where JAX donated it) and returned.  Metrics stay on the
-    device: the step never waits for the card.
+    device: the step never waits for the card.  With ``rules``, xb and yb
+    are this rank's rows, ``loss_fn`` gets the DDP wrapper of the model,
+    and the metrics are the ranks' means.
     """
-    _no_rules(rules)
 
     def step(state: TrainState, xb, yb):
-        model, opt = state.params, state.opt_state
-        opt.zero_grad(set_to_none=True)
-        seed = int(torch.randint(2**62, (), generator=state.rng))
-        loss, aux = loss_fn(model, seed, xb, yb)
+        model = state.params
+        state.opt_state.zero_grad(set_to_none=True)
+        seed = _step_seed(state, rules)
+        net = model if rules is None else rules.ddp(model)
+        loss, aux = loss_fn(net, seed, xb, yb)
         loss.backward()
-        # optax updates every parameter, with a zero gradient where the
-        # loss does not reach it (HSR's log-precision net in its MSE
-        # stage): its moments decay and its count advances.  torch's
-        # optimizers skip a parameter whose grad is None, so give it zeros
-        for p in model.parameters():
-            if p.grad is None and p.requires_grad:
-                p.grad = torch.zeros_like(p)
-        if optimizer.clip is not None:
-            _clip_by_global_norm(
-                [p.grad for p in model.parameters() if p.grad is not None],
-                optimizer.clip)
-        # lr_scale multiplies the learning rate, which is the same as
-        # scaling Adam's update, as the JAX step does (step.py:62); scaling
-        # the gradients instead would do nothing under Adam
-        lr = float(np.float32(optimizer.schedule(state.step))) * state.lr_scale
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
-        state.step += 1
-        return state, {k: v.detach() for k, v in (("loss", loss),
-                                                   *aux.items())}
+        _fill_missing_grads(model)
+        metrics = {k: v.detach() for k, v in (("loss", loss), *aux.items())}
+        if rules is not None:
+            metrics = rules.mean_metrics(metrics)
+        _apply_update(optimizer, state)
+        return state, metrics
 
     return step
 
 
 def make_eval_step(loss_fn: Callable, rules=None):
-    _no_rules(rules)
+    """evaluate(model, xb, yb) -> metrics; with ``rules``, the ranks' means
+    of the metrics of their rows."""
 
     def evaluate(model, xb, yb):
         with torch.no_grad():
             loss, aux = loss_fn(model, None, xb, yb)
-        return {"loss": loss, **aux}
+        metrics = {"loss": loss, **aux}
+        return metrics if rules is None else rules.mean_metrics(metrics)
 
     return evaluate
 
 
 def make_predict_fn(apply_fn: Callable, rules=None,
                     batch_size: int | None = None):
-    """Batched full-split inference returning host numpy."""
-    _no_rules(rules)
+    """Batched full-split inference returning host numpy.  With ``rules``
+    each rank predicts a contiguous 1/world_size of every batch (the last
+    rank's part padded with its last row) and the parts are gathered, so
+    every rank returns the prediction of the whole split."""
 
     def predict(model, inputs, bs: int | None = batch_size):
         bs = bs or inputs.shape[0]
@@ -138,7 +183,47 @@ def make_predict_fn(apply_fn: Callable, rules=None,
         with torch.no_grad():
             for s in range(0, inputs.shape[0], bs):
                 xb = torch.as_tensor(np.asarray(inputs[s:s + bs]))
-                outs.append(apply_fn(model, xb).float().cpu().numpy())
+                outs.append(apply_fn(model, xb).float().cpu().numpy()
+                            if rules is None else
+                            _predict_split(apply_fn, model, xb, rules))
         return np.concatenate(outs, axis=0)
 
     return predict
+
+
+def _predict_split(apply_fn, model, xb: torch.Tensor, rules) -> np.ndarray:
+    n = rules.world_size
+    per = -(-xb.shape[0] // n)
+    mine = xb[rules.rank * per:(rules.rank + 1) * per]
+    if mine.shape[0] < per:   # the last part, short or empty: padded
+        src = mine if mine.shape[0] else xb
+        mine = torch.cat([mine, src[-1:].expand(per - mine.shape[0],
+                                               *xb.shape[1:])])
+    y = apply_fn(model, mine).float().contiguous()
+    parts = [torch.empty_like(y) for _ in range(n)]
+    torch.distributed.all_gather(parts, y, group=rules.mesh.group)
+    return torch.cat(parts)[:xb.shape[0]].cpu().numpy()
+
+
+@dataclass
+class StepInfo:
+    """FLOPs and peak memory of one train step (the counterpart of
+    ``CompiledStepInfo``, ``climsim_tpu/train/step.py:121-136``, the
+    reference's fvcore FlopCountAnalysis, HSR/training/hpo.py:30-35):
+    products counted by ``utils.profiling.cost_analysis``, kernel 5's
+    through its registered formula.  XLA's bytes accessed has no
+    counterpart."""
+
+    flops_per_step: float
+    peak_memory_bytes: float | None
+
+    @classmethod
+    def from_step(cls, train_step, state: TrainState, xb, yb) -> "StepInfo":
+        """Runs ``train_step`` once on a deep copy of ``state``: the
+        caller's state, optimizer and generator do not advance."""
+        from ..utils.profiling import cost_analysis
+
+        probe = copy.deepcopy(state)
+        c = cost_analysis(lambda: train_step(probe, xb, yb))
+        return cls(flops_per_step=c["flops"],
+                   peak_memory_bytes=c.get("peak_memory_bytes"))

@@ -99,8 +99,10 @@ def test_refuses_a_shard_it_cannot_read(shards, tmp_path):
     np.save(bad, x.astype(np.float64))
     with pytest.raises(OSError):
         PN.NativeLoader(bad, xp, 8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        PN.NativeLoader(xp, xp, 8, rules=object(), device="cpu")
+    # a global batch the processes cannot split
+    with pytest.raises(ValueError):
+        PN.NativeLoader(xp, xp, 8, process_index=0, process_count=3,
+                        device="cpu")
 
 
 def test_make_loader_takes_native_unless_asked(shards):

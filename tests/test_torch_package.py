@@ -52,6 +52,9 @@ SLICE_MODULES = (
     "climsim_tpu_torch.models.rpn", "climsim_tpu_torch.train.multiseed",
     "climsim_tpu_torch.train.rpn_recipe", "climsim_tpu_torch.run",
     "climsim_tpu_torch.bench_cnn", "climsim_tpu_torch.utils.flax_migrate",
+    "climsim_tpu_torch.train.hpo", "climsim_tpu_torch.parallel",
+    "climsim_tpu_torch.parallel.mesh", "climsim_tpu_torch.train.step_shardmap",
+    "climsim_tpu_torch.utils.profiling", "climsim_tpu_torch.run_hpo_sweep",
 )
 
 # the port's byte-for-byte copies of the JAX package's numpy-only modules
@@ -66,6 +69,7 @@ BYTE_COPIES = (
     ("climsim_tpu_torch/data/ingest.py", "climsim_tpu/data/ingest.py"),
     ("climsim_tpu_torch/data/csrc/climload.cpp", "runtime/climload.cpp"),
     ("climsim_tpu_torch/utils/flax_migrate.py", "climsim_tpu/utils/migrate.py"),
+    ("climsim_tpu_torch/train/hpo.py", "climsim_tpu/train/hpo.py"),
 )
 
 

@@ -89,8 +89,9 @@ def test_split_must_divide_into_blocks():
     with pytest.raises(ValueError):
         DeviceResidentLoader(x[:1000], y[:1000], 100, block_shuffle=64,
                              device="cpu")
-    with pytest.raises(NotImplementedError):
-        DeviceResidentLoader(x, y, 256, rules=object(), device="cpu")
+    with pytest.raises(ValueError):   # a batch 3 processes cannot split
+        DeviceResidentLoader(x, y, 256, process_index=0, process_count=3,
+                             device="cpu")
 
 
 def test_set_epoch_reproduces_an_epoch():

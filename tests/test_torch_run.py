@@ -147,10 +147,13 @@ def _tiny(*more):
         "data.num_synthetic=256", "data.batch_size=64", *more)
 
 
-@pytest.mark.parametrize("override", ["train.elastic=true",
-                                      "train.num_data_shards=2"])
-def test_distributed_branches_raise(override):
-    with pytest.raises(NotImplementedError, match="item 7"):
+@pytest.mark.parametrize("override,error,match", [
+    ("train.elastic=true", NotImplementedError, "next distribution slice"),
+    ("train.num_data_shards=2", ValueError, "needs 2 processes")])
+def test_distributed_branches_raise(override, error, match):
+    """train.elastic waits for the next slice; a data-parallel run outside
+    torchrun (world size 1) refuses to train on fewer ranks than asked."""
+    with pytest.raises(error, match=match):
         PRUN.run_experiment(_tiny(override), verbose=False, device="cpu")
 
 

@@ -143,12 +143,16 @@ def test_bootstrap_loader_equals_jax():
 
 def test_loaders_refuse_rules_and_processes():
     x, y = _data()
-    with pytest.raises(NotImplementedError):
-        PP.BatchLoader(x, y, 8, rules=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        PP.BatchLoader(x, y, 8, process_count=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        PP.ChunkedLoader(x, y, 8, rules=object(), device="cpu")
+    # over processes: a global batch they cannot split, a remainder batch
+    with pytest.raises(ValueError):
+        PP.BatchLoader(x, y, 8, process_index=0, process_count=3,
+                       device="cpu")
+    with pytest.raises(ValueError):
+        PP.BatchLoader(x, y, 8, process_index=0, process_count=2,
+                       drop_remainder=False, device="cpu")
+    with pytest.raises(ValueError):
+        PP.ChunkedLoader(x, y, 9, process_index=0, process_count=2,
+                         device="cpu")
     with pytest.raises(ValueError):
         PP.BatchLoader(x, y[:-1], 8, device="cpu")
 

@@ -292,9 +292,11 @@ def test_recipes_refuse_what_is_not_ported(data):
                                rtol=1e-5, atol=1e-7)
     with pytest.raises(KeyError):
         PR._optimizer(PS.constant(1e-3), "lion")
-    with pytest.raises(NotImplementedError):
-        PR.mlp_trainer(SPEC, stats, (x, y), 0, hidden=(8,), rules=object(),
-                       device="cpu")
+    # the model axis (members or seeds split over ranks) is the next slice
+    from climsim_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(NotImplementedError, match="model axis"):
+        make_mesh(num_data=1, num_model=2, device="cpu")
     # the energy and water penalties are ported; they need the grid
     with pytest.raises(ValueError, match="grid"):
         PR.online_mlp_trainer(get_varspec("v2_rh"),

@@ -292,9 +292,17 @@ def test_multiseed_lr_sweep():
         torch.testing.assert_close(before[1][k], after[1][k], rtol=0, atol=0)
     with pytest.raises(ValueError):
         ms.state.set_lr_scale([1.0])
-    with pytest.raises(NotImplementedError):
-        PMS.multiseed(PR.mlp_trainer, spec, stats, (x, y), [0],
-                      rules=object(), device="cpu")
+    # rules go to every replica's recipe (the seed axis replicated over
+    # the data axis)
+    seen = []
+
+    def recipe(*a, rules=None, **kw):
+        seen.append(rules)
+        return PR.mlp_trainer(*a, **kw)
+
+    PMS.multiseed(recipe, spec, stats, (x, y), [0, 1], rules="rules",
+                  hidden=(8,), device="cpu")
+    assert seen == ["rules", "rules"]
 
 
 def test_multiseed_hsr_stages_and_samples():
