@@ -4,7 +4,9 @@
 Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 (--zoo-first-seeds 0,1,2,3 builds the kernels, then only reads the
 zoo's first-loss gaps of phase 12 at those seeds, and exits;
---data-parallel-only builds them and runs phase 13 alone.)
+--data-parallel-only builds them and runs phase 13 alone;
+--dp-gap-seeds 0,1,2,3 builds them, then only runs 13b at those seeds
+with no bound on its float32 gaps, prints them, and exits.)
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from climsim_tpu_torch/ops/csrc (nvcc, sm_90a)
@@ -266,17 +268,19 @@ zoo's first-loss gaps of phase 12 at those seeds, and exits;
       kernel 5 82 times a U-Net step.
    b. DP_RANKS processes sharing the card over gloo (NCCL refuses two
       ranks on one GPU), each python -m climsim_tpu_torch.run's
-      run_experiment for mlp_v1 (published widths, float32 compute,
-      DP_STEPS steps, one validation batch) at train.num_data_shards =
-      DP_RANKS: the ranks' losses and weights equal; every step's loss,
-      the validation loss and the weights bit-equal to 1 process taking
-      each step as DP_RANKS micro-batches (the ranks' sums, in their
-      order); the first step's loss within DP_RTOL of the plain
-      1-process run's (the later steps' gaps printed: DP_RTOL says why
-      they grow); the checkpoint the ranks wrote (DistributedCheckpointer)
-      restored here at world size 1, bit-equal to rank 0's live state;
-      kernel 1 once a step and validation batch on each rank; ms a step
-      at 1 process and at DP_RANKS ranks (two ranks on one card: not a
+      run_experiment for mlp_v1 (published widths, DP_STEPS steps, one
+      validation batch) at train.num_data_shards = DP_RANKS, at the
+      preset's bf16 compute and then at float32: the ranks' losses and
+      weights equal; at bf16 every step's loss, the validation loss and
+      the weights bit-equal to 1 process taking each step as DP_RANKS
+      micro-batches (the ranks' sums, in their order); at float32 the
+      first step's loss within DP_RTOL and every step's and the
+      validation loss within DP_RUN_RTOL of the plain 1-process run's
+      (DP_RTOL says why they grow); the checkpoint the ranks wrote at
+      bf16 (DistributedCheckpointer) restored here at world size 1,
+      bit-equal to rank 0's live state; kernel 1 once a step and
+      validation batch on each rank and run; ms a step at 1 process in
+      micro-batches and at DP_RANKS ranks (two ranks on one card: not a
       scaling figure).
    c. run_hpo_sweep on the card: HPO_TRIALS trials, HPO_WORKERS worker
       processes, the victim SIGKILLed holding a claim, a stale timeout of
@@ -313,6 +317,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4284,20 +4289,28 @@ def zoo_phase(torch, K, card, seed, device="cuda"):
 DP_STEPS = 4              # steps of each data-parallel run
 DP_UNET_STEPS = 2
 DP_RANKS = 2              # ranks sharing the one card over gloo in 13b
-# 2 ranks against 1 process on the same global batches, relative: the
-# same sums in another order (tests/test_multihost.py:168), held on the
-# first step's loss, before any update.  After it the two differ in the
+# 13b runs mlp_v1 twice on its ranks.  At the preset's own bf16 compute
+# the whole run is held, bit for bit, to 1 process taking each step as
+# DP_RANKS micro-batches whose gradients and losses it averages: the
+# ranks' shapes and sums, in their order.  At float32 compute the run is
+# held to the plain 1-process run: the first step's loss, before any
+# update, within DP_RTOL (the same sums in another order,
+# tests/test_multihost.py:168), and every step's and the validation
+# loss within DP_RUN_RTOL.  After the first update the two differ in the
 # order of their gradient sums (two half-batch sums added, against one
 # sum), and Adam's first updates move every weight by about the learning
-# rate in the sign of its gradient, so a near-zero gradient whose sign
-# the order flips moves a weight the other way: on an H100 (PR 14, call
-# 1) the 4-step epoch's losses of 2 ranks were 1.1e-4 from 1 process.
-# So the whole run is held, bit for bit, to 1 process taking each step as
-# 2 micro-batches whose gradients and losses it averages: the sums the
-# ranks make, in their order.  Both run the mlp recipe at float32
-# compute: at bf16 a product's roundings flip between a batch and its
-# halves before any update.
+# rate in its gradient's sign, so a near-zero gradient whose sign the
+# order flips moves a weight the other way: on an H100 at seed 0 the
+# steps drifted 1.8e-7, 2.4e-5, 3.3e-4 and the validation 1.1e-4.
+# At bf16 a product's roundings flip between a batch and its halves
+# before any update, which is why this comparison runs at float32.
 DP_RTOL = 1e-6
+# The readings it rests on (--dp-gap-seeds 0,...,7, NVIDIA H100 80GB
+# HBM3 at 700 W), steps 2-4 and validation: the largest
+# 1.41e-2, seed 2's validation loss; its steps 1.8e-4, 1.5e-4, 1.2e-3;
+# seed 0 (the default) 1.8e-7, 2.4e-5, 3.3e-4, validation 1.1e-4; seeds
+# 4-6 at most 1.0e-4.  The bound is about twice the largest.
+DP_RUN_RTOL = 3e-2
 # the sweep of 13c: about a dozen trials, three workers on the one card.
 # A trial of 100 steps takes about a second there (PR 14, call 2: 200
 # steps, 12 trials on 2 survivors in 42.7 s with a 20 s stale timeout),
@@ -4318,12 +4331,13 @@ def dp_config(seed):
         "train.epochs=1", f"seed={seed}")
 
 
-def recording_mlp(torch, parts=1):
-    """The mlp recipe patched for 13b: float32 compute (DP_RTOL says why)
-    and each step's loss kept in ``record``; with ``parts`` > 1 a step
-    and an evaluation run as that many micro-batches whose gradients and
-    losses are averaged (divided by ``parts``, a power of 2: exact), the
-    sums ``parts`` ranks make.  Returns (undo, record)."""
+def recording_mlp(torch, parts=1, f32=False):
+    """The mlp recipe patched for 13b: each step's loss kept in
+    ``record``; with ``f32`` float32 compute (DP_RTOL says why), else the
+    preset's own; with ``parts`` > 1 a step and an evaluation run as that
+    many micro-batches whose gradients and losses are averaged (divided
+    by ``parts``, a power of 2: exact), the sums ``parts`` ranks make.
+    Returns (undo, record)."""
     from climsim_tpu_torch.train import recipes
     from climsim_tpu_torch.train.step import (_apply_update,
                                               _fill_missing_grads,
@@ -4333,7 +4347,8 @@ def recording_mlp(torch, parts=1):
     record = []
 
     def trainer(*a, **kw):
-        tr = real(*a, **dict(kw, compute_dtype=torch.float32))
+        tr = real(*a, **(dict(kw, compute_dtype=torch.float32) if f32
+                         else kw))
         step = tr.train_step
         evaluate = base_eval = tr.eval_step
         if parts > 1:
@@ -4507,8 +4522,9 @@ def dp_one_rank(torch, K, card, seed, tmp):
 def dp_rank_main(torch, rank, world, tmp, seed) -> int:
     """One of 13b's ranks (``--dp-rank``): a gloo group through a
     FileStore in ``tmp``, run_experiment at train.num_data_shards=world
-    on cuda:0 (LOCAL_RANK 0: the ranks share the card), the trained state
-    saved by DistributedCheckpointer, the results written for the
+    on cuda:0 (LOCAL_RANK 0: the ranks share the card), at the preset's
+    compute and then at float32.  The first run's trained state is saved
+    by DistributedCheckpointer; both runs' results are written for the
     parent."""
     import torch.distributed as dist
 
@@ -4518,21 +4534,33 @@ def dp_rank_main(torch, rank, world, tmp, seed) -> int:
 
     dist.init_process_group("gloo", store=dist.FileStore(
         os.path.join(tmp, "store_b"), world), rank=rank, world_size=world)
+    cfg = dp_config(seed).override(f"train.num_data_shards={world}")
     try:
-        _, record = recording_mlp(torch)
-        cfg = dp_config(seed).override(f"train.num_data_shards={world}")
-        out, launches, _ = counted(torch, K, lambda: PRUN.run_experiment(
-            cfg, verbose=False, device="cuda"))
+        runs = {}
+        for f32 in (False, True):
+            undo, record = recording_mlp(torch, f32=f32)
+            try:
+                out, launches, _ = counted(torch, K, lambda: (
+                    PRUN.run_experiment(cfg, verbose=False, device="cuda")))
+            finally:
+                undo()
+            runs[f32] = (out, [float(v) for v in record], launches)
+        out, steps, launches = runs[False]
         st = out["state"]
         ck = DistributedCheckpointer(os.path.join(tmp, "dcp"))
         ck.save(st.step, st)
         ck.wait()
+        out32, steps32, launches32 = runs[True]
         torch.save({
-            "steps": [float(v) for v in record],
+            "steps": steps,
             "history": [(r["train_loss"], r["val_loss"])
                         for r in out["history"].rows],
+            "steps_f32": steps32,
+            "history_f32": [(r["train_loss"], r["val_loss"])
+                            for r in out32["history"].rows],
             "samples_per_sec": out["history"].rows[0]["samples_per_sec"],
-            "launches": launches, "step": st.step,
+            "launches": launches, "launches_f32": launches32,
+            "step": st.step,
             "params": {k: v.cpu() for k, v in st.params.state_dict().items()},
             "opt": [{n: t.cpu() for n, t in s.items()}
                     for s in st.opt_state.state.values()],
@@ -4542,12 +4570,12 @@ def dp_rank_main(torch, rank, world, tmp, seed) -> int:
     return 0
 
 
-def dp_reference(torch, K, cfg, parts):
+def dp_reference(torch, K, cfg, parts, f32):
     """run_experiment for ``cfg`` in this process, through
-    ``recording_mlp(parts)``: (result, per-step losses, launches)."""
+    ``recording_mlp(parts, f32)``: (result, per-step losses, launches)."""
     from climsim_tpu_torch import run as PRUN
 
-    undo, record = recording_mlp(torch, parts)
+    undo, record = recording_mlp(torch, parts, f32)
     try:
         out, launches, _ = counted(torch, K, lambda: PRUN.run_experiment(
             cfg, verbose=False, device="cuda"))
@@ -4556,13 +4584,15 @@ def dp_reference(torch, K, cfg, parts):
     return out, [float(v) for v in record], launches
 
 
-def dp_two_ranks(torch, K, card, seed, tmp):
+def dp_two_ranks(torch, K, card, seed, tmp, run_rtol=DP_RUN_RTOL):
     """13b: DP_RANKS processes on the one card over gloo (NCCL refuses two
     ranks on one GPU), run_experiment for mlp_v1 at train.num_data_shards
-    = DP_RANKS.  The ranks equal; bit-equal to 1 process taking each step
-    as DP_RANKS micro-batches; the first step's loss within DP_RTOL of
-    the plain 1-process run's (the later steps' gaps printed); the
-    checkpoint the ranks wrote restored here, at world size 1."""
+    = DP_RANKS, at the preset's bf16 compute and at float32.  The ranks
+    equal each other; at bf16 bit-equal to 1 process taking each step as
+    DP_RANKS micro-batches; at float32 the first step's loss within
+    DP_RTOL and every step's and the validation loss within ``run_rtol``
+    of the plain 1-process run's; the checkpoint the ranks wrote at bf16
+    restored here, at world size 1."""
     from climsim_tpu_torch import run as PRUN
     from climsim_tpu_torch.train.checkpoints import DistributedCheckpointer
 
@@ -4590,13 +4620,16 @@ def dp_two_ranks(torch, K, card, seed, tmp):
              for r in range(DP_RANKS)]
     cfg = dp_config(seed)
     b = cfg.data.batch_size
-    one, plain_steps, launches1 = dp_reference(torch, K, cfg, 1)
-    micro, micro_steps, launches_m = dp_reference(torch, K, cfg, DP_RANKS)
+    micro, micro_steps, launches_m = dp_reference(torch, K, cfg, DP_RANKS,
+                                                  False)
+    one, plain_steps, launches1 = dp_reference(torch, K, cfg, 1, True)
     r0 = ranks[0]
     for r, rk in enumerate(ranks[1:], 1):
-        require(rk["steps"] == r0["steps"] and rk["history"] ==
-                r0["history"], f"13b: rank {r}'s losses {rk['steps']} "
-                f"against rank 0's {r0['steps']}")
+        for run in ("", "_f32"):
+            require(rk["steps" + run] == r0["steps" + run]
+                    and rk["history" + run] == r0["history" + run],
+                    f"13b{run}: rank {r}'s losses {rk['steps' + run]} "
+                    f"against rank 0's {r0['steps' + run]}")
         same_params(torch, f"13b rank {r} against rank 0", rk["params"],
                     r0["params"])
     micro_hist = [(h["train_loss"], h["val_loss"])
@@ -4606,19 +4639,29 @@ def dp_two_ranks(torch, K, card, seed, tmp):
             f"1 process in micro-batches {micro_steps} {micro_hist}")
     same_params(torch, "13b ranks against 1 process in micro-batches",
                 micro["state"].params.state_dict(), r0["params"])
-    first_gap = abs(r0["steps"][0] - plain_steps[0]) / abs(plain_steps[0])
-    require(first_gap <= DP_RTOL, f"13b: the first step's loss "
-            f"{r0['steps'][0]} on {DP_RANKS} ranks, {plain_steps[0]} on 1 "
-            f"process: {first_gap:.3e} relative")
-    step_gaps = [abs(a - w) / abs(w) for a, w in zip(r0["steps"],
+    one_val = one["history"].rows[0]["val_loss"]
+    first_gap = abs(r0["steps_f32"][0] - plain_steps[0]) / abs(
+        plain_steps[0])
+    step_gaps = [abs(a - w) / abs(w) for a, w in zip(r0["steps_f32"],
                                                       plain_steps)]
-    val_gap = abs(r0["history"][0][1] - one["history"].rows[0]["val_loss"]) \
-        / abs(one["history"].rows[0]["val_loss"])
+    val_gap = abs(r0["history_f32"][0][1] - one_val) / abs(one_val)
+    require(len(r0["steps_f32"]) == len(plain_steps) == DP_STEPS,
+            f"13b: {len(r0['steps_f32'])} steps on the ranks, "
+            f"{len(plain_steps)} in 1 process")
+    require(first_gap <= DP_RTOL, f"13b: the first step's loss at float32 "
+            f"{r0['steps_f32'][0]} on {DP_RANKS} ranks, {plain_steps[0]} on "
+            f"1 process: {first_gap:.3e} relative")
+    require(max(step_gaps + [val_gap]) <= run_rtol, "13b: the float32 "
+            f"losses on {DP_RANKS} ranks {r0['steps_f32']}, validation "
+            f"{r0['history_f32'][0][1]}, against 1 process {plain_steps}, "
+            f"{one_val}: relative gaps {step_gaps}, {val_gap:.3e} "
+            f"(bound {run_rtol:g})")
     for r, rk in enumerate(ranks):
-        require(rk["launches"]["fused_input_transform"] == DP_STEPS + 1,
-                f"13b rank {r}: kernel 1 launched "
-                f"{rk['launches']['fused_input_transform']} times in "
-                f"{DP_STEPS} steps and 1 validation batch")
+        for run in ("launches", "launches_f32"):
+            require(rk[run]["fused_input_transform"] == DP_STEPS + 1,
+                    f"13b rank {r}: kernel 1 launched "
+                    f"{rk[run]['fused_input_transform']} times in "
+                    f"{DP_STEPS} steps and 1 validation batch ({run})")
     require(launches1["fused_input_transform"] == DP_STEPS + 1
             and launches_m["fused_input_transform"]
             == DP_RANKS * (DP_STEPS + 1), "13b, 1 process: kernel 1 "
@@ -4640,34 +4683,53 @@ def dp_two_ranks(torch, K, card, seed, tmp):
             "13b restored step or generator")
     # ms a step from fit's rate (global rows over the epoch's wall time:
     # DP_STEPS steps with the epoch's permutation, and on the ranks the
-    # first step's DDP set-up)
-    ms1 = b / one["history"].rows[0]["samples_per_sec"] * 1e3
+    # first step's DDP set-up), the preset's compute on both sides
+    ms1 = b / micro["history"].rows[0]["samples_per_sec"] * 1e3
     ms2 = [b / rk["samples_per_sec"] * 1e3 for rk in ranks]
     print(f"{card}: 13b, {DP_RANKS} ranks on ONE card over gloo (not a "
           f"scaling figure: the ranks share the card and the all-reduce "
-          f"goes through the host): mlp_v1 B={b} (float32 compute), "
-          f"{DP_STEPS} steps and 1 validation batch: the ranks equal, "
-          f"bit-equal to 1 process in {DP_RANKS} micro-batches; the first "
-          f"step's loss {first_gap:.3e} from the plain 1-process run's "
+          f"goes through the host): mlp_v1 B={b}, {DP_STEPS} steps and 1 "
+          f"validation batch: the ranks equal; at bf16 compute bit-equal to "
+          f"1 process in {DP_RANKS} micro-batches; at float32 against the "
+          f"plain 1-process run the first step's loss {first_gap:.3e} "
           f"(bound {DP_RTOL:g}), the steps' " + ", ".join(
               f"{g:.3e}" for g in step_gaps) + f", validation {val_gap:.3e}"
-          f"; ms a step 1 process {ms1:.3f}, {DP_RANKS} ranks "
+          f" (bound {run_rtol:g}); ms a step (bf16) 1 process in "
+          f"{DP_RANKS} micro-batches {ms1:.3f}, {DP_RANKS} ranks "
           + ", ".join(f"{v:.3f}" for v in ms2)
           + f"; the ranks' checkpoint restored at world size 1 bit-equal; "
-          f"kernel 1 {DP_STEPS + 1} times a rank; ranks' wall "
+          f"kernel 1 {DP_STEPS + 1} times a rank and run; ranks' wall "
           f"{spawn_s:.1f} s", flush=True)
     total = {}
-    for launches in (launches1, launches_m, *(rk["launches"]
-                                              for rk in ranks)):
+    for launches in (launches1, launches_m, *(rk[run] for rk in ranks
+                                              for run in ("launches",
+                                                          "launches_f32"))):
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
     return {"batch": b, "step_losses_ranks": r0["steps"],
-            "step_losses_1_process": plain_steps,
+            "step_losses_ranks_f32": r0["steps_f32"],
+            "step_losses_1_process_f32": plain_steps,
             "first_step_rel_gap": first_gap, "step_rel_gaps": step_gaps,
-            "val_rel_gap": val_gap, "ms_a_step_1_process": ms1,
+            "val_rel_gap": val_gap, "ms_a_step_1_process_micro": ms1,
             "ms_a_step_ranks": ms2, "ranks_wall_s": spawn_s,
             "launches_a_rank": [rk["launches"]["fused_input_transform"]
                                 for rk in ranks]}, total
+
+
+def dp_gap_seeds(torch, K, card, seeds):
+    """--dp-gap-seeds: 13b at each of ``seeds`` with no bound on the float32
+    run's gaps; its other checks hold.  Returns each seed's gaps (the
+    readings DP_RUN_RTOL rests on)."""
+    out = {}
+    for seed in seeds:
+        with tempfile.TemporaryDirectory() as tmp:
+            r, _ = dp_two_ranks(torch, K, card, seed, tmp, math.inf)
+        out[seed] = {"first": r["first_step_rel_gap"],
+                     "steps": r["step_rel_gaps"], "val": r["val_rel_gap"]}
+    worst = max(max(g["steps"] + [g["val"]]) for g in out.values())
+    print(f"{card}: 13b float32 gaps by seed, largest {worst:.3e} (bound "
+          f"{DP_RUN_RTOL:g})", flush=True)
+    return out
 
 
 def hpo_phase(torch, K, card, seed, tmp):
@@ -4887,6 +4949,10 @@ def main(argv=None) -> int:
                     help="only read the zoo's first-loss gaps, card against "
                     "CPU, at these seeds (the readings their tolerances "
                     "rest on), print them and exit")
+    ap.add_argument("--dp-gap-seeds", metavar="S,S,...",
+                    help="only run 13b at these seeds, read its float32 "
+                    "gaps to 1 process (the readings DP_RUN_RTOL rests on), "
+                    "print them and exit")
     ap.add_argument("--data-parallel-only", action="store_true",
                     help="build the kernels, run phase 13 alone, exit")
     # one rank of phase 13b, started by the script itself
@@ -4943,6 +5009,11 @@ def main(argv=None) -> int:
         gaps = zoo_first_gaps(torch, card, [int(v) for v in
                                             args.zoo_first_seeds.split(",")])
         print(json.dumps({"card": card, "zoo_first_gaps": gaps}))
+        return 0
+    if args.dp_gap_seeds:
+        gaps = dp_gap_seeds(torch, K, card, [int(v) for v in
+                                             args.dp_gap_seeds.split(",")])
+        print(json.dumps({"card": card, "dp_gaps": gaps}))
         return 0
     if args.data_parallel_only:
         t0 = time.perf_counter()

@@ -107,18 +107,16 @@ class NativeLoader(_Streaming):
     with the engine's mt19937_64 seeded ``seed + e``, as the JAX loader
     does, so the two yield the same batches.
 
-    Over several processes (``rules``, ``process_index``,
-    ``process_count``) every rank's engine gathers the whole global batch
-    (its permutation lives in the engine) and the rank stages only its
-    contiguous 1/process_count of the rows, as the numpy loaders do."""
+    Over several processes (``rules``) every rank's engine gathers the
+    whole global batch (its permutation lives in the engine) and the rank
+    stages only its contiguous 1/world_size of the rows, as the numpy
+    loaders do."""
 
     def __init__(self, input_path: str, target_path: str, batch_size: int,
                  threads: int = 4, ring: int = 4, shuffle: bool = True,
                  seed: int = 0, rules=None, prefetch: int = 2,
-                 process_index: int | None = None,
-                 process_count: int | None = None, device="cuda"):
-        self.pidx, self.pcount = _process_split(
-            rules, process_index, process_count, batch_size)
+                 device="cuda"):
+        self.pidx, self.pcount = _process_split(rules, batch_size)
         if rules is not None:
             device = rules.device
         self._init_streaming(device, prefetch)

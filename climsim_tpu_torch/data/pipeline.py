@@ -27,10 +27,10 @@ does not hand its memory to a later copy while the step still reads it.
 On the CPU the rows are gathered into fresh arrays and yielded as they
 are.  A fault on the producer thread is raised in the consumer.
 
-Data-parallel loading (``rules``, ``process_index``, ``process_count``,
-as ``climsim_tpu/data/pipeline.py:49-107``): ``batch_size`` stays the
-global batch; every rank draws the same permutation (the same seed) and
-stages only its contiguous 1/process_count of each global batch
+Data-parallel loading (``rules``, as
+``climsim_tpu/data/pipeline.py:49-107``): ``batch_size`` stays the global
+batch; every rank draws the same permutation (the same seed) and stages
+only its contiguous 1/world_size of each global batch
 (``local_indices``), through its own pinned ring and copy stream, onto
 its device.  The global batch must divide over the ranks, and a
 remainder batch is never drawn (``drop_remainder``).
@@ -55,16 +55,16 @@ def _epoch_seed(seed: int, epoch: int) -> int:
                                                                     np.uint64)[0])
 
 
-def _process_split(rules, process_index, process_count, batch_size: int,
+def _process_split(rules, batch_size: int,
                    drop_remainder: bool = True) -> tuple[int, int]:
-    """(this process's index, the process count): given, else the rules'
-    rank and world size, else (0, 1).  More than one process needs a
-    global batch that divides over them and drop_remainder: a remainder
-    batch would not divide, and local_indices would drop its rows."""
-    pcount = (process_count if process_count is not None
-              else rules.world_size if rules is not None else 1)
-    pidx = (process_index if process_index is not None
-            else rules.rank if rules is not None else 0)
+    """(this process's rank, the world size) from ``rules``, else (0, 1):
+    one process drives one device, so the JAX loaders' process_index and
+    process_count are the rank and the world size.  More than one
+    process needs a global batch that divides over them and
+    drop_remainder: a remainder batch would not divide, and local_indices
+    would drop its rows."""
+    pidx, pcount = (rules.rank, rules.world_size) if rules is not None \
+        else (0, 1)
     if pcount > 1:
         if batch_size % pcount:
             raise ValueError(f"global batch {batch_size} does not divide "
@@ -73,7 +73,7 @@ def _process_split(rules, process_index, process_count, batch_size: int,
             raise ValueError("multi-process loading needs "
                              "drop_remainder=True")
     if not 0 <= pidx < pcount:
-        raise ValueError(f"process_index {pidx} of {pcount}")
+        raise ValueError(f"rank {pidx} of {pcount}")
     return pidx, pcount
 
 
@@ -219,9 +219,9 @@ class BatchLoader(_Streaming):
     The epoch's order is ``default_rng(seed).permutation(n)``, as the JAX
     loader draws it; each batch's rows are gathered on the producer thread
     into a pinned buffer and copied on the loader's copy stream.
-    ``batch_size`` is the global batch; with ``process_count`` > 1 (or
-    ``rules`` of more than one rank) this process gathers and stages only
-    its ``local_indices`` of each, onto ``rules.device``.
+    ``batch_size`` is the global batch; with ``rules`` of more than one
+    rank this process gathers and stages only its ``local_indices`` of
+    each, onto ``rules.device``.
     """
 
     placement = BATCH       # how a draw's indices lie over the ranks
@@ -229,11 +229,9 @@ class BatchLoader(_Streaming):
     def __init__(self, inputs: np.ndarray, targets: np.ndarray,
                  batch_size: int, rules=None, shuffle: bool = True,
                  seed: int = 0, prefetch: int = 2,
-                 drop_remainder: bool = True,
-                 process_index: int | None = None,
-                 process_count: int | None = None, device="cuda"):
-        self.pidx, self.pcount = _process_split(
-            rules, process_index, process_count, batch_size, drop_remainder)
+                 drop_remainder: bool = True, device="cuda"):
+        self.pidx, self.pcount = _process_split(rules, batch_size,
+                                                drop_remainder)
         if rules is not None:
             device = rules.device
         if inputs.shape[0] != targets.shape[0]:
@@ -298,21 +296,17 @@ class ChunkedLoader(BatchLoader):
     draws K*B rows, so the batch order equals ``BatchLoader(batch_size=
     K*B)``'s with the same seed, consumed K steps at a time; a partial
     superbatch is dropped.  Over several processes each gets its columns
-    of every step's batch, (K, B / process_count, D) (the JAX loader's
+    of every step's batch, (K, B / world_size, D) (the JAX loader's
     chunk sharding, ``climsim_tpu/data/pipeline.py:176-180``)."""
 
     placement = CHUNK
 
     def __init__(self, inputs, targets, batch_size: int,
                  steps_per_chunk: int = 8, rules=None, shuffle=True,
-                 seed: int = 0, prefetch: int = 2,
-                 process_index: int | None = None,
-                 process_count: int | None = None, device="cuda"):
-        _process_split(rules, process_index, process_count, batch_size)
+                 seed: int = 0, prefetch: int = 2, device="cuda"):
+        _process_split(rules, batch_size)
         super().__init__(inputs, targets, batch_size * steps_per_chunk,
-                         rules, shuffle, seed, prefetch,
-                         process_index=process_index,
-                         process_count=process_count, device=device)
+                         rules, shuffle, seed, prefetch, device=device)
         self.micro_batch = batch_size
         self.steps_per_chunk = steps_per_chunk
 
@@ -351,18 +345,16 @@ class BootstrapLoader(BatchLoader):
     and the draws are the JAX loader's, from the same ``default_rng``
     stream.  Over several processes (a model axis of size 1: every member
     on every rank) each gets its slice of each member's batch, (E, B /
-    process_count, D) (``climsim_tpu/data/pipeline.py:258-262``)."""
+    world_size, D) (``climsim_tpu/data/pipeline.py:258-262``)."""
 
     placement = ENSEMBLE_BATCH
 
     def __init__(self, inputs, targets, batch_size, ensemble_size,
                  subset_fraction: float = 0.8, rules=None, seed: int = 0,
                  steps_per_epoch: int = 100, prefetch: int = 2,
-                 process_index: int | None = None,
-                 process_count: int | None = None, device="cuda"):
+                 device="cuda"):
         super().__init__(inputs, targets, batch_size, rules, True, seed,
-                         prefetch, process_index=process_index,
-                         process_count=process_count, device=device)
+                         prefetch, device=device)
         n = inputs.shape[0]
         m = int(subset_fraction * n)
         self.member_subsets = np.stack([
@@ -409,7 +401,7 @@ class DeviceResidentLoader:
 
     Over several processes every rank keeps the WHOLE split resident (the
     v1 split is 2.11 GB, 3% of an H100) and draws the same permutation;
-    each batch is its contiguous 1/process_count of the global batch, so
+    each batch is its contiguous 1/world_size of the global batch, so
     the ranks' batches are the 1-process loader's, split by rank.  (A rank
     holding only its rows could not take its part of a batch drawn from
     the whole split without exchanging rows.)
@@ -417,11 +409,8 @@ class DeviceResidentLoader:
 
     def __init__(self, inputs, targets, batch_size: int, rules=None,
                  shuffle: bool = True, seed: int = 0,
-                 block_shuffle: int | None = None,
-                 process_index: int | None = None,
-                 process_count: int | None = None, device="cuda"):
-        self.pidx, self.pcount = _process_split(
-            rules, process_index, process_count, batch_size)
+                 block_shuffle: int | None = None, device="cuda"):
+        self.pidx, self.pcount = _process_split(rules, batch_size)
         if rules is not None:
             device = rules.device
         self.block = block_shuffle if shuffle else None

@@ -118,8 +118,6 @@ class Placement:
 
 
 BATCH = Placement((DATA_AXIS,))
-REPLICATED = Placement(())
-ENSEMBLE = Placement((MODEL_AXIS,))
 # (E, B, ...) member batches: members over the model axis, each member's
 # batch over the data axis
 ENSEMBLE_BATCH = Placement((MODEL_AXIS, DATA_AXIS))
@@ -142,18 +140,15 @@ class _DDP(torch.nn.parallel.DistributedDataParallel):
 
 class ShardingRules:
     """Where the training step's tensors live: the batch over the data
-    axis, parameters and optimizer state replicated, the ensemble axis
-    over the model axis (size 1).  Holds the DDP wrapper of each module it
-    has wrapped, so that two steps of one model (HSR's stages) share one
-    reducer."""
+    axis, parameters and optimizer state whole on every rank.  Holds the
+    DDP wrapper of each module it has wrapped, so that two steps of one
+    model (HSR's stages) share one reducer."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
         self._wrapped: dict = {}
 
     batch = BATCH
-    replicated = REPLICATED
-    ensemble = ENSEMBLE
     ensemble_batch = ENSEMBLE_BATCH
     chunk = CHUNK
 
@@ -193,18 +188,25 @@ class ShardingRules:
             a, torch.Tensor) else a).to(self.device) for a in arrays)
         return out[0] if len(out) == 1 else out
 
-    def ddp(self, model: torch.nn.Module) -> _DDP:
+    def ddp(self, model: torch.nn.Module,
+            unused_parameters: bool = False) -> _DDP:
         """The DDP wrapper of ``model``, made at the first call (a
         collective: every rank makes it at the same step).
-        ``find_unused_parameters``: HSR's log-precision net gets no
-        gradient in its MSE stage, and the reducer must know that."""
+
+        ``unused_parameters``: the loss may leave some parameters without
+        a gradient (HSR's log-precision net in its MSE stage).  The
+        reducer then walks the autograd graph after every forward to find
+        them, which costs every step, so only a trainer whose loss leaves
+        parameters unused asks for it; the first call's choice holds for
+        the model.  Without it such a parameter makes DDP raise at the
+        next step."""
         key = id(model)
         got = self._wrapped.get(key)
         if got is None or got.module is not model:
             dev = self.device
             got = _DDP(model, device_ids=[dev] if dev.type == "cuda" else None,
                        process_group=self.mesh.group,
-                       find_unused_parameters=True)
+                       find_unused_parameters=unused_parameters)
             self._wrapped[key] = got
         return got
 
@@ -226,13 +228,3 @@ class ShardingRules:
     def barrier(self) -> None:
         dist.barrier(group=self.mesh.group)
 
-
-def pad_to_multiple(x: np.ndarray, multiple: int):
-    """Pad the batch dim up to a multiple (for even sharding); returns
-    (padded, real_count)."""
-    n = x.shape[0]
-    rem = (-n) % multiple
-    if rem == 0:
-        return x, n
-    pad = np.repeat(x[-1:], rem, axis=0)
-    return np.concatenate([x, pad], axis=0), n

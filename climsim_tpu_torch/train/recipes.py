@@ -391,13 +391,16 @@ def hsr_trainer(spec: VarSpec, stats: NormStats, sample_batch, rng,
         return model_.sample(in_t(x_raw.to(device)),
                              step_generator(seed, device), num_samples)
 
+    # the MSE stage leaves the log-precision net without a gradient; the
+    # two stages share one DDP wrapper, so both say so
     return Trainer(model=model, state=_state(model, opt, rng, rules),
-                   train_step=make_train_step(make_loss(True), opt, rules),
+                   train_step=make_train_step(make_loss(True), opt, rules,
+                                              unused_parameters=True),
                    eval_step=make_eval_step(make_loss(False), rules),
                    predict=make_predict_fn(apply_norm, rules),
                    sample=sample, input_transform=in_t, apply=apply_norm,
-                   stage2_step=make_train_step(make_loss(False), opt,
-                                               rules))
+                   stage2_step=make_train_step(make_loss(False), opt, rules,
+                                               unused_parameters=True))
 
 
 def _normal(seed: int | None, shape, device) -> torch.Tensor:

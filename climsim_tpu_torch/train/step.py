@@ -129,7 +129,8 @@ def _apply_update(optimizer: Optimizer, state: TrainState) -> None:
     state.step += 1
 
 
-def make_train_step(loss_fn: Callable, optimizer: Optimizer, rules=None):
+def make_train_step(loss_fn: Callable, optimizer: Optimizer, rules=None,
+                    unused_parameters: bool = False):
     """loss_fn(model, seed, xb, yb) -> (scalar loss, aux dict), where
     ``seed`` is the step's dropout seed (an int; None in evaluation).
 
@@ -137,14 +138,17 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, rules=None):
     in place (where JAX donated it) and returned.  Metrics stay on the
     device: the step never waits for the card.  With ``rules``, xb and yb
     are this rank's rows, ``loss_fn`` gets the DDP wrapper of the model,
-    and the metrics are the ranks' means.
+    and the metrics are the ranks' means.  ``unused_parameters`` says that
+    the loss leaves some parameters without a gradient
+    (``ShardingRules.ddp``); it matters only under ``rules``.
     """
 
     def step(state: TrainState, xb, yb):
         model = state.params
         state.opt_state.zero_grad(set_to_none=True)
         seed = _step_seed(state, rules)
-        net = model if rules is None else rules.ddp(model)
+        net = model if rules is None else rules.ddp(model,
+                                                    unused_parameters)
         loss, aux = loss_fn(net, seed, xb, yb)
         loss.backward()
         _fill_missing_grads(model)

@@ -52,8 +52,14 @@ def _x(n=64, d=3):
     return x, -x
 
 
+def _rules(world, rank):
+    """Rank ``rank`` of ``world`` on the CPU, without a process group (the
+    loaders read only the rank and the world size)."""
+    return PM.ShardingRules(PM.Mesh(world, rank, torch.device("cpu"), None))
+
+
 def _batches(make, pidx, pcount, epochs=2):
-    ld = make(process_index=pidx, process_count=pcount)
+    ld = make(rules=_rules(pcount, pidx))
     out = []
     for _ in range(epochs):
         out += [tuple(np.asarray(t) for t in b) for b in ld]
@@ -100,27 +106,25 @@ def test_local_indices_partition_global_batch(name, tmp_path):
             assert b0.shape[axis] == a.shape[axis] // 2
             np.testing.assert_array_equal(
                 np.concatenate([b0, b1], axis=axis), a)
-    ld = PP.BatchLoader(*_x(), 16, seed=3, process_index=1, process_count=2,
-                        device="cpu")
+    ld = PP.BatchLoader(*_x(), 16, seed=3, rules=_rules(2, 1))
     idx = next(ld._index_stream())
     np.testing.assert_array_equal(ld.local_indices(idx), idx[8:])
 
 
 @pytest.mark.parametrize("name", sorted(LOADERS))
 def test_global_batch_size_must_divide(name, tmp_path):
-    """A global batch the processes cannot split raises, and so does an
-    index outside the process count."""
+    """A global batch the ranks cannot split raises, and so does a rank
+    outside the world."""
     make = functools.partial(LOADERS[name], tmp_path)
     with pytest.raises(ValueError):
-        make(process_index=0, process_count=3)
+        make(rules=_rules(3, 0))
     with pytest.raises(ValueError):
-        make(process_index=2, process_count=2)
+        make(rules=_rules(2, 2))
 
 
 def test_remainder_batches_refused_over_processes():
     with pytest.raises(ValueError, match="drop_remainder"):
-        PP.BatchLoader(*_x(), 16, process_index=0, process_count=2,
-                       drop_remainder=False, device="cpu")
+        PP.BatchLoader(*_x(), 16, rules=_rules(2, 0), drop_remainder=False)
 
 
 def test_mesh_refusals_and_placements():
@@ -135,12 +139,8 @@ def test_mesh_refusals_and_placements():
     np.testing.assert_array_equal(rules.local(a.T, rules.chunk), a.T[:, 4:6])
     np.testing.assert_array_equal(rules.local(a.T, rules.ensemble_batch),
                                   a.T[:, 4:6])
-    np.testing.assert_array_equal(rules.local(a, rules.ensemble), a)
-    np.testing.assert_array_equal(rules.local(a, rules.replicated), a)
     with pytest.raises(ValueError):
         rules.local(a.T, rules.batch)        # 3 rows over 4 ranks
-    x, n = PM.pad_to_multiple(np.arange(5)[:, None], 4)
-    assert n == 5 and x.shape == (8, 1) and x[-1, 0] == 4
 
 
 def test_torchrun_env_absent_does_nothing(monkeypatch):
@@ -242,6 +242,71 @@ def test_one_rank_rpn_and_replicas_are_the_runs_without_rules(one_rank):
     for a, b in zip([p[1], *p[3]], [q[1], *q[3]]):
         for k, v in a.items():
             torch.testing.assert_close(b[k], v, rtol=0, atol=0)
+
+
+_UNET = dict(model_channels=8, channel_mult=(1,), num_blocks=1)
+RECIPES = {   # varspec, trainer keywords (tiny widths)
+    "mlp_trainer": ("v1", dict(hidden=(16,))),
+    "mlp_v2_trainer": ("v1", dict(hidden=(16, 16))),
+    "ed_trainer": ("v1", {}),
+    "online_mlp_trainer": ("v2_rh", dict(hidden=(16,))),
+    "cnn_trainer": ("v1", dict(depth=2, channels=8)),
+    "hsr_trainer": ("v1", dict(hidden=16, layers=1)),
+    "cvae_trainer": ("v1", dict(latent=4, hidden=16, layers=1)),
+    "unet_trainer": ("v5", dict(model_kw=_UNET)),
+    "unet_classifier_trainer": ("v5", dict(model_kw=_UNET)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RECIPES))
+def test_one_rank_recipes_are_the_runs_without_rules(name, one_rank,
+                                                     monkeypatch):
+    """Every recipe's steps (HSR's two stages) through its DDP wrapper at
+    world size 1: bit-equal to the steps without rules.  Only HSR's
+    wrapper searches for unused parameters; its MSE stage without that
+    search makes DDP raise at the next step."""
+    from climsim_tpu_torch import get_varspec, load_asset_norms
+    from climsim_tpu_torch.norms import identity_norms
+    from climsim_tpu_torch.train import recipes as PR
+
+    vs, kw = RECIPES[name]
+    spec = get_varspec(vs)
+    norms = load_asset_norms("v5") if vs == "v5" else identity_norms(spec)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((32, spec.input_len))
+                         .astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal((32, spec.output_len))
+                         .astype(np.float32))
+    out, w = {}, None
+    for arm in ("plain", "rules"):
+        tr = getattr(PR, name)(spec, norms, None, 0,
+                               rules=None if arm == "plain" else one_rank,
+                               device="cpu", **kw)
+        w = w or R.params(tr.model)
+        tr.model.load_state_dict(w)
+        steps = [tr.train_step] * 2 + [tr.stage2_step] * (
+            2 if tr.stage2_step else 0)
+        state, losses = tr.state, []
+        for step in steps:
+            state, m = step(state, x, y)
+            losses.append(float(m["loss"]))
+        out[arm] = (losses, R.params(tr.model))
+        wrapper = one_rank._wrapped.get(id(tr.model))
+        if wrapper is not None:
+            assert wrapper.find_unused_parameters == (name == "hsr_trainer")
+    assert out["rules"][0] == out["plain"][0]
+    for k, v in out["plain"][1].items():
+        torch.testing.assert_close(out["rules"][1][k], v, rtol=0, atol=0)
+    if name == "hsr_trainer":   # the MSE stage without the search
+        real = PR.make_train_step
+        monkeypatch.setattr(PR, "make_train_step", lambda *a, **k: real(
+            *a, **dict(k, unused_parameters=False)))
+        tr = PR.hsr_trainer(spec, norms, None, 0, rules=one_rank,
+                            device="cpu", **kw)
+        with pytest.raises(RuntimeError, match="find_unused_parameters"):
+            state = tr.state
+            for _ in range(2):
+                state, _ = tr.train_step(state, x, y)
 
 
 def _spawn(case, tmp_path, inp, world=2, timeout=240):

@@ -13,6 +13,7 @@ import torch
 from climsim_tpu.data import native as JN
 from climsim_tpu_torch.data import native as PN
 from climsim_tpu_torch.data.pipeline import BatchLoader
+from climsim_tpu_torch.parallel import mesh as PM
 
 
 @pytest.fixture(scope="module")
@@ -101,8 +102,8 @@ def test_refuses_a_shard_it_cannot_read(shards, tmp_path):
         PN.NativeLoader(bad, xp, 8, device="cpu")
     # a global batch the processes cannot split
     with pytest.raises(ValueError):
-        PN.NativeLoader(xp, xp, 8, process_index=0, process_count=3,
-                        device="cpu")
+        PN.NativeLoader(xp, xp, 8, rules=PM.ShardingRules(
+            PM.Mesh(3, 0, torch.device("cpu"), None)))
 
 
 def test_make_loader_takes_native_unless_asked(shards):

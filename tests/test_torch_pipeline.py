@@ -13,6 +13,7 @@ import torch
 from climsim_tpu.data.pipeline import DeviceResidentLoader as JaxLoader
 from climsim_tpu.varspec import get_varspec
 from climsim_tpu_torch.data.pipeline import DeviceResidentLoader
+from climsim_tpu_torch.parallel import mesh as PM
 from climsim_tpu_torch.train import recipes as PR
 
 N, D = 1024, 6
@@ -89,9 +90,9 @@ def test_split_must_divide_into_blocks():
     with pytest.raises(ValueError):
         DeviceResidentLoader(x[:1000], y[:1000], 100, block_shuffle=64,
                              device="cpu")
-    with pytest.raises(ValueError):   # a batch 3 processes cannot split
-        DeviceResidentLoader(x, y, 256, process_index=0, process_count=3,
-                             device="cpu")
+    with pytest.raises(ValueError):   # a batch 3 ranks cannot split
+        DeviceResidentLoader(x, y, 256, rules=PM.ShardingRules(
+            PM.Mesh(3, 0, torch.device("cpu"), None)))
 
 
 def test_set_epoch_reproduces_an_epoch():

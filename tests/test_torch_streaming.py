@@ -29,6 +29,7 @@ from climsim_tpu.train import loop as JL
 from climsim_tpu.train import recipes as JR
 from climsim_tpu.varspec import get_varspec
 from climsim_tpu_torch.data import pipeline as PP
+from climsim_tpu_torch.parallel import mesh as PM
 from climsim_tpu_torch.train import loop as PL
 from climsim_tpu_torch.train import recipes as PR
 from climsim_tpu_torch.utils.migrate import port_flax_mlp
@@ -143,16 +144,16 @@ def test_bootstrap_loader_equals_jax():
 
 def test_loaders_refuse_rules_and_processes():
     x, y = _data()
-    # over processes: a global batch they cannot split, a remainder batch
+    # over ranks: a global batch they cannot split, a remainder batch
+    def rules(world):
+        return PM.ShardingRules(PM.Mesh(world, 0, torch.device("cpu"), None))
+
     with pytest.raises(ValueError):
-        PP.BatchLoader(x, y, 8, process_index=0, process_count=3,
-                       device="cpu")
+        PP.BatchLoader(x, y, 8, rules=rules(3))
     with pytest.raises(ValueError):
-        PP.BatchLoader(x, y, 8, process_index=0, process_count=2,
-                       drop_remainder=False, device="cpu")
+        PP.BatchLoader(x, y, 8, rules=rules(2), drop_remainder=False)
     with pytest.raises(ValueError):
-        PP.ChunkedLoader(x, y, 9, process_index=0, process_count=2,
-                         device="cpu")
+        PP.ChunkedLoader(x, y, 9, rules=rules(2))
     with pytest.raises(ValueError):
         PP.BatchLoader(x, y[:-1], 8, device="cpu")
 
