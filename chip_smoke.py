@@ -6,7 +6,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 zoo's first-loss gaps of phase 12 at those seeds, and exits;
 --data-parallel-only builds them and runs phase 13 alone;
 --dp-gap-seeds 0,1,2,3 builds them, then only runs 13b at those seeds
-with no bound on its float32 gaps, prints them, and exits.)
+with no bound on its float32 gaps, prints them, and exits;
+--distribution-only runs phase 14 alone; --model-axis-seeds and
+--shrink-gap-seeds read 14a's and 14b (iii)'s gaps at several seeds.)
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from climsim_tpu_torch/ops/csrc (nvcc, sm_90a)
@@ -293,17 +295,47 @@ with no bound on its float32 gaps, prints them, and exits.)
       its share equal to the 82 chains' 2 B L C Cout 3, the total within
       FLOP_TOL of the plain model's count, printed beside the count
       without the formula; trace writes a file; time_fn's median.
-14. With --profile, prints the fused MLPs' plans and traces the served
+14. The rest of distribution (parallel.mesh's model axis, train.elastic,
+   CouplingServer(rules=...)); P14_RANKS processes of this script share
+   the card over gloo (--p14-rank), started once for all their parts:
+   a. rpn_v1 (32 members, published widths, B = 3072) over a (1, 2)
+      mesh, P14_EPOCHS epochs of P14_STEPS steps: 16 members and half the
+      parameter bytes a rank; every rank's gathered (E,) step losses,
+      eval_losses and a posterior, and the members' parameters, against
+      the 1-process run within MODEL_AXIS_TOL (gaps printed); a 2-seed
+      mlp_v1 multiseed over (1, 2) bit-equal to 1 process; kernel 1 once
+      a step on every rank.
+   b. elastic: (i) elastic_fit of mlp_v1 in this process, a DeviceFailure
+      at epoch 1, step 1, bit-equal to the uninterrupted run; (ii)
+      torch.distributed.run --standalone --nproc-per-node 1
+      --max-restarts 1 over NCCL, the worker (--elastic-worker) failing
+      on attempt 0 only, restarted and resumed from its DCP checkpoint,
+      bit-equal to (i)'s uninterrupted run, the failure-to-first-step
+      seconds printed; (iii) the ranks' run failing after epoch 0's
+      checkpoint, relaunched here at world 1, bit-equal to the composed
+      run (the clean ranks' epoch-0 checkpoint resumed here), its epoch
+      losses within SHRINK_RTOL of the uninterrupted 2-rank run; (iv)
+      elastic_rpn_fit over (1, 2), failing after epoch 0, resumed here on
+      (1, 1) against 14a's 1-process run.
+   c. CouplingServer(rules=...) of the full MLP_v2rh bf16 and int8 on a
+      1-rank NCCL group here and on the 2 gloo ranks (rank 0 serves,
+      rank 1 follows): 3 concurrent 384-column chunks, a ragged 50-row
+      request, P14_SERVED sequential ones; every reply bit-equal to the
+      direct wrapper call, buckets divisible by the world size, kernels
+      1-3 launched on every rank; round trips at p50 and p99 beside the
+      unsharded server's.
+15. With --profile, prints the fused MLPs' plans and traces the served
    paths (MLP bf16 and int8, U-Net v5, two-stage v5, v4) with
    torch.profiler (device time per kernel and copy, the card's busy
    share, kernel 5's share of it, the costliest host ops).
-15. Prints one JSON line of the kernels' results (each with its bound:
+16. Prints one JSON line of the kernels' results (each with its bound:
    the larger of its bytes over the memory rate and its operations over
    the peak, at the timed shape; the launches include 6d's rollouts,
-   6f's updates and entry, 12's zoo and 13's runs, the ranks' and the
-   HPO workers' among them) and the paths' results (6d's under
-   "rollouts", 6f's under "finetune" and "online_eval", 12's under
-   "zoo", 13's under "data_parallel"), then, last,
+   6f's updates and entry, 12's zoo and 13's and 14's runs, the ranks',
+   the agent's worker's and the HPO workers' among them) and the paths'
+   results (6d's under "rollouts", 6f's under "finetune" and
+   "online_eval", 12's under "zoo", 13's under "data_parallel", 14's
+   under "distribution"), then, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each phase prints its seconds (kept in the result line as
@@ -4886,6 +4918,746 @@ def dp_phase(torch, K, card, seed):
     return results, total
 
 
+# --------------------------------------------------------------------------
+# phase 14: the rest of distribution -- the model axis, elastic recovery,
+# the sharded coupling server
+# --------------------------------------------------------------------------
+P14_RANKS = 2            # ranks sharing the card over gloo (as 13b)
+P14_STEPS = 4            # steps an epoch in 14a and 14b
+P14_EPOCHS = 2           # 14a's RPN, 14b (i), (ii) and (iv)
+P14_SHRINK_EPOCHS = 3    # 14b (iii): epoch 0 on 2 ranks, 1-2 on 1
+P14_POSTERIOR_ROWS = 384
+P14_SERVED = 100         # sequential requests a weight type in 14c
+# 14a holds the RPN over (1, 2) to the 1-process run.  Each member's
+# operations are the same, but the run is not bit-equal on the card:
+# the first step's losses, before any update, already differ (7.5e-8 at
+# seed 0), so the card computes a member's forward in another order at
+# 16 members than at 32 (the batched products or the loss's reduction);
+# the bf16 roundings then flip and Adam carries the flips on.  The readings
+# (--model-axis-seeds 0,...,7, NVIDIA H100 80GB HBM3 at 700 W), the
+# largest over the ranks of each seed, 8 steps: the step losses' relative
+# gap 7.5e-8 to 1.71e-6 (seed 4), eval_losses' 1.0e-7 to 1.11e-4 (seed
+# 4), the posterior's (bf16 outputs, relative to its largest) 0 to
+# 1.60e-2 (seed 6), the parameters' absolute gap 1.9e-9 to 1.84e-5 (seed
+# 4).  Each bound is about twice the largest reading.
+MODEL_AXIS_TOL = {"losses": 3.5e-6, "eval": 2.3e-4, "posterior": 3.2e-2,
+                  "params_abs": 3.7e-5}
+# 14b (iii): the run that shrank from 2 ranks to 1 after epoch 0 against
+# the uninterrupted 2-rank run, the epoch losses' largest relative gap.
+# At the preset's bf16 the two runs' batch halves round apart and Adam
+# amplifies it over the 8 steps on 1 rank (mlp_v1's cyclic learning rate
+# at its peak): the readings (--shrink-gap-seeds 0,...,7, the same card),
+# epoch 1 5.7e-5 to 2.9e-3, epoch 2 1.6e-3 to 0.330 (seed 2).  The bound
+# is about twice the largest: it catches a resume from the wrong epoch
+# or from scratch, not the roundings; the composed run's bit-equality
+# decides the resume.
+SHRINK_RTOL = 0.7
+P14_PARTS = ("rpn", "ms", "shrink", "rpnel", "serve")
+
+
+def p14_split(seed):
+    """mlp_v1 / rpn_v1's v1 columns: P14_STEPS training batches and one
+    validation batch of the presets' 3072, from ``seed``."""
+    from climsim_tpu_torch import get_varspec, load_default_grid
+    from climsim_tpu_torch.data.synthetic import synthetic_split
+
+    return synthetic_split(get_varspec("v1"), (P14_STEPS + 1) * 3072,
+                           load_default_grid(), seed=seed)
+
+
+def p14_rpn_factories(seed, data):
+    """rpn_v1 at its published widths (32 members, hidden (768, 640, 512,
+    640, 640), B = 3072) and its BootstrapLoader, P14_STEPS steps an
+    epoch: (rules -> trainer, rules -> loader)."""
+    from climsim_tpu_torch import get_varspec, load_asset_norms
+    from climsim_tpu_torch.config import PRESETS
+    from climsim_tpu_torch.data.pipeline import BootstrapLoader
+    from climsim_tpu_torch.train.rpn_recipe import rpn_trainer
+
+    cfg = PRESETS["rpn_v1"]
+    spec, stats = get_varspec("v1"), load_asset_norms("v1")
+    b, e = cfg.data.batch_size, cfg.model_kw["ensemble_size"]
+    x, y = (a[:-b] for a in data)
+    return (lambda rules: rpn_trainer(
+        spec, stats, None, seed, cfg=cfg.transform, rules=rules,
+        device="cuda", **cfg.model_kw),
+        lambda rules: BootstrapLoader(x, y, b, e, rules=rules, seed=seed,
+                                      steps_per_epoch=P14_STEPS,
+                                      device="cuda"))
+
+
+def p14_mlp_factories(seed, data, seeds=None):
+    """mlp_v1 at its published widths and batch (or, with ``seeds``, its
+    multiseed) over BatchLoader: (rules -> trainer, rules -> (loader,
+    None))."""
+    from climsim_tpu_torch import get_varspec, load_asset_norms
+    from climsim_tpu_torch.config import PRESETS
+    from climsim_tpu_torch.data.pipeline import BatchLoader
+    from climsim_tpu_torch.train import recipes
+    from climsim_tpu_torch.train.multiseed import multiseed
+
+    cfg = PRESETS["mlp_v1"]
+    spec, stats = get_varspec("v1"), load_asset_norms("v1")
+    b = cfg.data.batch_size
+    x, y = (a[:-b] for a in data)
+    kw = dict(cfg=cfg.transform, steps_per_epoch=P14_STEPS, device="cuda",
+              **cfg.model_kw)
+
+    def tf(rules):
+        if seeds is None:
+            return recipes.mlp_trainer(spec, stats, None, seed, rules=rules,
+                                       **kw)
+        return multiseed(recipes.mlp_trainer, spec, stats, None, seeds,
+                         rules=rules, **kw)
+
+    return tf, lambda rules: (BatchLoader(x, y, b, rules, seed=seed,
+                                          device="cuda"), None)
+
+
+def host_params(module):
+    return {k: v.detach().cpu().clone() for k, v in
+            module.state_dict().items()}
+
+
+def p14_rpn(torch, K, rules, seed, data):
+    """14a's RPN run: P14_EPOCHS epochs of P14_STEPS steps, then
+    eval_losses on the validation batch and a posterior on
+    P14_POSTERIOR_ROWS of its rows.  Returns the (E,) losses a step, both
+    results, this rank's members on the host, their count and bytes,
+    kernel 1's launches in training and ms a step."""
+    tf, lf = p14_rpn_factories(seed, data)
+    tr, ld = tf(rules), lf(rules)
+
+    def train():
+        out = []
+        for epoch in range(P14_EPOCHS):
+            ld.set_epoch(epoch)
+            out += [tr.train_step(xb, yb) for xb, yb in ld]
+        return out
+
+    losses, launches, ms = counted(torch, K, train)
+    b = 3072
+    xv, yv = (torch.from_numpy(a[-b:]).cuda() for a in data)
+    with torch.no_grad():
+        ev = tr.eval_losses(xv, yv)
+        post = tr.posterior(xv[:P14_POSTERIOR_ROWS])
+    torch.cuda.synchronize()
+    net = tr.ensemble
+    return {"losses": torch.stack(losses).cpu(), "eval": ev.cpu(),
+            "posterior": post.cpu(), "params": host_params(net),
+            "first": tr.first, "members": net.ensemble_size,
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in net.parameters()),
+            "train_launches": launches,
+            "ms_a_step": ms / (P14_EPOCHS * P14_STEPS)}
+
+
+def p14_multiseed(torch, K, rules, seed, data):
+    """14a's multiseed: mlp_v1 at seeds (seed, seed + 1) for P14_STEPS
+    steps; the (K,) losses a step and this rank's replicas."""
+    tf, lf = p14_mlp_factories(seed, data, [seed, seed + 1])
+    ms, (ld, _) = tf(rules), lf(rules)
+
+    def train():
+        state, out = ms.state, []
+        for xb, yb in ld:
+            state, m = ms.train_step(state, xb, yb)
+            out.append(m["loss"])
+        return out
+
+    losses, launches, _ = counted(torch, K, train)
+    return {"losses": torch.stack(losses).cpu(), "first": ms.state.first,
+            "params": {ms.state.first + j: host_params(p)
+                       for j, p in enumerate(ms.state.params)},
+            "train_launches": launches}
+
+
+def p14_elastic_run(torch, K, fit, ck, fail):
+    """An elastic run under the ranks' group, failing at ``fail`` (epoch,
+    step): (result, launches)."""
+    from dataclasses import asdict
+
+    from climsim_tpu_torch.train.elastic import DeviceFailure
+
+    def inject(epoch, step):
+        if (epoch, step) == fail:
+            raise DeviceFailure("planted")
+
+    K.reset_launches()
+    try:
+        state, rep = fit(ck, inject)
+    except DeviceFailure:
+        torch.cuda.synchronize()
+        return {"failed": True}, dict(K.LAUNCHES)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    module = state.ensemble if hasattr(state, "ensemble") else state.params
+    return {"failed": False, "report": asdict(rep),
+            "params": host_params(module)}, launches
+
+
+def p14_serve_rank(torch, K, rules, seed):
+    """14c over the ranks: rank 0 hosts CouplingServer(rules=...) of the
+    full-width MLP_v2rh bf16 and then int8 and drives it (3 concurrent
+    384-column chunks, a ragged 50-row request, P14_SERVED sequential
+    ones); the other ranks follow.  Each returns its launches."""
+    from climsim_tpu_torch import (get_varspec, load_asset_norms,
+                                   load_default_grid)
+    from climsim_tpu_torch.data.synthetic import synthetic_inputs
+    from climsim_tpu_torch.models import OnlineMLP
+    from climsim_tpu_torch.online.server import (CouplingClient,
+                                                 CouplingServer,
+                                                 serve_follower)
+    from climsim_tpu_torch.online.wrapper import make_fast_mlp_wrapper
+    from climsim_tpu_torch.utils.migrate import port_flax_online_mlp
+
+    spec, stats = get_varspec("v2_rh"), load_asset_norms("v2_rh")
+    model = OnlineMLP(spec, hidden=FULL_HIDDEN)
+    model.load_state_dict(port_flax_online_mlp(
+        flax_tree(spec, FULL_HIDDEN, seed)))
+    grid = load_default_grid()
+    chunks = [synthetic_inputs(spec, 384, grid, seed=seed + 10 + i)
+              for i in range(3)]
+    ragged = synthetic_inputs(spec, 50, grid, seed=seed + 20)
+    out = {}
+    for w, dt in (("bf16", torch.bfloat16), ("int8", "int8")):
+        wrap = make_fast_mlp_wrapper(model, stats, spec, dt, device="cuda")
+        K.reset_launches()
+        if rules.rank:
+            calls = serve_follower(wrap, spec.input_len, rules)
+            torch.cuda.synchronize()
+            out[w] = {"calls": calls, "launches": dict(K.LAUNCHES)}
+            continue
+        srv = CouplingServer(wrap, spec.input_len, base_chunk=384,
+                             max_batch=6144, device="cuda",
+                             rules=rules).start()
+        try:
+            replies, lat = drive(CouplingClient, srv, chunks, ragged,
+                                 P14_SERVED)
+        finally:
+            srv.stop()
+        torch.cuda.synchronize()
+        out[w] = {"replies": replies, "lat": lat, "buckets": srv.buckets,
+                  "calls": srv.stats.batches + len(srv.buckets),
+                  "summary": srv.stats.summary(),
+                  "launches": dict(K.LAUNCHES)}
+    return out
+
+
+def p14_rank_main(torch, rank, world, tmp, seed, parts) -> int:
+    """One of phase 14's ranks (``--p14-rank``): a gloo group through a
+    FileStore in ``tmp`` on cuda:0 (the ranks share the card), running
+    ``parts`` in order; its results go to ``tmp/p14_rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from climsim_tpu_torch.ops import kernels as K
+    from climsim_tpu_torch.parallel.mesh import ShardingRules, make_mesh
+    from climsim_tpu_torch.train.checkpoints import DistributedCheckpointer
+    from climsim_tpu_torch.train.elastic import elastic_fit, elastic_rpn_fit
+
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store_14"), world), rank=rank, world_size=world)
+    out = {}
+    try:
+        data = p14_split(seed)
+        if "rpn" in parts or "ms" in parts:
+            rules = ShardingRules(make_mesh(1, world, device="cuda"))
+            if "rpn" in parts:
+                out["rpn"] = p14_rpn(torch, K, rules, seed, data)
+            if "ms" in parts:
+                out["ms"] = p14_multiseed(torch, K, rules, seed, data)
+        if "shrink" in parts:
+            tf, lf = p14_mlp_factories(seed, data)
+            for name, fail in (("clean", None), ("fail", (1, 1))):
+                ck = DistributedCheckpointer(os.path.join(tmp, "shrink_"
+                                                          + name))
+                out["shrink_" + name] = p14_elastic_run(
+                    torch, K, lambda c, inj: elastic_fit(
+                        tf, lf, P14_SHRINK_EPOCHS, device="cuda",
+                        checkpointer=c, fault_injector=inj), ck, fail)
+        if "rpnel" in parts:
+            rf, lf = p14_rpn_factories(seed, data)
+            out["rpnel"] = p14_elastic_run(
+                torch, K, lambda c, inj: elastic_rpn_fit(
+                    rf, lf, P14_EPOCHS, 32, device="cuda", checkpointer=c,
+                    fault_injector=inj),
+                DistributedCheckpointer(os.path.join(tmp, "rpnel")), (1, 1))
+        if "serve" in parts:
+            rules = ShardingRules(make_mesh(world, 1, device="cuda"))
+            out["serve"] = p14_serve_rank(torch, K, rules, seed)
+        torch.save(out, os.path.join(tmp, f"p14_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def p14_spawn(tmp, seed, parts, timeout=600):
+    """P14_RANKS processes of this script on the card (``--p14-rank``);
+    returns their results and the wall seconds."""
+    import torch
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    env["LOCAL_RANK"] = "0"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--p14-rank", str(r), "--p14-world", str(P14_RANKS), "--p14-dir",
+         tmp, "--p14-parts", ",".join(parts)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(P14_RANKS)]
+    try:
+        for r, p in enumerate(procs):
+            log, _ = p.communicate(timeout=timeout)
+            require(p.returncode == 0,
+                    f"14 rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return ([torch.load(os.path.join(tmp, f"p14_rank{r}.pt"),
+                        weights_only=False) for r in range(P14_RANKS)],
+            time.perf_counter() - t0)
+
+
+def gaps(torch, got, want):
+    """(largest relative gap, largest absolute gap) of two tensors."""
+    d = float((got.double() - want.double()).abs().max())
+    return d / max(float(want.double().abs().max()), 1e-30), d
+
+
+def p14_whole(torch, ranks, key):
+    """The members of 14a's ranks (every rank is at data index 0 of the
+    (1, M) mesh), concatenated in model order."""
+    parts = sorted((r[key] for r in ranks), key=lambda r: r["first"])
+    return {k: torch.cat([p["params"][k] for p in parts])
+            for k in parts[0]["params"]}
+
+
+def p14_rpn_check(torch, ranks, one, tol=MODEL_AXIS_TOL):
+    """14a's RPN against the 1-process run: the members a rank holds and
+    their bytes (a rank keeping all 32 fails), every rank's gathered
+    losses, eval_losses and posterior, and the members' parameters; the
+    gaps, each held to its bound in ``tol`` (None: read only).  The first
+    step's losses' gap is read, not bounded."""
+    e = 32
+    for r, rk in enumerate(ranks):
+        got = rk["rpn"]
+        require(got["members"] == e // P14_RANKS
+                and got["first"] == r * e // P14_RANKS
+                and got["param_bytes"] * P14_RANKS == one["param_bytes"],
+                f"14a rank {r}: {got['members']} members from "
+                f"{got['first']}, {got['param_bytes']} parameter bytes of "
+                f"the ensemble's {one['param_bytes']}")
+        require(got["train_launches"]["fused_input_transform"]
+                == P14_EPOCHS * P14_STEPS, f"14a rank {r}: kernel 1 "
+                f"launched {got['train_launches']['fused_input_transform']}"
+                f" times in {P14_EPOCHS * P14_STEPS} RPN steps")
+    out = {}
+    for k in ("losses", "eval", "posterior"):
+        out[k] = max(gaps(torch, rk["rpn"][k], one[k])[0] for rk in ranks)
+    whole = p14_whole(torch, ranks, "rpn")
+    out["params_abs"] = max(gaps(torch, whole[k], v)[1]
+                            for k, v in one["params"].items())
+    for k, v in out.items():
+        require(tol is None or v <= tol[k], f"14a: the RPN over (1, "
+                f"{P14_RANKS}) against 1 process, {k} gap {v:.3e} (bound "
+                f"{tol and tol[k]}); all gaps {out}")
+    out["first_step_losses"] = max(gaps(torch, rk["rpn"]["losses"][0],
+                                        one["losses"][0])[0] for rk in ranks)
+    return out
+
+
+def p14_shrink(torch, K, ranks, tmp, seed, data, rtol=SHRINK_RTOL):
+    """14b (iii): the ranks' failing run relaunched here at world 1 from
+    its checkpoint (epoch 0 on 2 ranks) against the composed run (the
+    clean ranks' epoch-0 checkpoint, resumed here): bit-equal; and its
+    epoch losses' gap to the uninterrupted 2-rank run, within ``rtol``."""
+    import shutil
+
+    from climsim_tpu_torch.train.checkpoints import DistributedCheckpointer
+    from climsim_tpu_torch.train.elastic import elastic_fit
+
+    tf, lf = p14_mlp_factories(seed, data)
+    for r, rk in enumerate(ranks):
+        require(rk["shrink_fail"][0] == {"failed": True},
+                f"14b (iii) rank {r}: the planted failure did not end it")
+        require(not rk["shrink_clean"][0]["failed"], "14b (iii): clean run")
+    clean = ranks[0]["shrink_clean"][0]
+    composed = os.path.join(tmp, "shrink_composed")
+    os.makedirs(composed)
+    shutil.copytree(os.path.join(tmp, "shrink_clean", "step_1"),
+                    os.path.join(composed, "step_1"))
+    shutil.copy(os.path.join(tmp, "shrink_clean", "elastic.json"), composed)
+    runs = {}
+    for name, d in (("relaunch", "shrink_fail"), ("composed", composed)):
+        ck = DistributedCheckpointer(os.path.join(tmp, d))
+        (state, rep), launches, _ = counted(torch, K, lambda: elastic_fit(
+            tf, lf, P14_SHRINK_EPOCHS, device="cuda", checkpointer=ck))
+        runs[name] = (host_params(state.params), rep, launches)
+    got, rep, launches = runs["relaunch"]
+    require(rep.mesh_history == [(P14_RANKS, 1), (1, 1)]
+            and rep.epochs_completed == P14_SHRINK_EPOCHS
+            and len(rep.epoch_losses) == P14_SHRINK_EPOCHS,
+            f"14b (iii): report {rep}")
+    require(launches["fused_input_transform"]
+            == (P14_SHRINK_EPOCHS - 1) * P14_STEPS,
+            f"14b (iii): kernel 1 launched {launches} in the relaunch")
+    same_params(torch, "14b (iii) relaunch against the composed run",
+                got, runs["composed"][0])
+    require(rep.epoch_losses == runs["composed"][1].epoch_losses,
+            "14b (iii): epoch losses against the composed run")
+    want = clean["report"]["epoch_losses"]
+    loss_gaps = [abs(a - w) / abs(w) for a, w in zip(rep.epoch_losses, want)]
+    require(loss_gaps[0] == 0.0, "14b (iii): epoch 0's loss is the ranks'")
+    require(max(loss_gaps) <= rtol, f"14b (iii): epoch losses "
+            f"{rep.epoch_losses} against the uninterrupted 2-rank run's "
+            f"{want}: gaps {loss_gaps} (bound {rtol:g})")
+    param_gap = max(gaps(torch, got[k], v)[0]
+                    for k, v in clean["params"].items())
+    return {"loss_gaps": loss_gaps, "param_rel_gap": param_gap,
+            "mesh_history": rep.mesh_history}, launches
+
+
+def p14_agent(torch, card, tmp, seed, want_params):
+    """14b (ii): torch.distributed.run --standalone --nproc-per-node 1
+    --max-restarts 1 over NCCL; the worker (this script,
+    ``--elastic-worker``) fails at epoch 1, step 1 on attempt 0 only, the
+    agent restarts it, and it resumes from its DCP checkpoint: bit-equal
+    to the uninterrupted run ``want_params``."""
+    d = os.path.join(tmp, "agent")
+    os.makedirs(d)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                        "LOCAL_RANK")}
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "--max-restarts", "1",
+         os.path.abspath(__file__), "--seed", str(seed), "--elastic-worker",
+         d], capture_output=True, text=True, env=env, timeout=600)
+    wall = time.perf_counter() - t0
+    require(p.returncode == 0, f"14b (ii): torchrun exited {p.returncode}:\n"
+            + (p.stdout + p.stderr)[-4000:])
+    attempts = sorted(f for f in os.listdir(d) if f.startswith("attempt"))
+    require(attempts == ["attempt0.pt", "attempt1.pt"],
+            f"14b (ii): attempts {attempts} (a worker the phase did not "
+            "plant a failure in was restarted)")
+    a0, a1 = (torch.load(os.path.join(d, f), weights_only=False)
+              for f in attempts)
+    require(a0["planted"] and not a1["planted"], "14b (ii): the failure was "
+            "not the planted one")
+    out = torch.load(os.path.join(d, "out.pt"), weights_only=False)
+    rep = out["report"]
+    require(rep["failures"] == 1 and rep["epochs_completed"] == P14_EPOCHS
+            and [tuple(m) for m in rep["mesh_history"]] == [(1, 1), (1, 1)]
+            and len(rep["recovery_seconds"]) == 1, f"14b (ii): report {rep}")
+    same_params(torch, "14b (ii) restarted by the agent against the "
+                "uninterrupted run", out["params"], want_params)
+    k1 = [a["launches"]["fused_input_transform"] for a in (a0, a1)]
+    require(k1 == [P14_STEPS + 1, P14_STEPS], f"14b (ii): kernel 1 "
+            f"launched {k1} times in the attempts")
+    restart_s = a1["first_step"] - a0["failed"]
+    return {"restart_to_first_step_s": restart_s,
+            "recovery_seconds": rep["recovery_seconds"][0],
+            "attempt1_start_to_first_step_s":
+                a1["first_step"] - a1["start"],
+            "torchrun_wall_s": wall, "kernel1_by_attempt": k1}, {
+        k: a0["launches"][k] + a1["launches"][k] for k in KERNEL_NAMES}
+
+
+def elastic_worker_main(torch, directory, seed) -> int:
+    """14b (ii)'s worker, started by torch.distributed.run: NCCL on the
+    card, elastic_fit of mlp_v1 with a DistributedCheckpointer, a planted
+    DeviceFailure at epoch 1, step 1 on attempt 0; each attempt writes its
+    launches and times, the last one the trained state."""
+    from dataclasses import asdict
+
+    import torch.distributed as dist
+
+    from climsim_tpu_torch.ops import kernels as K
+    from climsim_tpu_torch.parallel.mesh import distributed_init_if_needed
+    from climsim_tpu_torch.train.checkpoints import DistributedCheckpointer
+    from climsim_tpu_torch.train.elastic import DeviceFailure, elastic_fit
+
+    start = time.time()
+    distributed_init_if_needed()
+    require(dist.get_backend() == "nccl", "14b (ii): the worker is not NCCL")
+    attempt = int(os.environ["TORCHELASTIC_RESTART_COUNT"])
+    info = {"start": start, "first_step": None, "planted": False,
+            "failed": None}
+
+    def inject(epoch, step):
+        if info["first_step"] is None:
+            info["first_step"] = time.time()
+        if attempt == 0 and (epoch, step) == (1, 1):
+            info["planted"], info["failed"] = True, time.time()
+            raise DeviceFailure("planted on attempt 0")
+
+    tf, lf = p14_mlp_factories(seed, p14_split(seed))
+    K.reset_launches()
+    try:
+        state, rep = elastic_fit(tf, lf, P14_EPOCHS, device="cuda",
+                                 checkpointer=DistributedCheckpointer(
+                                     os.path.join(directory, "ck")),
+                                 fault_injector=inject)
+        torch.save({"params": host_params(state.params),
+                    "report": asdict(rep)}, os.path.join(directory,
+                                                         "out.pt"))
+    finally:
+        torch.cuda.synchronize()
+        torch.save(dict(info, launches=dict(K.LAUNCHES)),
+                   os.path.join(directory, f"attempt{attempt}.pt"))
+        dist.destroy_process_group()
+    return 0
+
+
+def p14_serve_check(torch, K, card, ranks, seed, direct):
+    """14c: the sharded server's replies (2 gloo ranks, and a 1-rank NCCL
+    group here) bit-equal to the direct wrapper calls, buckets divisible
+    by the world size, kernels 1-3 launched on every rank, round trips
+    beside the unsharded server's."""
+    import torch.distributed as dist
+
+    from climsim_tpu_torch import (get_varspec, load_default_grid)
+    from climsim_tpu_torch.data.synthetic import synthetic_inputs
+    from climsim_tpu_torch.online.server import (CouplingClient,
+                                                 CouplingServer)
+    from climsim_tpu_torch.parallel.mesh import ShardingRules, make_mesh
+
+    spec, grid = get_varspec("v2_rh"), load_default_grid()
+    chunks = [synthetic_inputs(spec, 384, grid, seed=seed + 10 + i)
+              for i in range(3)]
+    ragged = synthetic_inputs(spec, 50, grid, seed=seed + 20)
+    kname = {"bf16": "fused_mlp_forward", "int8": "fused_mlp_forward_int8"}
+
+    def same_replies(label, replies, wrap):
+        for x, y in zip(chunks + [ragged], replies):
+            with torch.inference_mode():
+                want = wrap(torch.from_numpy(x).cuda()).cpu().numpy()
+            require(np.array_equal(y, want), f"14c {label}: a reply "
+                    "differs from the direct wrapper call")
+
+    out, total = {}, {k: 0 for k in KERNEL_NAMES}
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store_c"), 1), rank=0, world_size=1)
+        try:
+            rules = ShardingRules(make_mesh(1, 1, device="cuda"))
+            for w, wrap in direct.items():
+                for name, r in (("unsharded", None), ("nccl_1", rules)):
+                    srv = CouplingServer(wrap, spec.input_len,
+                                         base_chunk=384, max_batch=6144,
+                                         device="cuda", rules=r).start()
+                    try:
+                        (replies, lat), launches, _ = counted(
+                            torch, K, lambda: drive(
+                                CouplingClient, srv, chunks, ragged,
+                                P14_SERVED))
+                    finally:
+                        srv.stop()
+                    same_replies(f"{w} {name}", replies, wrap)
+                    runs[w, name] = lat
+                    for k in KERNEL_NAMES:
+                        total[k] += launches[k]
+                    require(launches["fused_input_transform"] > 0
+                            and launches[kname[w]] > 0,
+                            f"14c {w} {name}: launches {launches}")
+        finally:
+            dist.destroy_process_group()
+    for w, wrap in direct.items():
+        lead = ranks[0]["serve"][w]
+        same_replies(f"{w} {P14_RANKS} ranks", lead["replies"], wrap)
+        require(all(b % P14_RANKS == 0 for b in lead["buckets"]),
+                f"14c: buckets {lead['buckets']}")
+        for r, rk in enumerate(ranks):
+            got = rk["serve"][w]
+            require(got["calls"] == lead["calls"] > 0
+                    and got["launches"]["fused_input_transform"] > 0
+                    and got["launches"][kname[w]] > 0,
+                    f"14c {w} rank {r}: {got['calls']} calls, launches "
+                    f"{got['launches']}")
+            for k in KERNEL_NAMES:
+                total[k] += got["launches"][k]
+        runs[w, "gloo_2"] = lead["lat"]
+        out[w] = {name: {"p50_ms": float(np.percentile(runs[w, name], 50)),
+                         "p99_ms": float(np.percentile(runs[w, name], 99))}
+                  for name in ("unsharded", "nccl_1", "gloo_2")}
+        out[w]["buckets_2"] = lead["buckets"]
+    print(f"{card}: 14c, CouplingServer(rules=...) of the full MLP_v2rh: "
+          f"every reply bit-equal to the direct call, kernels 1-3 on every "
+          f"rank; 384-column round trip p50 / p99 ms over {P14_SERVED} "
+          "requests, unsharded, 1-rank NCCL group, 2 gloo ranks on one "
+          "card: " + "; ".join(
+              f"{w} " + ", ".join(f"{v['p50_ms']:.3f} / {v['p99_ms']:.3f}"
+                                  for n, v in out[w].items()
+                                  if n != "buckets_2")
+              for w in direct), flush=True)
+    return out, total
+
+
+def distribution_phase(torch, K, card, seed, direct):
+    """Phase 14: 14a-14c.  ``direct``: the MLP_v2rh bf16 and int8 wrappers
+    (phase 4's).  Returns (results, the launches)."""
+    from climsim_tpu_torch.train.checkpoints import DistributedCheckpointer
+    from climsim_tpu_torch.train.elastic import (DeviceFailure, elastic_fit,
+                                                 elastic_rpn_fit)
+
+    results, total = {}, {k: 0 for k in KERNEL_NAMES}
+
+    def tally(launches):
+        for k in KERNEL_NAMES:
+            total[k] += launches.get(k, 0)
+
+    t0 = time.perf_counter()
+    data = p14_split(seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks, spawn_s = p14_spawn(tmp, seed, P14_PARTS)
+        for rk in ranks:
+            for part in ("rpn", "ms"):
+                tally(rk[part]["train_launches"])
+            for part in ("shrink_clean", "shrink_fail", "rpnel"):
+                tally(rk[part][1])
+        # 14a: the model axis against 1 process
+        one = p14_rpn(torch, K, None, seed, data)
+        tally(one["train_launches"])
+        require(one["train_launches"]["fused_input_transform"]
+                == P14_EPOCHS * P14_STEPS, "14a: kernel 1 in 1 process")
+        rpn_gaps = p14_rpn_check(torch, ranks, one)
+        ms1 = p14_multiseed(torch, K, None, seed, data)
+        tally(ms1["train_launches"])
+        for r, rk in enumerate(ranks):
+            got = rk["ms"]
+            require(torch.equal(got["losses"], ms1["losses"]),
+                    f"14a multiseed rank {r}: losses {got['losses']} "
+                    f"against 1 process {ms1['losses']}")
+            require(len(got["params"]) == 1 and got["train_launches"][
+                "fused_input_transform"] == P14_STEPS,
+                    f"14a multiseed rank {r}: replicas or launches")
+            for k, p in got["params"].items():
+                same_params(torch, f"14a multiseed replica {k}", p,
+                            ms1["params"][k])
+        results["14a"] = {
+            "rpn_gaps": rpn_gaps, "rpn_ms_a_step_1_process":
+                one["ms_a_step"],
+            "rpn_ms_a_step_ranks": [rk["rpn"]["ms_a_step"] for rk in ranks],
+            "rpn_param_bytes_a_rank": ranks[0]["rpn"]["param_bytes"],
+            "multiseed": "bit-equal"}
+        print(f"{card}: 14a, the model axis over (1, {P14_RANKS}) (2 gloo "
+              "ranks on one card: not a scaling figure): rpn_v1 (32 "
+              f"members, B=3072, {P14_EPOCHS} epochs of {P14_STEPS} steps), "
+              f"16 members and {ranks[0]['rpn']['param_bytes']} parameter "
+              f"bytes a rank, gaps to 1 process {rpn_gaps}; ms a step 1 "
+              f"process {one['ms_a_step']:.3f}, ranks " + ", ".join(
+                  f"{rk['rpn']['ms_a_step']:.3f}" for rk in ranks)
+              + f"; multiseed mlp_v1 2 seeds bit-equal; kernel 1 once a "
+              f"step on every rank; ranks' wall {spawn_s:.1f} s", flush=True)
+
+        # 14b (i): one process, recovery in the process
+        tf, lf = p14_mlp_factories(seed, data)
+        fired = []
+
+        def inject(epoch, step):
+            if (epoch, step) == (1, 1) and not fired:
+                fired.append(1)
+                raise DeviceFailure("planted")
+
+        (clean, rep_c), l_clean, _ = counted(torch, K, lambda: elastic_fit(
+            tf, lf, P14_EPOCHS, device="cuda"))
+        (state, rep), l_fail, _ = counted(torch, K, lambda: elastic_fit(
+            tf, lf, P14_EPOCHS, device="cuda", fault_injector=inject))
+        tally(l_clean)
+        tally(l_fail)
+        want = host_params(clean.params)
+        require(fired and rep.failures == 1 and rep.epoch_losses
+                == rep_c.epoch_losses, f"14b (i): {rep} against {rep_c}")
+        same_params(torch, "14b (i) recovered against uninterrupted",
+                    host_params(state.params), want)
+        require(l_clean["fused_input_transform"] == P14_EPOCHS * P14_STEPS
+                and l_fail["fused_input_transform"]
+                == P14_EPOCHS * P14_STEPS + 1,
+                f"14b (i): kernel 1 {l_clean} and {l_fail}")
+        del clean, state
+        # (ii) torchrun's agent restarts a worker over NCCL
+        agent, l_agent = p14_agent(torch, card, tmp, seed, want)
+        tally(l_agent)
+        # (iii) a shrink from 2 ranks to 1
+        shrink, l_shrink = p14_shrink(torch, K, ranks, tmp, seed, data)
+        tally(l_shrink)
+        # (iv) the RPN's members from (1, 2) to (1, 1)
+        for r, rk in enumerate(ranks):
+            require(rk["rpnel"][0] == {"failed": True},
+                    f"14b (iv) rank {r}: the planted failure did not end it")
+        rf, rlf = p14_rpn_factories(seed, data)
+        (tr, rep4), l_rpn, _ = counted(torch, K, lambda: elastic_rpn_fit(
+            rf, rlf, P14_EPOCHS, 32, device="cuda",
+            checkpointer=DistributedCheckpointer(os.path.join(tmp,
+                                                              "rpnel"))))
+        tally(l_rpn)
+        require(rep4.mesh_history == [(1, P14_RANKS), (1, 1)]
+                and l_rpn["fused_input_transform"] == P14_STEPS,
+                f"14b (iv): {rep4}, launches {l_rpn}")
+        got = host_params(tr.ensemble)
+        del tr
+        rpn_gap = max(gaps(torch, got[k], v)[1]
+                      for k, v in one["params"].items())
+        tol = MODEL_AXIS_TOL["params_abs"]
+        require(rpn_gap <= tol, f"14b (iv): the members resumed on 1 "
+                f"process against the 1-process run: {rpn_gap:.3e} (bound "
+                f"{tol:g})")
+        results["14b"] = {"agent": agent, "shrink": shrink,
+                          "rpn_resumed_param_gap": rpn_gap,
+                          "one_process_recovery_s": rep.recovery_seconds}
+        print(f"{card}: 14b, elastic: (i) 1 process, a DeviceFailure at "
+              "epoch 1 step 1 recovered in the process, bit-equal to the "
+              f"uninterrupted run, recovery {rep.recovery_seconds[0]:.3f} s; "
+              "(ii) torchrun --max-restarts 1 over NCCL, the worker failing "
+              "on attempt 0, restarted and resumed from DCP, bit-equal; "
+              f"failure to the resumed first step {agent['restart_to_first_step_s']:.1f} s "
+              f"(the restored state ready {agent['recovery_seconds']:.1f} s "
+              "after the failure); (iii) 2 ranks -> 1 bit-equal to the "
+              f"composed run, epoch-loss gaps to the 2-rank run "
+              f"{shrink['loss_gaps']}; (iv) rpn_v1 (1, 2) -> (1, 1) gap "
+              f"{rpn_gap:.3e}", flush=True)
+        # 14c: the sharded server
+        results["14c"], l_serve = p14_serve_check(torch, K, card, ranks,
+                                                   seed, direct)
+        tally(l_serve)
+    results["seconds"] = time.perf_counter() - t0
+    return results, total
+
+
+def model_axis_seeds(torch, K, card, seeds):
+    """--model-axis-seeds: 14a's RPN at each of ``seeds``, its gaps to 1
+    process read with no bound (the readings MODEL_AXIS_TOL rests on)."""
+    out = {}
+    for seed in seeds:
+        data = p14_split(seed)
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks, _ = p14_spawn(tmp, seed, ("rpn",))
+        out[seed] = p14_rpn_check(torch, ranks, p14_rpn(torch, K, None, seed,
+                                                        data), None)
+        print(f"{card}: 14a seed {seed}: {out[seed]}", flush=True)
+    return out
+
+
+def shrink_gap_seeds(torch, K, card, seeds):
+    """--shrink-gap-seeds: 14b (iii) at each of ``seeds``, the epoch-loss
+    gaps to the uninterrupted 2-rank run read with no bound (the readings
+    SHRINK_RTOL rests on); its other checks hold."""
+    out = {}
+    for seed in seeds:
+        data = p14_split(seed)
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks, _ = p14_spawn(tmp, seed, ("shrink",))
+            out[seed], _ = p14_shrink(torch, K, ranks, tmp, seed, data,
+                                      math.inf)
+        print(f"{card}: 14b (iii) seed {seed}: {out[seed]}", flush=True)
+    return out
+
+
 def io_entry(name, source, replaces, launched, r, at):
     """The JSON entry of kernel 1 or 4: "ms" and "plain_ms" device times
     (CUDA-graph replays), "host_ms" the wrapper's host cost a call, and the
@@ -4955,10 +5727,27 @@ def main(argv=None) -> int:
                     "print them and exit")
     ap.add_argument("--data-parallel-only", action="store_true",
                     help="build the kernels, run phase 13 alone, exit")
+    ap.add_argument("--distribution-only", action="store_true",
+                    help="build the kernels, run phase 14 alone, exit")
+    ap.add_argument("--model-axis-seeds", metavar="S,S,...",
+                    help="only run 14a's RPN at these seeds, read its gaps "
+                    "to 1 process (the readings MODEL_AXIS_TOL rests on), "
+                    "print them and exit")
+    ap.add_argument("--shrink-gap-seeds", metavar="S,S,...",
+                    help="only run 14b (iii) at these seeds, read its gaps "
+                    "to the uninterrupted 2-rank run (the readings "
+                    "SHRINK_RTOL rests on), print them and exit")
     # one rank of phase 13b, started by the script itself
     ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dp-world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dp-dir", help=argparse.SUPPRESS)
+    # one rank of phase 14, and 14b (ii)'s worker under torchrun
+    ap.add_argument("--p14-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--p14-world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--p14-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--p14-parts", help=argparse.SUPPRESS)
+    ap.add_argument("--elastic-worker", metavar="DIR",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -4971,6 +5760,12 @@ def main(argv=None) -> int:
     if args.dp_rank is not None:
         return dp_rank_main(torch, args.dp_rank, args.dp_world, args.dp_dir,
                             args.seed)
+    if args.p14_rank is not None:
+        return p14_rank_main(torch, args.p14_rank, args.p14_world,
+                             args.p14_dir, args.seed,
+                             args.p14_parts.split(","))
+    if args.elastic_worker:
+        return elastic_worker_main(torch, args.elastic_worker, args.seed)
 
     from climsim_tpu_torch import (get_varspec, load_asset_norms,
                                    load_default_grid)
@@ -5021,6 +5816,29 @@ def main(argv=None) -> int:
         print(json.dumps({"card": card, "data_parallel": dp,
                           "launches": dp_launches,
                           "seconds": time.perf_counter() - t0}))
+        return 0
+    if args.model_axis_seeds:
+        gaps = model_axis_seeds(torch, K, card, [
+            int(v) for v in args.model_axis_seeds.split(",")])
+        print(json.dumps({"card": card, "model_axis_gaps": gaps}))
+        return 0
+    if args.shrink_gap_seeds:
+        gaps = shrink_gap_seeds(torch, K, card, [
+            int(v) for v in args.shrink_gap_seeds.split(",")])
+        print(json.dumps({"card": card, "shrink_gaps": gaps}))
+        return 0
+    if args.distribution_only:
+        spec, stats = get_varspec("v2_rh"), load_asset_norms("v2_rh")
+        model = OnlineMLP(spec, hidden=FULL_HIDDEN)
+        model.load_state_dict(port_flax_online_mlp(
+            flax_tree(spec, FULL_HIDDEN, args.seed)))
+        direct = {w: make_fast_mlp_wrapper(model, stats, spec, dt,
+                                           device="cuda")
+                  for w, dt in (("bf16", torch.bfloat16), ("int8", "int8"))}
+        dist14, launches14 = distribution_phase(torch, K, card, args.seed,
+                                                direct)
+        print(json.dumps({"card": card, "distribution": dist14,
+                          "launches": launches14}))
         return 0
     log = _build.build_log().splitlines()
     for line in log:
@@ -5309,6 +6127,16 @@ def main(argv=None) -> int:
     slice_launches.append(dp_launches)
     lap("13 (data parallel, HPO, profiling)")
 
+    # -- 14: the model axis, elastic recovery, the sharded server ----------
+    print("14: the model axis (rpn_v1 members and seed replicas over 2 "
+          "ranks), elastic recovery (in the process, under torchrun's "
+          "agent, a shrink, the RPN's members) and the sharded coupling "
+          "server on the card:", flush=True)
+    distribution, dist_launches = distribution_phase(
+        torch, K, card, args.seed, {w: srv[0] for w, srv in servers.items()})
+    slice_launches.append(dist_launches)
+    lap("14 (model axis, elastic, sharded server)")
+
     if args.profile:
         profile(torch, K, model, stats, spec, chunks[0])
     require("jax" not in sys.modules, "the port must not load jax")
@@ -5432,6 +6260,7 @@ def main(argv=None) -> int:
                       "finetune": finetune, "online_eval": online_eval,
                       "bench_server": server, "streaming": stream,
                       "zoo": zoo, "data_parallel": data_parallel,
+                      "distribution": distribution,
                       "phase_seconds": seconds}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -33,7 +33,9 @@ batch; every rank draws the same permutation (the same seed) and stages
 only its contiguous 1/world_size of each global batch
 (``local_indices``), through its own pinned ring and copy stream, onto
 its device.  The global batch must divide over the ranks, and a
-remainder batch is never drawn (``drop_remainder``).
+remainder batch is never drawn (``drop_remainder``).  The rows split
+over the data axis only (``rules.rank`` and ``rules.world_size``): under
+a model axis the ranks that share a data index get the same rows.
 """
 
 from __future__ import annotations
@@ -343,9 +345,11 @@ class BootstrapLoader(BatchLoader):
     pattern, rpn_model_v1_data.py:134-144): each draw yields (E, B, D)
     stacks, every member sampling its own bootstrap subset.  The subsets
     and the draws are the JAX loader's, from the same ``default_rng``
-    stream.  Over several processes (a model axis of size 1: every member
-    on every rank) each gets its slice of each member's batch, (E, B /
-    world_size, D) (``climsim_tpu/data/pipeline.py:258-262``)."""
+    stream.  Over a (data, model) mesh every rank draws the whole (E, B)
+    index stream and stages its members' rows of their batches' slices,
+    (E / model_size, B / world_size, D): members over the model axis,
+    each member's batch over the data axis
+    (``climsim_tpu/data/pipeline.py:258-262``)."""
 
     placement = ENSEMBLE_BATCH
 
@@ -355,6 +359,11 @@ class BootstrapLoader(BatchLoader):
                  device="cuda"):
         super().__init__(inputs, targets, batch_size, rules, True, seed,
                          prefetch, device=device)
+        self.midx, self.mcount = ((rules.model_rank, rules.model_size)
+                                  if rules is not None else (0, 1))
+        if ensemble_size % self.mcount:
+            raise ValueError(f"{ensemble_size} members do not split over a "
+                             f"model axis of {self.mcount}")
         n = inputs.shape[0]
         m = int(subset_fraction * n)
         self.member_subsets = np.stack([
@@ -377,6 +386,11 @@ class BootstrapLoader(BatchLoader):
             self.rng.choice(n, m, replace=False)
         for _ in range(epoch * self._steps):
             self.rng.choice(m, self.batch_size, replace=False)
+
+    def local_indices(self, global_batch_idx: np.ndarray) -> np.ndarray:
+        """This rank's members' rows of their batches' slices."""
+        return self.placement.local(global_batch_idx, self.pidx,
+                                    self.pcount, self.midx, self.mcount)
 
     def _index_stream(self):
         m = self.member_subsets.shape[1]

@@ -14,6 +14,16 @@ clients (``CouplingClient``, ``runtime/climclient.c``) talk to either.
   * **Wire format** implementable from Fortran in ~20 lines: little-
     endian u32 header (magic, n_rows, n_features) + f32 row-major
     payload; the reply mirrors it; a 0-row reply reports an error.
+  * **Sharding** (``rules``, ``climsim_tpu/online/server.py:110-128``):
+    high-res serving (21,600 columns a physics step) saturates several
+    cards, and one sidecar feeds them all.  Rank 0 of the mesh listens,
+    coalesces and splits each bucket over the data axis; every rank runs
+    the wrapper on its rows on its own device (the others in
+    :func:`serve_follower`), and rank 0 gathers the replies in row order.
+    Headers and rows travel as host tensors on a gloo group of the
+    server's own, as ``DistributedCheckpointer``'s do: the rows come from
+    the socket as host arrays, and the dispatcher's traffic stays off the
+    training group.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 MAGIC = 0x434C4D54  # "CLMT"
 _HDR = struct.Struct("<III")
@@ -81,6 +92,71 @@ class ServerStats:
         }
 
 
+_END, _CALL = 0, 1
+
+
+class _Shards:
+    """The sharded call's collectives over the server's gloo group: a
+    header (op, rows a rank, features) broadcast from the mesh's rank 0,
+    the rows scattered, the replies gathered, all host float32 tensors.
+    Making it is a collective: rank 0 (``CouplingServer``) and the others
+    (``serve_follower``) make it at the same point."""
+
+    def __init__(self, rules):
+        if rules.model_size != 1:
+            raise ValueError(f"a sharded server splits rows over the data "
+                             f"axis only; model axis {rules.model_size}")
+        mesh = rules.mesh
+        self.n = rules.world_size
+        self.src = mesh.global_rank(0, 0)
+        self.group = dist.new_group(
+            ranks=None if mesh.ranks is None else list(mesh.ranks),
+            backend="gloo")
+
+    def header(self, op: int = 0, rows: int = 0, feats: int = 0):
+        """Rank 0 sends (op, rows, feats); every rank returns them."""
+        h = torch.tensor([op, rows, feats], dtype=torch.int64)
+        dist.broadcast(h, src=self.src, group=self.group)
+        return tuple(int(v) for v in h)
+
+    def scatter(self, x: torch.Tensor | None, rows: int, feats: int):
+        """Rank 0's (n * rows, feats) -> each rank's (rows, feats)."""
+        out = torch.empty(rows, feats, dtype=torch.float32)
+        parts = list(x.split(rows)) if x is not None else None
+        dist.scatter(out, parts, src=self.src, group=self.group)
+        return out
+
+    def gather(self, y: torch.Tensor, lead: bool):
+        """Each rank's reply rows -> rank 0's, in row order."""
+        y = y.float().contiguous()
+        parts = [torch.empty_like(y) for _ in range(self.n)] if lead \
+            else None
+        dist.gather(y, parts, dst=self.src, group=self.group)
+        return torch.cat(parts) if lead else None
+
+
+def serve_follower(wrapper, n_features: int, rules) -> int:
+    """A rank other than 0 of a sharded ``CouplingServer``: run
+    ``wrapper`` on this rank's rows of every sharded call, on
+    ``rules.device``, until rank 0's ``stop()`` sends the end.  Returns
+    the number of calls served.  ``n_features`` is checked against each
+    call's header."""
+    shards = _Shards(rules)
+    calls = 0
+    while True:
+        op, rows, feats = shards.header()
+        if op == _END:
+            return calls
+        if feats != n_features:
+            raise ValueError(f"a call of {feats} features, serving "
+                             f"{n_features}")
+        x = shards.scatter(None, rows, feats)
+        with torch.inference_mode():
+            y = wrapper(x.to(rules.device)).cpu()
+        shards.gather(y, False)
+        calls += 1
+
+
 class CouplingServer:
     """Serve ``wrapper(x_raw) -> y_raw`` over TCP with micro-batching across
     concurrent client requests.
@@ -94,12 +170,28 @@ class CouplingServer:
         bucket ladder = base_chunk * 2**k up to ``max_batch``.
     host/port : bind address; port=0 picks a free port (see ``.port``).
     device : where batches are sent before the wrapper runs.
+    rules : a ``ShardingRules`` (model axis 1): every coalesced bucket
+        splits over the data axis, and each rank's rows run on its own
+        device (``rules.device`` here); ``base_chunk`` and ``max_batch``
+        are rounded up to multiples of the data axis.  Made on the mesh's
+        rank 0, while every other rank runs ``serve_follower``.
     """
 
     def __init__(self, wrapper, n_features: int, base_chunk: int = 384,
                  max_batch: int = 6144, host: str = "127.0.0.1",
-                 port: int = 0, warmup: bool = True, device="cuda"):
+                 port: int = 0, warmup: bool = True, device="cuda",
+                 rules=None):
         self._wrapper = wrapper
+        self._shards = None
+        if rules is not None:
+            if rules.rank != 0:
+                raise ValueError("the sharded server runs on rank 0; the "
+                                 "other ranks run serve_follower")
+            self._shards = _Shards(rules)
+            n = rules.world_size
+            base_chunk = -(-base_chunk // n) * n
+            max_batch = -(-max_batch // n) * n
+            device = rules.device
         self.device = torch.device(device)
         self.n_features = n_features
         self.buckets = []
@@ -125,12 +217,21 @@ class CouplingServer:
             self._warmup()
 
     def _run(self, x: np.ndarray) -> np.ndarray:
-        """One device call: host (B, n_features) float32 -> host output."""
+        """One device call: host (B, n_features) float32 -> host output;
+        with ``rules``, one call on every rank, B / world_size rows each."""
         if not x.flags.writeable:  # a received frame is a read-only buffer
             x = x.copy()
+        xt = torch.from_numpy(x)
+        sh = self._shards
+        if sh is not None:
+            rows = x.shape[0] // sh.n
+            sh.header(_CALL, rows, x.shape[1])
+            xt = sh.scatter(xt, rows, x.shape[1])
         with torch.inference_mode():
-            y = self._wrapper(torch.from_numpy(x).to(self.device))
-            return y.cpu().numpy()
+            y = self._wrapper(xt.to(self.device)).cpu()
+        if sh is not None:
+            y = sh.gather(y, True)
+        return y.numpy()
 
     def _warmup(self) -> None:
         """Run every bucket before serving (no first-request stall)."""
@@ -257,6 +358,11 @@ class CouplingServer:
         # interpreter tears down
         for t in self._threads:
             t.join(timeout=2.0)
+        if self._shards is not None:   # the followers' end, once
+            while self._threads and self._threads[0].is_alive():
+                self._threads[0].join(0.1)   # the dispatcher, mid-call
+            self._shards.header(_END)
+            self._shards = None
 
 
 class CouplingClient:

@@ -21,8 +21,19 @@ counterpart of ``scripts/launch_multihost.sh``):
 default, means the world size); the process group is NCCL on the card
 and gloo with ``--device cpu``.  ``data.batch_size`` stays the global
 batch.  Rank 0 alone writes the manifest, the checkpoints and the log.
-``train.elastic`` (in-flight recovery) waits for the next distribution
-slice and raises.
+
+``train.elastic=true`` trains through ``train.elastic.elastic_fit``: in
+one process a device failure rebuilds the trainer and replays the epoch
+from its host snapshot; under torchrun's elastic agent a failure ends the
+workers, the agent restarts them, and they resume from the
+``DistributedCheckpointer`` in ``<train.checkpoint_dir>/elastic``:
+
+  torchrun --nproc-per-node N --max-restarts 3 -m climsim_tpu_torch.run \
+      --preset mlp_v1 train.elastic=true train.checkpoint_dir=runs/e
+
+The data axis is then sized by ``elastic_fit`` (the largest that divides
+the batch), not by ``train.num_data_shards``.  HSR's staged loss stays on
+the ``fit`` path.
 """
 
 from __future__ import annotations
@@ -306,9 +317,51 @@ def _multiseed(cfg, spec, stats, x_tr, y_tr, x_val, y_val, steps, grid,
                 spec=spec, grid=grid)
 
 
+def _elastic(cfg, spec, stats, x_tr, y_tr, x_val, y_val, steps, grid,
+             verbose, device, rules):
+    """``train.elastic``: ``elastic_fit`` over ``build_trainer`` and
+    ``BatchLoader`` factories, the model axis 1, every epoch saved by a
+    ``DistributedCheckpointer`` in ``<train.checkpoint_dir>/elastic``
+    where the directory is set (needed under torchrun).  The history's
+    epochs are numbered from the report, which spans the restarts (JAX
+    ``run.py:353-360``)."""
+    from .train.checkpoints import DistributedCheckpointer
+    from .train.elastic import elastic_fit
+
+    del rules
+    sample = (np.asarray(x_tr[:4]), np.asarray(y_tr[:4]))
+    bs = cfg.data.batch_size
+
+    def trainer_factory(r):
+        return build_trainer(cfg, spec, stats, sample, cfg.seed, r, steps,
+                             grid, False, r.device if r else device)
+
+    def loader_factory(r):
+        tl = BatchLoader(x_tr, y_tr, bs, r, seed=cfg.data.seed,
+                         device=device)
+        vl = (BatchLoader(x_val, y_val, bs, r, shuffle=False, device=device)
+              if x_val.shape[0] else None)
+        return tl, vl
+
+    checkpointer = (DistributedCheckpointer(
+        os.path.join(cfg.train.checkpoint_dir, "elastic"))
+        if cfg.train.checkpoint_dir else None)
+    state, report = elastic_fit(
+        trainer_factory, loader_factory, cfg.train.epochs, device=device,
+        num_model=1, global_batch=bs, checkpointer=checkpointer,
+        verbose=verbose)
+    history = History()
+    start = report.epochs_completed - len(report.epoch_losses)
+    for i, (tl, vl) in enumerate(zip(report.epoch_losses,
+                                     report.val_losses)):
+        history.log(epoch=start + i, train_loss=tl, val_loss=vl)
+    return dict(trainer=None, state=state, history=history, stats=stats,
+                spec=spec, grid=grid, report=report)
+
+
 def _lead(rules) -> bool:
     """Whether this process writes: the only one, or rank 0."""
-    return rules is None or rules.rank == 0
+    return rules is None or rules.lead
 
 
 def _val_rows(rules, xv, yv):
@@ -340,24 +393,33 @@ def run_experiment(cfg: ExperimentConfig, verbose: bool = True,
     # a copy first: this function clamps the batch size, and callers
     # commonly pass shared PRESETS entries
     cfg = cfg.override()
-    if cfg.train.restart_path and (cfg.model == "rpn" or cfg.train.seeds):
+    if cfg.train.restart_path and (cfg.model == "rpn" or cfg.train.seeds
+                                   or cfg.train.elastic):
         raise ValueError(
             "train.restart_path is only supported on the single-model "
-            "fit() path; the rpn and multi-seed branches would silently "
-            "train from scratch")
-    if cfg.train.elastic:
-        raise NotImplementedError(
-            "train.elastic (in-flight recovery: torchrun's elastic agent and "
-            "a resharding restore from DistributedCheckpointer) waits for "
-            "the next distribution slice (ROADMAP.md, Queue 1 item 7)")
-    rules = data_parallel_rules(cfg, device)
-    n_dev = 1
-    if rules is not None:
-        n_dev, device = rules.world_size, rules.device
-        verbose = verbose and _lead(rules)
+            "fit() path; the rpn, multi-seed and elastic branches would "
+            "silently train from scratch")
+    elastic = (cfg.train.elastic and cfg.model != "rpn"
+               and not cfg.train.seeds)
+    if elastic and cfg.model == "hsr":
+        raise ValueError("train.elastic does not support HSR's staged "
+                         "loss; use the fit() path")
+    rules, n_dev, lead = None, 1, True
+    if elastic:   # elastic_fit sizes its own mesh
+        distributed_init_if_needed(
+            "gloo" if torch.device(device).type == "cpu" else None)
+        if torch.distributed.is_initialized():
+            n_dev = torch.distributed.get_world_size()
+            lead = torch.distributed.get_rank() == 0
+    else:
+        rules = data_parallel_rules(cfg, device)
+        lead = _lead(rules)
+        if rules is not None:
+            n_dev, device = rules.world_size, rules.device
+    verbose = verbose and lead
     grid = load_default_grid()
     spec, x, y, stats = load_data(cfg, grid)
-    if cfg.train.checkpoint_dir and _lead(rules):
+    if cfg.train.checkpoint_dir and lead:
         write_manifest(cfg, cfg.train.checkpoint_dir, device)
 
     n = x.shape[0]
@@ -384,6 +446,8 @@ def run_experiment(cfg: ExperimentConfig, verbose: bool = True,
         return _rpn(*args)
     if cfg.train.seeds:
         return _multiseed(*args)
+    if elastic:
+        return _elastic(*args)
 
     tr = build_trainer(cfg, spec, stats, (np.asarray(x_tr[:4]),
                                           np.asarray(y_tr[:4])), cfg.seed,

@@ -144,43 +144,139 @@ class TimedCheckpointer:
         return True
 
 
+def _train_state_dict(state) -> dict:
+    from torch.distributed.checkpoint.state_dict import get_state_dict
+
+    model, optim = get_state_dict(state.params, state.opt_state)
+    return {"model": model, "optim": optim, "step": state.step,
+            "lr_scale": state.lr_scale, "rng": state.rng.get_state()}
+
+
+def _load_train_state(state, sd: dict) -> None:
+    from torch.distributed.checkpoint.state_dict import set_state_dict
+
+    set_state_dict(state.params, state.opt_state,
+                   model_state_dict=sd["model"], optim_state_dict=sd["optim"])
+    state.step = int(sd["step"])
+    state.lr_scale = float(sd["lr_scale"])
+    state.rng.set_state(sd["rng"])
+
+
+def _rpn_state_dict(tr) -> dict:
+    """An RPN trainer's members under their global indices: each one's
+    rows of the trained net, the prior and Adam's moments, so that a
+    state saved from M model ranks restores onto any other M."""
+    opt = tr.opt_state
+    members = {}
+    named = dict(tr.ensemble.named_parameters())
+    net = {n: p for n, p in named.items() if n.startswith("net.")}
+    for j in range(tr.ensemble.ensemble_size):
+        # copies: a saved view would carry its whole stack's storage
+        m = {n: p.detach()[j].clone() for n, p in named.items()}
+        for n, p in net.items():
+            st = opt.state.get(p)
+            for k in ("exp_avg", "exp_avg_sq"):
+                m[f"{k}.{n}"] = (st[k][j].clone() if st
+                                 else torch.zeros_like(p[j]))
+        members[str(tr.first + j)] = m
+    adam_step = {n: (opt.state[p]["step"] if opt.state.get(p)
+                     else torch.zeros((), dtype=torch.float32))
+                 for n, p in net.items()}
+    return {"members": members, "adam_step": adam_step, "step": tr.step}
+
+
+def _load_rpn_state(tr, sd: dict) -> None:
+    opt = tr.opt_state
+    named = dict(tr.ensemble.named_parameters())
+    members = [sd["members"][str(tr.first + j)]
+               for j in range(tr.ensemble.ensemble_size)]
+    with torch.no_grad():
+        for n, p in named.items():
+            p.copy_(torch.stack([m[n] for m in members]))
+    for n, p in named.items():
+        if not n.startswith("net."):
+            continue
+        opt.state[p] = {
+            "step": sd["adam_step"][n].detach().clone().cpu(),
+            **{k: torch.stack([m[f"{k}.{n}"] for m in members]).to(
+                p.device, p.dtype) for k in ("exp_avg", "exp_avg_sq")}}
+    tr.step = int(sd["step"])
+    if tr.step == 0:   # a state saved before any update: Adam's is empty
+        opt.state.clear()
+
+
+def _state_dict_of(state) -> dict:
+    """What a checkpoint holds of ``state``: a ``TrainState`` (model,
+    optimizer, ``step``, ``lr_scale``, the generator's state), a
+    ``SeedStates`` (each replica's under its seed's global index) or an
+    ``RPNTrainer`` (each member under its global index)."""
+    if hasattr(state, "states"):
+        return {"seeds": {str(state.first + j): _train_state_dict(s)
+                          for j, s in enumerate(state.states)}}
+    if hasattr(state, "ensemble"):
+        return {"rpn": _rpn_state_dict(state)}
+    return _train_state_dict(state)
+
+
+def _load_state_dict_into(state, sd: dict) -> None:
+    """``sd`` (``_state_dict_of``'s layout, loaded) into ``state``."""
+    if hasattr(state, "states"):
+        for j, s in enumerate(state.states):
+            _load_train_state(s, sd["seeds"][str(state.first + j)])
+    elif hasattr(state, "ensemble"):
+        _load_rpn_state(state, sd["rpn"])
+    else:
+        _load_train_state(state, sd)
+
+
 class DistributedCheckpointer:
-    """Asynchronous checkpoints of a whole ``TrainState`` on
+    """Asynchronous checkpoints of a whole train state on
     ``torch.distributed.checkpoint`` (the counterpart of
     ``OrbaxCheckpointer``, ``climsim_tpu/train/checkpoints.py:128-197``).
 
-    ``save`` stages the state (model, optimizer, ``step``, ``lr_scale``,
-    the generator's state) and writes it on a background thread
-    (``dcp.async_save``): training continues during the write.  Every rank
-    of the default process group calls it; the parameters are replicated
-    plain tensors, which DCP writes once.  Its collectives run on a gloo
-    group of its own, so a write in flight never interleaves with the
-    training step's on NCCL.  Without a process group the save is a
-    single process's; with one, never.  A run saved by N ranks restores
-    into any world size, one process included.
+    ``save`` stages the state (``_state_dict_of``: model, optimizer,
+    ``step``, ``lr_scale``, the generator's state) and writes it on a
+    background thread (``dcp.async_save``): training continues during the
+    write.  Every rank of its group calls it.  Replicated tensors are
+    written once; a state split over a model axis (an RPN trainer's
+    members, a ``SeedStates``'s replicas) is saved member by member and
+    replica by replica under their global indices, so it restores onto
+    another model axis, 1 included: each rank reads the members it holds.
+    Its collectives run on a gloo group of its own (all the default
+    group's ranks, or ``ranks``), so a write in flight never interleaves
+    with the training step's on NCCL.  Without a process group the save
+    is a single process's; with one, never.  A run saved by N ranks
+    restores into any world size, one process included.
 
     Reference analog: the .mdlus save/from_checkpoint pair
     (train_unet_h5loader.py:296-307,513), synchronous and single-device.
     """
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, ranks=None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         # a collective where a group exists: every rank makes it together
-        self._group = (dist.new_group(backend="gloo")
+        self.ranks = None if ranks is None else tuple(ranks)
+        self._group = (dist.new_group(ranks=None if ranks is None
+                                      else list(ranks), backend="gloo")
                        if dist.is_initialized() else None)
         self._pending = None
 
+    def for_ranks(self, ranks) -> "DistributedCheckpointer":
+        """The checkpointer of this directory over ``ranks`` of the default
+        group (a collective: every rank calls it, those outside ``ranks``
+        too); itself where ``ranks`` are already its own, or where there is
+        no process group."""
+        ranks = tuple(ranks)
+        whole = (tuple(range(dist.get_world_size()))
+                 if dist.is_initialized() else ranks)
+        if (self.ranks or whole) == ranks:
+            return self
+        self.wait()
+        return DistributedCheckpointer(self.directory, ranks)
+
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{step}")
-
-    @staticmethod
-    def _state_dict(state) -> dict:
-        from torch.distributed.checkpoint.state_dict import get_state_dict
-
-        model, optim = get_state_dict(state.params, state.opt_state)
-        return {"model": model, "optim": optim, "step": state.step,
-                "lr_scale": state.lr_scale, "rng": state.rng.get_state()}
 
     def save(self, step: int, state) -> None:
         """Start writing ``state`` as ``step``; a save still in flight is
@@ -188,14 +284,15 @@ class DistributedCheckpointer:
         import torch.distributed.checkpoint as dcp
 
         self.wait()
-        self._pending = dcp.async_save(self._state_dict(state),
+        self._pending = dcp.async_save(_state_dict_of(state),
                                        checkpoint_id=self._path(step),
                                        process_group=self._group)
 
-    def wait(self) -> None:
-        """Block until the save in flight, if any, is committed."""
+    def wait(self, timeout: float | None = None) -> None:
+        """Block until the save in flight, if any, is committed (or
+        ``timeout`` seconds pass: TimeoutError)."""
         if self._pending is not None:
-            self._pending.result()
+            self._pending.result(timeout)
             self._pending = None
 
     def steps(self) -> list[int]:
@@ -213,12 +310,11 @@ class DistributedCheckpointer:
         return sorted(out)
 
     def restore(self, template, step: int | None = None):
-        """Load ``step`` (default: the latest) into ``template``, a
-        ``TrainState`` of the same model and optimizer on the current
-        world size, in place; returns it, or None when nothing is
-        committed."""
+        """Load ``step`` (default: the latest) into ``template``, a state
+        of the same model and optimizer on the current world size (a
+        ``TrainState``, ``SeedStates`` or ``RPNTrainer``), in place;
+        returns it, or None when nothing is committed."""
         import torch.distributed.checkpoint as dcp
-        from torch.distributed.checkpoint.state_dict import set_state_dict
 
         self.wait()
         if step is None:
@@ -226,13 +322,9 @@ class DistributedCheckpointer:
             if not ss:
                 return None
             step = ss[-1]
-        sd = self._state_dict(template)
+        sd = _state_dict_of(template)
         dcp.load(sd, checkpoint_id=self._path(step),
                  process_group=self._group)
-        set_state_dict(template.params, template.opt_state,
-                       model_state_dict=sd["model"],
-                       optim_state_dict=sd["optim"])
-        template.step = int(sd["step"])
-        template.lr_scale = float(sd["lr_scale"])
-        template.rng.set_state(sd["rng"])
+        _load_state_dict_into(template, sd)
         return template
+

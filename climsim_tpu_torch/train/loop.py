@@ -140,7 +140,7 @@ def fit(train_step, eval_step, state: TrainState, train_loader, val_loader,
     until its writes of the epoch are done.  (JAX's ``fit`` never needed
     this: one controller saw the global arrays.)
     """
-    lead = rules is None or rules.rank == 0
+    lead = rules is None or rules.lead
     world = 1 if rules is None else rules.world_size   # rates: global rows
     history = history if history is not None else History()
     runner = (train_loader.make_epoch_runner(train_step)

@@ -13,12 +13,18 @@ loss, and Adam is elementwise, so the update equals E separate Adams.  The
 input transform (kernel 1 on the card) runs once a step on the (E * B, D)
 rows.
 
-With ``rules`` (a model axis of size 1, ``climsim_tpu/run.py:150``) every
-rank holds all the members, rank 0's after the broadcast, and trains them
-on its slice of each member's bootstrap batch (``BootstrapLoader``); the
-gradients and the losses go through one all-reduce (a mean over the
-ranks) before Adam, so every rank takes the same update.  Validation
-(``eval_losses``, ``posterior``) runs whole on every rank.
+With ``rules`` over a (data, model) mesh
+(``climsim_tpu/train/rpn_recipe.py:57-60``, ``ens_sharding``) the members
+split over the model axis: every rank draws the whole ensemble from the
+seed on the host and keeps its contiguous E / model_size members, their
+priors and their Adam state, so a member's weights never depend on where
+it lives.  Each trains on its slice of its members' bootstrap batches
+(``BootstrapLoader``), and the gradients and the losses go through one
+all-reduce over the data group (a mean over the ranks that hold the same
+members) before Adam: no member talks to another.  The step's (E,)
+losses, ``eval_losses`` (E,) and ``posterior`` (B, O, E) gather the
+members over the model group, so each equals the 1-process result on
+every rank.  Validation runs on the whole batch on every rank.
 """
 
 from __future__ import annotations
@@ -38,16 +44,21 @@ from . import schedules
 class RPNTrainer:
     """The ensemble (``ensemble.net`` trained, ``ensemble.prior`` frozen),
     its Adam (``opt_state``) and ``step``, the updates made so far
-    (optax's count).  Losses stay on the device: a step never waits for
-    the card."""
+    (optax's count).  Under ``rules`` the ensemble holds this rank's
+    members, ``first`` the global index of the first of them, and
+    ``ensemble_size`` counts them all.  Losses stay on the device: a step
+    never waits for the card."""
 
     def __init__(self, ensemble: RPNEnsemble, schedule: Callable,
                  input_transform: Callable, target_transform: Callable,
-                 rules=None):
+                 rules=None, first: int = 0,
+                 ensemble_size: int | None = None):
         if rules is not None:
             rules.params(ensemble)
         self.rules = rules
         self.ensemble = ensemble
+        self.first = first
+        self.ensemble_size = ensemble_size or ensemble.ensemble_size
         self.opt_state = torch.optim.Adam(ensemble.net.parameters(), lr=0.0,
                                           betas=(0.9, 0.999), eps=1e-8)
         self.schedule = schedule
@@ -61,9 +72,13 @@ class RPNTrainer:
         return torch.mean((self.target_transform(yb) - pred) ** 2,
                           dim=(-2, -1))
 
+    def _gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return t if self.rules is None else self.rules.gather_model(t, dim)
+
     def train_step(self, xb: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
-        """One update on (E, B, D) member-specific bootstrap batches;
-        returns the (E,) losses before it."""
+        """One update on (E, B, D) member-specific bootstrap batches (this
+        rank's members and rows under ``rules``); returns every member's
+        loss before it, (E,)."""
         e, b, d = xb.shape
         x = self.input_transform(xb.reshape(e * b, d)).reshape(e, b, d)
         opt = self.opt_state
@@ -82,17 +97,29 @@ class RPNTrainer:
             group["lr"] = lr
         opt.step()
         self.step += 1
-        return losses.detach()
+        return self._gather(losses.detach())
 
     def posterior(self, x_raw: torch.Tensor) -> torch.Tensor:
         """Every member on a shared raw batch: (B, D) -> (B, O, E)."""
         with torch.no_grad():
-            return self.ensemble.posterior(self.input_transform(x_raw))
+            return self._gather(self.ensemble.posterior(
+                self.input_transform(x_raw)), -1)
 
     def eval_losses(self, xb: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
-        """Each member's loss on one shared validation batch (B, D)."""
+        """Each member's loss on one shared validation batch (B, D):
+        (E,)."""
         with torch.no_grad():
-            return self._losses(self.input_transform(xb), yb)
+            return self._gather(self._losses(self.input_transform(xb), yb))
+
+
+def keep_members(ens: RPNEnsemble, lo: int, hi: int) -> RPNEnsemble:
+    """``ens`` cut to members [lo, hi), in place: every stacked parameter
+    of the trained net and of the prior keeps those rows (copies, so the
+    whole ensemble's memory is freed)."""
+    for p in ens.parameters():
+        p.data = p.data[lo:hi].clone()
+    ens.ensemble_size = hi - lo
+    return ens
 
 
 def rpn_trainer(spec: VarSpec, stats: NormStats, sample_x, rng,
@@ -103,18 +130,23 @@ def rpn_trainer(spec: VarSpec, stats: NormStats, sample_x, rng,
                 cfg: T.TransformConfig | None = None,
                 compute_dtype: torch.dtype = torch.bfloat16,
                 rules=None, device="cuda") -> RPNTrainer:
-    """``rng``: an int seed or a torch.Generator; the ensemble is drawn on
-    the host from it and moved to ``device`` (``rules.device`` with
+    """``rng``: an int seed or a torch.Generator; the whole ensemble is
+    drawn on the host from it, and this rank's members (all of them
+    without ``rules``) are moved to ``device`` (``rules.device`` with
     ``rules``)."""
+    lo, hi = 0, ensemble_size
     if rules is not None:
         device = rules.device
+        lo, hi = rules.split(ensemble_size)
     del sample_x   # shapes come from the spec
     gen = rng if isinstance(rng, torch.Generator) else \
         torch.Generator().manual_seed(int(rng))
     ens = RPNEnsemble(spec, ensemble_size, tuple(hidden), compute_dtype,
-                      generator=gen).to(device)
-    return RPNTrainer(ens, schedules.exponential(init_lr, decay_steps,
-                                                 decay_rate),
+                      generator=gen)
+    if hi - lo < ensemble_size:
+        keep_members(ens, lo, hi)
+    return RPNTrainer(ens.to(device),
+                      schedules.exponential(init_lr, decay_steps, decay_rate),
                       T.make_input_transform(spec, stats, cfg, device),
                       T.make_target_transform(spec, stats, cfg, device),
-                      rules)
+                      rules, lo, ensemble_size)

@@ -40,6 +40,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..parallel.mesh import pad_to_multiple
+
 
 @dataclass(frozen=True)
 class Optimizer:
@@ -177,36 +179,33 @@ def make_eval_step(loss_fn: Callable, rules=None):
 def make_predict_fn(apply_fn: Callable, rules=None,
                     batch_size: int | None = None):
     """Batched full-split inference returning host numpy.  With ``rules``
-    each rank predicts a contiguous 1/world_size of every batch (the last
-    rank's part padded with its last row) and the parts are gathered, so
-    every rank returns the prediction of the whole split."""
+    each rank predicts a contiguous 1/world_size of every batch (the batch
+    padded with its last row to a multiple of the data axis,
+    ``pad_to_multiple``) and the parts are gathered over the data group,
+    so every rank returns the prediction of the whole split."""
 
     def predict(model, inputs, bs: int | None = batch_size):
         bs = bs or inputs.shape[0]
         outs = []
         with torch.no_grad():
             for s in range(0, inputs.shape[0], bs):
-                xb = torch.as_tensor(np.asarray(inputs[s:s + bs]))
-                outs.append(apply_fn(model, xb).float().cpu().numpy()
-                            if rules is None else
-                            _predict_split(apply_fn, model, xb, rules))
+                xb = np.asarray(inputs[s:s + bs])
+                outs.append(
+                    apply_fn(model, torch.as_tensor(xb)).float().cpu().numpy()
+                    if rules is None else
+                    _predict_split(apply_fn, model, xb, rules))
         return np.concatenate(outs, axis=0)
 
     return predict
 
 
-def _predict_split(apply_fn, model, xb: torch.Tensor, rules) -> np.ndarray:
-    n = rules.world_size
-    per = -(-xb.shape[0] // n)
-    mine = xb[rules.rank * per:(rules.rank + 1) * per]
-    if mine.shape[0] < per:   # the last part, short or empty: padded
-        src = mine if mine.shape[0] else xb
-        mine = torch.cat([mine, src[-1:].expand(per - mine.shape[0],
-                                               *xb.shape[1:])])
-    y = apply_fn(model, mine).float().contiguous()
-    parts = [torch.empty_like(y) for _ in range(n)]
-    torch.distributed.all_gather(parts, y, group=rules.mesh.group)
-    return torch.cat(parts)[:xb.shape[0]].cpu().numpy()
+def _predict_split(apply_fn, model, xb: np.ndarray, rules) -> np.ndarray:
+    padded, n = pad_to_multiple(xb, rules.world_size)
+    y = apply_fn(model, torch.as_tensor(rules.local(padded, rules.batch)))
+    y = y.float().contiguous()
+    parts = [torch.empty_like(y) for _ in range(rules.world_size)]
+    torch.distributed.all_gather(parts, y, group=rules.mesh.data_group)
+    return torch.cat(parts)[:n].cpu().numpy()
 
 
 @dataclass

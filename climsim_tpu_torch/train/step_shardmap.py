@@ -5,8 +5,8 @@ The default step (``train.step``) hands the gradient reduction to DDP,
 which buckets the gradients and overlaps their all-reduce with the
 backward.  Here each rank runs the backward on its rows, then the
 gradients, the loss and the aux metrics go through ONE explicit
-all-reduce of a flat vector, divided by the world size: the counterpart
-of ``jax.lax.psum(g, "data") / n_shards``
+all-reduce of a flat vector over the data group, divided by its size:
+the counterpart of ``jax.lax.psum(g, "data") / n_shards``
 (``climsim_tpu/train/step_shardmap.py:44-49``).  Useful where what
 communicates must be under the caller's control (to compress or quantize
 gradients before the reduce).  The update (clip, ``lr_scale``, optimizer)
@@ -39,7 +39,7 @@ def make_shardmap_train_step(loss_fn: Callable, optimizer: Optimizer,
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         metrics = [loss.detach(), *(v.detach() for v in aux.values())]
         flat = torch.cat([t.reshape(-1).float() for t in grads + metrics])
-        torch.distributed.all_reduce(flat, group=rules.mesh.group)
+        torch.distributed.all_reduce(flat, group=rules.mesh.data_group)
         flat /= rules.world_size
         at = 0
         for g in grads:

@@ -128,9 +128,11 @@ def test_remainder_batches_refused_over_processes():
 
 
 def test_mesh_refusals_and_placements():
-    with pytest.raises(NotImplementedError, match="next distribution slice"):
-        PM.make_mesh(num_data=1, num_model=2, device="cpu")
+    with pytest.raises(ValueError, match="model axis of 2 does not divide"):
+        PM.Mesh(1, 0, torch.device("cpu"), None, 2)
     if not dist.is_initialized():
+        with pytest.raises(RuntimeError, match="process group"):
+            PM.make_mesh(num_data=1, num_model=2, device="cpu")
         with pytest.raises(RuntimeError, match="process group"):
             PM.make_mesh(device="cpu")
     rules = PM.ShardingRules(PM.Mesh(4, 2, torch.device("cpu"), None))

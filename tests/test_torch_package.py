@@ -55,6 +55,7 @@ SLICE_MODULES = (
     "climsim_tpu_torch.train.hpo", "climsim_tpu_torch.parallel",
     "climsim_tpu_torch.parallel.mesh", "climsim_tpu_torch.train.step_shardmap",
     "climsim_tpu_torch.utils.profiling", "climsim_tpu_torch.run_hpo_sweep",
+    "climsim_tpu_torch.train.elastic",
 )
 
 # the port's byte-for-byte copies of the JAX package's numpy-only modules

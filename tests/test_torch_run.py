@@ -148,13 +148,15 @@ def _tiny(*more):
 
 
 @pytest.mark.parametrize("override,error,match", [
-    ("train.elastic=true", NotImplementedError, "next distribution slice"),
+    ('train.elastic=true model="hsr"', ValueError, "staged loss"),
     ("train.num_data_shards=2", ValueError, "needs 2 processes")])
 def test_distributed_branches_raise(override, error, match):
-    """train.elastic waits for the next slice; a data-parallel run outside
-    torchrun (world size 1) refuses to train on fewer ranks than asked."""
+    """train.elastic refuses HSR's staged loss, as the JAX runner does; a
+    data-parallel run outside torchrun (world size 1) refuses to train on
+    fewer ranks than asked."""
     with pytest.raises(error, match=match):
-        PRUN.run_experiment(_tiny(override), verbose=False, device="cpu")
+        PRUN.run_experiment(_tiny(*override.split()), verbose=False,
+                            device="cpu")
 
 
 @pytest.mark.parametrize("preset,extra", [("mlp_v1", "train.seeds=[0, 1]"),

@@ -292,11 +292,13 @@ def test_recipes_refuse_what_is_not_ported(data):
                                rtol=1e-5, atol=1e-7)
     with pytest.raises(KeyError):
         PR._optimizer(PS.constant(1e-3), "lion")
-    # the model axis (members or seeds split over ranks) is the next slice
-    from climsim_tpu_torch.parallel.mesh import make_mesh
+    # a model axis (members or seeds split over ranks) needs a rank a
+    # device: its mesh cannot cover fewer ranks than it has
+    from climsim_tpu_torch.parallel.mesh import Mesh
 
-    with pytest.raises(NotImplementedError, match="model axis"):
-        make_mesh(num_data=1, num_model=2, device="cpu")
+    with pytest.raises(ValueError, match="model axis"):
+        Mesh(3, 0, torch.device("cpu"), None, num_model=2)
+    assert Mesh(4, 3, torch.device("cpu"), None, 2).model_index == 1
     # the energy and water penalties are ported; they need the grid
     with pytest.raises(ValueError, match="grid"):
         PR.online_mlp_trainer(get_varspec("v2_rh"),

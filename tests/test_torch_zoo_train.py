@@ -292,17 +292,20 @@ def test_multiseed_lr_sweep():
         torch.testing.assert_close(before[1][k], after[1][k], rtol=0, atol=0)
     with pytest.raises(ValueError):
         ms.state.set_lr_scale([1.0])
-    # rules go to every replica's recipe (the seed axis replicated over
-    # the data axis)
+    # rules go to every replica's recipe (a model axis of 1: every
+    # replica on this rank)
+    from climsim_tpu_torch.parallel import mesh as PPM
+
+    rules = PPM.ShardingRules(PPM.Mesh(1, 0, torch.device("cpu"), None))
     seen = []
 
     def recipe(*a, rules=None, **kw):
         seen.append(rules)
         return PR.mlp_trainer(*a, **kw)
 
-    PMS.multiseed(recipe, spec, stats, (x, y), [0, 1], rules="rules",
+    PMS.multiseed(recipe, spec, stats, (x, y), [0, 1], rules=rules,
                   hidden=(8,), device="cpu")
-    assert seen == ["rules", "rules"]
+    assert seen == [rules, rules]
 
 
 def test_multiseed_hsr_stages_and_samples():
