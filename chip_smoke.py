@@ -8,7 +8,8 @@ zoo's first-loss gaps of phase 12 at those seeds, and exits;
 --dp-gap-seeds 0,1,2,3 builds them, then only runs 13b at those seeds
 with no bound on its float32 gaps, prints them, and exits;
 --distribution-only runs phase 14 alone; --model-axis-seeds and
---shrink-gap-seeds read 14a's and 14b (iii)'s gaps at several seeds.)
+--shrink-gap-seeds read 14a's and 14b (iii)'s gaps at several seeds;
+--scripts-only runs phase 15 alone.)
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from climsim_tpu_torch/ops/csrc (nvcc, sm_90a)
@@ -324,18 +325,38 @@ with no bound on its float32 gaps, prints them, and exits;
       direct wrapper call, buckets divisible by the world size, kernels
       1-3 launched on every rank; round trips at p50 and p99 beside the
       unsharded server's.
-15. With --profile, prints the fused MLPs' plans and traces the served
+15. The last five JAX scripts as port entries, on the card at the
+   scripts' widths and batches, cut in rows and epochs only:
+   a. python -m climsim_tpu_torch.run_all_baselines's main (SCRIPTS_
+      TRAIN_ROWS training rows, SCRIPTS_EPOCHS epochs): every loss finite,
+      MLP's, HSR's (over its NLL stage) and the RPN's falling, every table
+      entry finite, the resident loader's epoch runner taken by MLP, ED,
+      CNN and cVAE, kernel 1 launched exactly once a training step and a
+      prediction or sample batch (no other kernel);
+   b. make_offline_figures (FIGURES_DAYS day of scoring rows): its arrays
+      finite, kernel 1 as in a (the figures drawn where matplotlib is);
+   c. run_real_baselines on a REAL_PAIRS-pair synthetic netCDF tree of
+      384 columns (data.synthnc): the report with BASELINE.md's columns,
+      kernel 1 as in a;
+   d. bench_ingest --pairs INGEST_PAIRS (host only, no launch);
+   e. bench_all's rows: MLP, ED, HSR and cVAE at one resident epoch of
+      their pools, the RPN (32 x 3072) at one epoch of its pool, CNN and
+      U-Net v5 at their batch of 4096 from a pool of two batches; each
+      row's JSON, the MLP's FLOPs within FLOP_TOL of its Dense layers' count,
+      every MFU in (0, 1], kernel 1 once a step (warm-up, timed and the
+      counted step).
+16. With --profile, prints the fused MLPs' plans and traces the served
    paths (MLP bf16 and int8, U-Net v5, two-stage v5, v4) with
    torch.profiler (device time per kernel and copy, the card's busy
    share, kernel 5's share of it, the costliest host ops).
-16. Prints one JSON line of the kernels' results (each with its bound:
+17. Prints one JSON line of the kernels' results (each with its bound:
    the larger of its bytes over the memory rate and its operations over
    the peak, at the timed shape; the launches include 6d's rollouts,
-   6f's updates and entry, 12's zoo and 13's and 14's runs, the ranks',
-   the agent's worker's and the HPO workers' among them) and the paths'
-   results (6d's under "rollouts", 6f's under "finetune" and
+   6f's updates and entry, 12's zoo and 13's, 14's and 15's runs, the
+   ranks', the agent's worker's and the HPO workers' among them) and the
+   paths' results (6d's under "rollouts", 6f's under "finetune" and
    "online_eval", 12's under "zoo", 13's under "data_parallel", 14's
-   under "distribution"), then, last,
+   under "distribution", 15's under "scripts"), then, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each phase prints its seconds (kept in the result line as
@@ -3090,7 +3111,7 @@ KERNEL_NAMES = ("fused_input_transform", "fused_mlp_forward",
 FT_GRAD_ROWS = (7, 384)   # kernels 1 and 4 under autograd, v5
 FT_COLS = 384
 FT_K = 16                 # online_eval's --ft-k default
-FT_UPDATES = 3
+FT_UPDATES = 2
 FT_SPIN = 24              # oracle steps from the synthetic columns to the IC
 FT_CHECK_K = 2            # the remat and all-plain checks' horizon
 FT_CHECK_SEEDS = 4        # the K = 2 checks at --seed and the 3 after it
@@ -3111,9 +3132,9 @@ FT_GRAD_TOL = 1.2e-3
 REDESIGN_HOST_MS = {"fused_input_transform": 0.0162,
                     "fused_constraint_head": 0.0188}
 # python -m climsim_tpu_torch.online_eval on the card: the script's own
-# smoke geometry (scripts/online_eval.py:61), a few hundred train steps,
+# smoke geometry (scripts/online_eval.py:61), a hundred train steps,
 # one DAgger round, two fine-tune updates at K = 16, a one-day spin-up
-ENTRY_ARGS = ["--steps", "216", "--window", "72", "--train-steps", "200",
+ENTRY_ARGS = ["--steps", "216", "--window", "72", "--train-steps", "100",
               "--chunk", "20", "--dagger-rounds", "1", "--dagger-steps",
               "20", "--dagger-collect", "144", "--ft-steps", "2", "--ft-k",
               "16", "--spinup-days", "1"]
@@ -5658,6 +5679,211 @@ def shrink_gap_seeds(torch, K, card, seeds):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 15: the last five scripts as port entries
+# --------------------------------------------------------------------------
+# run_all_baselines at the script's widths and batches, cut in rows and
+# epochs: 8 x 384 training rows (3 batches of 1024), the script's 12 x 384
+# scoring rows, 6 epochs (HSR: 2 of its MSE stage, 4 of its NLL stage;
+# the CNN max(6 // 2, 3) = 3)
+SCRIPTS_TRAIN_ROWS = 8 * 384
+SCRIPTS_SCORE_ROWS = 12 * 384
+SCRIPTS_EPOCHS = 6
+# make_offline_figures: one day of scoring rows, its epochs and rows as
+# run_all_baselines' above
+FIGURES_DAYS = 1
+# run_real_baselines on a synthetic netCDF tree of 384-column pairs: 24,
+# so that the canonical train stride of 7 leaves 4 files (1536 rows, the
+# least over the RPN's 1280) and the scoring split's fallback 2 (768)
+REAL_PAIRS = 24
+REAL_EPOCHS = 1
+INGEST_PAIRS = 8
+# serial only: a spawned pool's start costs ~7 s here, and the pools are
+# timed by python -m climsim_tpu_torch.bench_ingest at --pairs 400
+INGEST_WORKERS = "0"
+# bench_all: the fast rows at one resident epoch of their pool; CNN and
+# U-Net at their batch (4096: both fit, 28.05 and 46.60 GB on an H100)
+# from a pool of this many batches, one epoch
+BENCH_SLOW_POOL_BATCHES = 2
+
+
+def scripts_kernel1(info, launches, label):
+    """Kernel 1 launched once a training step and once a batch that ran a
+    model's input transform outside training (prediction, sampling) of
+    train_and_score's ``info``; no other kernel."""
+    want = sum(i["steps"] + i["transform_calls"] for i in info.values())
+    per_model = {m: (i["steps"], i["transform_calls"])
+                 for m, i in info.items()}
+    require(launches["fused_input_transform"] == want,
+            f"{label}: kernel 1 launched "
+            f"{launches['fused_input_transform']} times, want {want} "
+            f"(steps, other calls: {per_model})")
+    require(sum(launches.values()) == want,
+            f"{label}: other kernels launched: {launches}")
+
+
+def tables_finite(tables, label):
+    for m, t in tables.items():
+        for v, row in t.items():
+            require(all(np.isfinite(x) for x in row.values()),
+                    f"{label}: {m} {v} {row}")
+
+
+def scripts_phase(torch, K, card, seed, tmp):
+    """Phase 15: run_all_baselines, make_offline_figures,
+    run_real_baselines, bench_ingest and bench_all's rows on the card.
+    Returns (results, the launches)."""
+    from pathlib import Path
+
+    from climsim_tpu_torch import bench_all as BA
+    from climsim_tpu_torch import bench_ingest as BI
+    from climsim_tpu_torch import make_offline_figures as MOF
+    from climsim_tpu_torch import run_all_baselines as RAB
+    from climsim_tpu_torch import run_real_baselines as RRB
+    from climsim_tpu_torch import get_varspec, load_asset_norms
+    from climsim_tpu_torch.data.synthnc import make_tree
+    from climsim_tpu_torch.grid import load_default_grid
+    from climsim_tpu_torch.models.common import Dense
+    from climsim_tpu_torch.train import recipes
+
+    del seed   # every entry draws from its own fixed seeds, as the scripts
+    out, total = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # 15a: run_all_baselines
+    t0 = time.perf_counter()
+    res, launches, _ = counted(torch, K, lambda: RAB.main([
+        "--epochs", str(SCRIPTS_EPOCHS), "--n-train", str(SCRIPTS_TRAIN_ROWS),
+        "--n-score", str(SCRIPTS_SCORE_ROWS),
+        "--out", os.path.join(tmp, "SYNTHETIC_RESULTS.torch.md"),
+        "--device", "cuda"]))
+    add(launches)
+    info = res["train_info"]
+    require(list(info) == ["MLP", "ED", "CNN", "HSR", "cVAE", "RPN"],
+            f"15a: models {list(info)}")
+    scripts_kernel1(info, launches, "15a run_all_baselines")
+    for m, i in info.items():
+        require(np.isfinite(i["loss"]) and np.isfinite(i["first_loss"]),
+                f"15a: {m} losses {i['first_loss']} -> {i['loss']}")
+        require(i["fused"] == (m in ("MLP", "ED", "CNN", "cVAE")),
+                f"15a: {m} fused {i['fused']}")
+    for m in ("MLP", "HSR", "RPN"):
+        require(info[m]["loss"] < info[m]["first_loss"],
+                f"15a: {m}'s loss did not fall: {info[m]['first_loss']} -> "
+                f"{info[m]['loss']}")
+    tables_finite(res["tables"], "15a")
+    require(os.path.exists(res["out"]), "15a wrote no report")
+    out["run_all_baselines"] = {
+        "seconds": time.perf_counter() - t0,
+        "launches": launches["fused_input_transform"],
+        "train_info": info}
+    print(f"{card}: 15a run_all_baselines ({SCRIPTS_TRAIN_ROWS} rows, "
+          f"{SCRIPTS_EPOCHS} epochs): " + "; ".join(
+              f"{m} {i['first_loss']:.4f} -> {i['loss']:.4f}, "
+              f"{i['sps']:,.0f} samples/s" for m, i in info.items())
+          + f"; kernel 1 {launches['fused_input_transform']} launches "
+          f"({out['run_all_baselines']['seconds']:.1f} s)", flush=True)
+
+    # 15b: make_offline_figures
+    t0 = time.perf_counter()
+    res, launches, _ = counted(torch, K, lambda: MOF.main([
+        "--epochs", "1", "--days", str(FIGURES_DAYS),
+        "--n-train", str(SCRIPTS_TRAIN_ROWS),
+        "--outdir", os.path.join(tmp, "figures"), "--device", "cuda"]))
+    add(launches)
+    scripts_kernel1(res["train_info"], launches, "15b make_offline_figures")
+    tables_finite(res["tables"], "15b")
+    for v, maps in res["r2maps"].items():
+        for m, a in maps.items():
+            require(bool(np.isfinite(a).all()), f"15b: R2 map {v} {m}")
+    require(bool(np.isfinite(res["pressure_lat"]).all()), "15b: pressure")
+    out["make_offline_figures"] = {"seconds": time.perf_counter() - t0,
+                                   "figures": res["figures"]}
+    print(f"{card}: 15b make_offline_figures: arrays finite, figures "
+          f"{res['figures'] or 'not drawn (no matplotlib)'} "
+          f"({out['make_offline_figures']['seconds']:.1f} s)", flush=True)
+
+    # 15c: run_real_baselines on a synthetic netCDF tree
+    t0 = time.perf_counter()
+    tree = Path(tmp) / "tree"
+    make_tree(tree / "0001-02", load_default_grid(), nsteps=REAL_PAIRS,
+              ncol=384)
+    res, launches, _ = counted(torch, K, lambda: RRB.main([
+        "--data-dir", str(tree), "--shard-dir", os.path.join(tmp, "shards"),
+        "--epochs", str(REAL_EPOCHS), "--workers", "0",
+        "--out", os.path.join(tmp, "REAL_RESULTS.torch.md"),
+        "--device", "cuda"]))
+    add(launches)
+    scripts_kernel1(res["train_info"], launches, "15c run_real_baselines")
+    tables_finite(res["tables"], "15c")
+    with open(res["out"]) as f:
+        require("| ref MLP |" in f.read(), "15c: no reference columns")
+    out["run_real_baselines"] = {"seconds": time.perf_counter() - t0,
+                                 "pairs": REAL_PAIRS}
+    print(f"{card}: 15c run_real_baselines on {REAL_PAIRS} pairs "
+          f"({out['run_real_baselines']['seconds']:.1f} s)", flush=True)
+
+    # 15d: bench_ingest (host only)
+    rows, launches, ms = counted(torch, K, lambda: BI.main(
+        ["--pairs", str(INGEST_PAIRS), "--workers", INGEST_WORKERS]))
+    require(sum(launches.values()) == 0, f"15d launched {launches}")
+    require(all(r["pairs_per_s"] > 0 for r in rows), f"15d: {rows}")
+    out["bench_ingest"] = {"pairs": INGEST_PAIRS, "rows": rows,
+                           "seconds": ms / 1e3}
+
+    # 15e: bench_all's rows
+    spec = get_varspec("v1")
+    mlp = recipes.mlp_trainer(spec, load_asset_norms("v1"), None, 0,
+                              hidden=(768, 640, 512, 640, 640),
+                              device="cpu")
+    layers = [m.weight.shape for m in mlp.model.modules()
+              if isinstance(m, Dense)]
+    del mlp
+    rows = {}
+    for name, (fac, spec_name, batch, pool, label) in BA.CONFIGS.items():
+        if name in ("CNN", "UNet"):
+            pool = BENCH_SLOW_POOL_BATCHES * batch
+        results = []
+        row, launches, _ = counted(torch, K, lambda: BA.bench_generic(
+            label, fac, spec_name, batch, pool, results, epoch_rows=pool,
+            device="cuda"))
+        add(launches)
+        rows[label] = row
+        require(launches["fused_input_transform"] == row["steps"]
+                + row["warmup_steps"] + 1 == sum(launches.values()),
+                f"15e {label}: launches {launches}, {row['steps']} steps "
+                f"after {row['warmup_steps']}, and the counted step")
+        if name == "MLP":
+            analytic = (6 * batch * sum(o * i for o, i in layers)
+                        - 2 * batch * layers[0][0] * layers[0][1])
+            gap = abs(row["step_flops"] - analytic) / analytic
+            require(gap <= FLOP_TOL, f"15e: MLP step {row['step_flops']} "
+                    f"FLOPs against the analytic {analytic}")
+            row["analytic_flops_gap"] = gap
+    members, batch, pool = BA.RPN_CONFIG
+    results = []
+    row, launches, _ = counted(torch, K, lambda: BA.bench_rpn(
+        results, members, batch, pool, epoch_rows=pool, device="cuda"))
+    add(launches)
+    rows[row["model"]] = row
+    require(launches["fused_input_transform"] == row["steps"]
+            + row["warmup_steps"] + 1 == sum(launches.values()),
+            f"15e RPN: launches {launches}")
+    for label, row in rows.items():
+        require(0 < row["mfu"] <= 1 and np.isfinite(row["loss"]),
+                f"15e {label}: MFU {row['mfu']}, loss {row['loss']}")
+    out["bench_all"] = rows
+    print(f"{card}: 15e bench_all: " + "; ".join(
+        f"{m} {r['samples_per_s']:,.0f} samples/s, {r['tflops']:.2f} "
+        f"TFLOP/s, MFU {100 * r['mfu']:.2f}% of {r['peak_tflops']:.1f}, "
+        f"peak {r['peak_memory_gb'] or 0:.2f} GB over {r['rows']} rows"
+        for m, r in rows.items()), flush=True)
+    return out, total
+
+
 def io_entry(name, source, replaces, launched, r, at):
     """The JSON entry of kernel 1 or 4: "ms" and "plain_ms" device times
     (CUDA-graph replays), "host_ms" the wrapper's host cost a call, and the
@@ -5729,6 +5955,8 @@ def main(argv=None) -> int:
                     help="build the kernels, run phase 13 alone, exit")
     ap.add_argument("--distribution-only", action="store_true",
                     help="build the kernels, run phase 14 alone, exit")
+    ap.add_argument("--scripts-only", action="store_true",
+                    help="build the kernels, run phase 15 alone, exit")
     ap.add_argument("--model-axis-seeds", metavar="S,S,...",
                     help="only run 14a's RPN at these seeds, read its gaps "
                     "to 1 process (the readings MODEL_AXIS_TOL rests on), "
@@ -5839,6 +6067,14 @@ def main(argv=None) -> int:
                                                 direct)
         print(json.dumps({"card": card, "distribution": dist14,
                           "launches": launches14}))
+        return 0
+    if args.scripts_only:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            scripts, launches15 = scripts_phase(torch, K, card, args.seed, tmp)
+        print(json.dumps({"card": card, "scripts": scripts,
+                          "launches": launches15,
+                          "seconds": time.perf_counter() - t0}))
         return 0
     log = _build.build_log().splitlines()
     for line in log:
@@ -6137,6 +6373,15 @@ def main(argv=None) -> int:
     slice_launches.append(dist_launches)
     lap("14 (model axis, elastic, sharded server)")
 
+    # -- 15: the last five scripts as port entries -------------------------
+    print("15: run_all_baselines, make_offline_figures, run_real_baselines, "
+          "bench_ingest and bench_all's rows on the card:", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        scripts, scripts_launches = scripts_phase(torch, K, card, args.seed,
+                                                  tmp)
+    slice_launches.append(scripts_launches)
+    lap("15 (the scripts)")
+
     if args.profile:
         profile(torch, K, model, stats, spec, chunks[0])
     require("jax" not in sys.modules, "the port must not load jax")
@@ -6260,7 +6505,7 @@ def main(argv=None) -> int:
                       "finetune": finetune, "online_eval": online_eval,
                       "bench_server": server, "streaming": stream,
                       "zoo": zoo, "data_parallel": data_parallel,
-                      "distribution": distribution,
+                      "distribution": distribution, "scripts": scripts,
                       "phase_seconds": seconds}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

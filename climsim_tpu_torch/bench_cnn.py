@@ -16,8 +16,9 @@ have no counterpart: the port draws every mask from the step's seed on
 the card, with torch's one generator.
 
 Each arm: --warmup steps, then --steps steps timed by CUDA events (device
-time of back-to-back steps, the host never waiting in between).  Prints a
-table (ms a step, samples/s, against the 406 arm) and one JSON line.
+time of back-to-back steps, the host never waiting in between) and the
+card's peak allocation over them.  Prints a table (ms a step, samples/s,
+against the 406 arm) and one JSON line.
 Without a CUDA device it exits non-zero and prints no result.
 
 --trace splits instead one step of the 406 arm by torch.profiler: device
@@ -30,7 +31,7 @@ policy's rounded operands), on a contiguous (B, C, L) copy, at 384
 channels, and with bf16 operands.
 
   python -m climsim_tpu_torch.bench_cnn [--batch 512] [--steps 10]
-      [--depth 12] [--trace]
+      [--depth 12] [--arms 406,384,...] [--trace]
 """
 
 from __future__ import annotations
@@ -75,9 +76,12 @@ def build_arm(arm: str, device, batch: int = BATCH, depth: int = 12,
 
 def time_arm(tr, xb, yb, steps: int = STEPS, warmup: int = WARMUP) -> dict:
     """Device ms a step over ``steps`` back-to-back steps (CUDA events)
-    after ``warmup``; the last loss."""
+    after ``warmup``; the last loss; the card's peak allocation over the
+    steps (GB, the trainer's weights and the batch in)."""
     import torch
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     state = tr.state
     for _ in range(warmup):
         state, m = tr.train_step(state, xb, yb)
@@ -91,7 +95,8 @@ def time_arm(tr, xb, yb, steps: int = STEPS, warmup: int = WARMUP) -> dict:
     tr.state = state
     ms = start.elapsed_time(end) / steps
     return {"ms": ms, "samples_per_s": xb.shape[0] / ms * 1e3,
-            "loss": float(m["loss"])}
+            "loss": float(m["loss"]),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def bench(arms=tuple(ARMS), batch: int = BATCH, steps: int = STEPS,
@@ -234,6 +239,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=BATCH)
     ap.add_argument("--steps", type=int, default=STEPS)
     ap.add_argument("--depth", type=int, default=12)
+    ap.add_argument("--arms", default=",".join(ARMS),
+                    help="comma list of the arms to time")
     ap.add_argument("--trace", action="store_true",
                     help="split one 406 step by torch.profiler and time one "
                     "k = 3 convolution four ways, instead of the arms")
@@ -252,7 +259,8 @@ def main(argv=None) -> int:
                           "batch": args.batch, "depth": args.depth,
                           "trace": out}))
         return 0
-    res = bench(tuple(ARMS), args.batch, args.steps, args.depth)
+    res = bench(tuple(a for a in args.arms.split(",") if a), args.batch,
+                args.steps, args.depth)
     print(table(res))
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "batch": args.batch, "depth": args.depth,

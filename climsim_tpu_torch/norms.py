@@ -103,6 +103,11 @@ class NormStats:
                            delimiter=",")
 
 
+# the norms a run trained with, saved by ``run.py`` beside its
+# ``run_manifest.json`` and read back by ``package_e3sm.build_bundle``
+RUN_NORMS = "run_norms.npz"
+
+
 def identity_norms(spec: VarSpec) -> NormStats:
     """Stats that leave the data as it is: sub 0, div 1, scale 1, and a
     rate of 1 for each cloud input the spec has."""

@@ -25,8 +25,12 @@ Presets: ``unet_v5`` (raw v4 columns in; ``--cls-ckpt`` adds the
 ``unet_v5_classifier`` gate of the two-stage scheme), ``unet_v4`` and
 ``mlp_v2rh``.  A checkpoint is a ``train.checkpoints.save_state`` file or
 a ``TopKCheckpointer`` directory (its best entry).  ``--norms`` names the
-npz of the norms the checkpoint was trained with (default: the packaged
-asset of the preset's varspec); the metadata records their source and
+npz of the norms the checkpoint was trained with.  Without it, a
+checkpoint of ``python -m climsim_tpu_torch.run`` whose
+``run_manifest.json`` names norms other than the packaged assets
+(``data.norms=compute`` or ``identity``) takes the ``run_norms.npz`` the
+run saved beside it, and is refused without one; otherwise the packaged
+asset of the preset's varspec.  The metadata records their source and
 feature space.  The programs run on the device they were exported on
 (``--device``, the card by default), and their kernels build there at
 first use.
@@ -73,6 +77,31 @@ def _load_weights(ckpt: str, model):
     return load_state(ckpt, model)
 
 
+def _run_norms(ckpt: str) -> str | None:
+    """The norms the checkpoint's run trained with, where its
+    ``run_manifest.json`` (``python -m climsim_tpu_torch.run``) lies beside
+    it and names norms other than the packaged assets: the npz the run
+    saved there.  Refuses such a run without that npz.  None where there
+    is no manifest or the run trained on the assets."""
+    from .norms import RUN_NORMS
+
+    d = ckpt if os.path.isdir(ckpt) else os.path.dirname(
+        os.path.abspath(ckpt))
+    manifest = os.path.join(d, "run_manifest.json")
+    if not os.path.exists(manifest):
+        return None
+    with open(manifest) as f:
+        mode = json.load(f)["config"]["data"]["norms"]
+    if mode == "asset":
+        return None
+    path = os.path.join(d, RUN_NORMS)
+    if not os.path.exists(path):
+        raise SystemExit(f"{manifest}: the run trained with data.norms="
+                         f"{mode}, and {RUN_NORMS} is not beside it; pass "
+                         "the npz of its norms with --norms")
+    return path
+
+
 def _model(cfg, spec, ckpt, seed: int):
     import torch
 
@@ -110,9 +139,14 @@ def build_bundle(preset: str, ckpt: str | None, out: str, buckets,
     if overrides:
         cfg = cfg.override(*overrides)
     spec = get_varspec(cfg.data.varspec)
+    run_norms = None if norms or not ckpt else _run_norms(ckpt)
     if norms:
         stats = NormStats.from_npz(norms)
         norm_source = {"path": os.path.abspath(norms), **_file_entry(norms)}
+    elif run_norms:
+        stats = NormStats.from_npz(run_norms)
+        norm_source = {"run": os.path.abspath(run_norms),
+                       **_file_entry(run_norms)}
     else:
         stats = load_asset_norms(cfg.data.varspec)
         norm_source = {"asset": f"norms_{cfg.data.varspec}.npz"}
@@ -251,7 +285,9 @@ def main(argv=None):
                     help="comma-separated batch buckets to export")
     ap.add_argument("--out", required=True, help="bundle output directory")
     ap.add_argument("--norms", help="npz of the norms the checkpoint was "
-                    "trained with (default: the packaged asset)")
+                    "trained with (default: the run's run_norms.npz where "
+                    "its manifest names computed norms, else the packaged "
+                    "asset)")
     ap.add_argument("--verify", action="store_true",
                     help="load each program and hold it to the live "
                     "wrapper on synthetic columns")

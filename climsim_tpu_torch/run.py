@@ -52,7 +52,8 @@ from .config import PRESETS, ExperimentConfig
 from .data.pipeline import BatchLoader, BootstrapLoader, DeviceResidentLoader
 from .data.synthetic import synthetic_split
 from .grid import load_default_grid
-from .norms import compute_norms_from_data, identity_norms, load_asset_norms
+from .norms import (RUN_NORMS, compute_norms_from_data, identity_norms,
+                    load_asset_norms)
 from .parallel.mesh import ShardingRules, distributed_init_if_needed, make_mesh
 from .train import recipes
 from .train.checkpoints import (TimedCheckpointer, TopKCheckpointer,
@@ -139,12 +140,19 @@ def build_trainer(cfg: ExperimentConfig, spec, stats, sample, rng, rules,
 
 
 def write_manifest(cfg: ExperimentConfig, directory: str,
-                   device="cuda") -> None:
+                   device="cuda", stats=None) -> None:
     """Reproducibility manifest next to the checkpoints: the full config,
-    library versions, the device, the git SHA where there is one."""
+    library versions, the device, the git SHA where there is one.  With
+    ``stats``, the norms the run trains with are saved beside it
+    (``norms.RUN_NORMS``), for ``package_e3sm`` to bundle."""
     device = torch.device(device)
+    os.makedirs(directory, exist_ok=True)
+    if stats is not None:
+        stats.save_npz(os.path.join(directory, RUN_NORMS))
     info = {
         "config": json.loads(cfg.to_json()),
+        "norms": {"mode": cfg.data.norms,
+                  "file": RUN_NORMS if stats is not None else None},
         "time": time.strftime("%Y-%m-%d %H:%M:%S %Z"),
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
@@ -160,7 +168,6 @@ def write_manifest(cfg: ExperimentConfig, directory: str,
             timeout=5).stdout.strip() or None
     except (OSError, subprocess.SubprocessError):
         info["git_sha"] = None
-    os.makedirs(directory, exist_ok=True)
     with open(os.path.join(directory, "run_manifest.json"), "w") as f:
         json.dump(info, f, indent=2)
 
@@ -420,7 +427,7 @@ def run_experiment(cfg: ExperimentConfig, verbose: bool = True,
     grid = load_default_grid()
     spec, x, y, stats = load_data(cfg, grid)
     if cfg.train.checkpoint_dir and lead:
-        write_manifest(cfg, cfg.train.checkpoint_dir, device)
+        write_manifest(cfg, cfg.train.checkpoint_dir, device, stats)
 
     n = x.shape[0]
     if cfg.data.val_fraction > 0:

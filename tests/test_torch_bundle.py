@@ -34,6 +34,7 @@ from climsim_tpu_torch.varspec import get_varspec
 TINY_UNET = ("model_kw.model_channels=16", "model_kw.channel_mult=[1, 2]",
              "model_kw.num_blocks=1", "model_kw.attn_resolutions=[32]")
 TINY_MLP = ("model_kw.hidden=[32, 32]",)
+BUNDLE_TOL = 1e-5   # scripts/package_e3sm.py:187-205
 OPS = {"fused_input_transform", "fused_constraint_head",
        "fused_gn_silu_conv3"}
 # the kernels' operators each bundle's program must call
@@ -254,3 +255,81 @@ def test_program_holds_the_engines_prepared_weights(tmp_path):
     # module's parameters
     assert sum(t.numel() * t.element_size() for t in held) < sum(
         p.numel() * p.element_size() for p in m.parameters())
+
+
+def _norm_run(tmp_path, norms):
+    """A tiny mlp_v2rh run of python -m climsim_tpu_torch.run with
+    data.norms=``norms``, checkpointed (top-K) into tmp_path / norms."""
+    from climsim_tpu_torch import run as PRUN
+
+    ck = tmp_path / norms
+    out = PRUN.run_experiment(PRESETS["mlp_v2rh"].override(
+        *TINY_MLP, f"data.norms={norms}", "data.num_synthetic=256",
+        "data.batch_size=64", "train.epochs=1",
+        f'train.checkpoint_dir="{ck}"'), verbose=False, device="cpu")
+    return str(ck), out
+
+
+def test_computed_norms_run_without_its_npz_is_refused(tmp_path):
+    """A data.norms=compute run bundled without the norms it trained with
+    (the npz beside its manifest gone) and no --norms: refused."""
+    from climsim_tpu_torch.norms import RUN_NORMS
+
+    ck, _ = _norm_run(tmp_path, "compute")
+    with open(os.path.join(ck, "run_manifest.json")) as f:
+        assert json.load(f)["norms"] == {"mode": "compute",
+                                         "file": RUN_NORMS}
+    os.remove(os.path.join(ck, RUN_NORMS))
+    with pytest.raises(SystemExit, match="data.norms=compute"):
+        P.build_bundle("mlp_v2rh", ck, str(tmp_path / "b"), [8],
+                       overrides=TINY_MLP, device="cpu")
+
+
+def test_computed_norms_run_bundles_its_norms(tmp_path):
+    """A data.norms=compute run bundled from its checkpoint directory
+    takes the npz the run saved (the stats it trained on, bit for bit):
+    the program replies as the live wrapper on those stats within
+    BUNDLE_TOL * max(1, max|y|), and not as the asset norms' wrapper."""
+    from climsim_tpu_torch.norms import RUN_NORMS
+
+    ck, out = _norm_run(tmp_path, "compute")
+    npz = os.path.join(ck, RUN_NORMS)
+    saved = NormStats.from_npz(npz)
+    for k in ("inp_sub", "inp_div", "out_scale"):
+        np.testing.assert_array_equal(getattr(saved, k),
+                                      getattr(out["stats"], k))
+    meta = P.build_bundle("mlp_v2rh", ck, str(tmp_path / "b"), [8],
+                          overrides=TINY_MLP, verify=True, device="cpu")
+    assert meta["norms"]["source"] == {"run": os.path.abspath(npz),
+                                       **P._file_entry(npz)}
+    spec = get_varspec("v2_rh")
+    cfg = PRESETS["mlp_v2rh"].override(*TINY_MLP)
+    model = P._model(cfg, spec, ck, 0)
+    x = _columns(meta, 8, seed=4)
+    program = PW.load_aot(str(tmp_path / "b" / "wrapper_b8.pt2"))
+    with torch.inference_mode():
+        got = program(x)
+        want = PW.make_v2rh_wrapper(model, saved, spec, tcfg=cfg.transform,
+                                    device="cpu")(x)
+        asset = PW.make_v2rh_wrapper(model, load_asset_norms("v2_rh"), spec,
+                                     tcfg=cfg.transform, device="cpu")(x)
+    limit = BUNDLE_TOL * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= limit
+    assert float((got - asset).abs().max()) > limit
+
+
+def test_asset_norms_run_bundles_as_before(tmp_path):
+    """A data.norms=asset run: the bundle takes the packaged asset, as
+    before the run saved its norms."""
+    ck, _ = _norm_run(tmp_path, "asset")
+    meta = P.build_bundle("mlp_v2rh", ck, str(tmp_path / "b"), [8],
+                          overrides=TINY_MLP, device="cpu")
+    assert meta["norms"]["source"] == {"asset": "norms_v2_rh.npz"}
+    np.testing.assert_array_equal(
+        np.loadtxt(tmp_path / "b" / "inp_sub.txt", delimiter=","),
+        np.loadtxt(str(_asset_txt(tmp_path)), delimiter=","))
+
+
+def _asset_txt(tmp_path):
+    load_asset_norms("v2_rh").save_txt(str(tmp_path / "asset"))
+    return tmp_path / "asset" / "inp_sub.txt"

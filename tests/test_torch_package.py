@@ -55,7 +55,10 @@ SLICE_MODULES = (
     "climsim_tpu_torch.train.hpo", "climsim_tpu_torch.parallel",
     "climsim_tpu_torch.parallel.mesh", "climsim_tpu_torch.train.step_shardmap",
     "climsim_tpu_torch.utils.profiling", "climsim_tpu_torch.run_hpo_sweep",
-    "climsim_tpu_torch.train.elastic",
+    "climsim_tpu_torch.train.elastic", "climsim_tpu_torch.run_all_baselines",
+    "climsim_tpu_torch.make_offline_figures",
+    "climsim_tpu_torch.run_real_baselines", "climsim_tpu_torch.bench_ingest",
+    "climsim_tpu_torch.bench_all", "climsim_tpu_torch.data.synthnc",
 )
 
 # the port's byte-for-byte copies of the JAX package's numpy-only modules
@@ -71,6 +74,7 @@ BYTE_COPIES = (
     ("climsim_tpu_torch/data/csrc/climload.cpp", "runtime/climload.cpp"),
     ("climsim_tpu_torch/utils/flax_migrate.py", "climsim_tpu/utils/migrate.py"),
     ("climsim_tpu_torch/train/hpo.py", "climsim_tpu/train/hpo.py"),
+    ("climsim_tpu_torch/data/synthnc.py", "tests/synthnc.py"),
 )
 
 
@@ -237,6 +241,10 @@ def _entry_points():
     tiny = dict(model_channels=8, channel_mult=(1,), num_blocks=1,
                 attn_resolutions=())
     x = np.zeros((32, 4), np.float32)
+    v1x = np.zeros((1280, 124), np.float32)
+    v1y = np.zeros((1280, 128), np.float32)
+    from climsim_tpu_torch import bench_all as PBA
+    from climsim_tpu_torch import run_all_baselines as PRAB
     return {
         "mlp_trainer": lambda: PR.mlp_trainer(
             get_varspec("v1"), load_asset_norms("v1"), None, 0, hidden=(8,)),
@@ -293,6 +301,14 @@ def _entry_points():
             ensemble_size=2, hidden=(8,)),
         "make_subset_transform": lambda: PT.make_subset_transform(
             np.arange(3)),
+        "train_and_score": lambda: PRAB.train_and_score(
+            get_varspec("v1"), grid, load_asset_norms("v1"), v1x, v1y, v1x,
+            v1y, epochs=1),
+        "bench_generic": lambda: PBA.bench_generic(
+            "MLP", lambda s, st, sb, r, device: PR.mlp_trainer(
+                s, st, sb, r, hidden=(8,), device=device),
+            "v1", 16, 128, [], epoch_rows=16),
+        "bench_rpn": lambda: PBA.bench_rpn([], 2, 16, 128, epoch_rows=16),
         "run_experiment": lambda: PRUN.run_experiment(
             PRESETS["mlp_v1"].override('model_kw={"hidden": [8]}',
                                        "data.num_synthetic=64",
@@ -313,7 +329,8 @@ ENTRY_POINTS = ("mlp_trainer", "online_mlp_trainer", "unet_trainer",
                 "BatchLoader", "ChunkedLoader", "BootstrapLoader",
                 "NativeLoader", "make_loader", "mlp_v2_trainer",
                 "ed_trainer", "cnn_trainer", "hsr_trainer", "cvae_trainer",
-                "rpn_trainer", "make_subset_transform", "run_experiment")
+                "rpn_trainer", "make_subset_transform", "run_experiment",
+                "train_and_score", "bench_generic", "bench_rpn")
 
 
 def _default_device(name):
@@ -332,8 +349,11 @@ def _default_device(name):
     from climsim_tpu_torch.data import pipeline as PDP
     from climsim_tpu_torch import run as PRUN
     from climsim_tpu_torch.train import rpn_recipe as PRR
+    from climsim_tpu_torch import bench_all as PBA
+    from climsim_tpu_torch import run_all_baselines as PRAB
 
-    for mod in (PR, PT, PW, PL, PK, PP, PS, PD, PC, PDP, PN, PRR, PRUN):
+    for mod in (PR, PT, PW, PL, PK, PP, PS, PD, PC, PDP, PN, PRR, PRUN,
+                PRAB, PBA):
         if hasattr(mod, name):
             fn = getattr(mod, name)
             break
