@@ -143,15 +143,18 @@ with no bound on its float32 gaps, prints them, and exits;
    remat=True and remat=False bit-equal (loss and every gradient, peak
    memory of each printed); at --seed and the FT_CHECK_SEEDS - 1 seeds
    after it (weights and IC), the kernel path's gradients bit-equal to
-   those with kernels 1 and 4 as their plain versions (kernel 5 kept),
-   which F4 planted in kernel 1 alone must fail, and within FT_GRAD_TOL
-   (rel-L2 over all parameters) of the all-plain path's (kernel 5 plain
-   too), which F4 planted in both kernels must fail; then FT_UPDATES
+   those with kernels 1 and 4 as their plain versions (kernel 5 and 5''s
+   backward kernel kept), which F4 planted in kernel 1 alone must fail,
+   and within FT_GRAD_TOL (rel-L2 over all parameters) of the all-plain
+   path's (kernel 5 plain too, 5''s backward autograd of the plain chain),
+   which F4 planted in both kernels must fail; then FT_UPDATES
    make_finetune_step updates at K = FT_K through HybridDriver(remat=True):
-   ms an update (CUDA events), peak memory, the losses, the gradient's
-   global norm (finite, nonzero; every leaf but one nonzero), and the
-   launches an update of kernels 1, 4 and 5 each equal to the code's
-   count (2 K, 2 K and 82 x 2 K: the forward and the recompute).  Then the
+   ms an update (CUDA events), peak memory, 5''s backward's share of the
+   update (CUDA events around each of its calls), the losses, the
+   gradient's global norm (finite, nonzero; every leaf but one nonzero),
+   and the launches an update of kernels 1, 4 and 5 and of 5''s backward
+   kernel each equal to the code's count (2 K, 2 K, 82 x 2 K: the forward
+   and the recompute, and 82 K).  Then the
    entry itself: python -m climsim_tpu_torch.online_eval's main at its
    default width (64 channels, batch 1024, 384 columns) with the cuts of
    ENTRY_ARGS (printed as a list against the defaults): it must reach its
@@ -214,23 +217,33 @@ with no bound on its float32 gaps, prints them, and exits;
    bench_chunked's four legs (compute, transfer, gather, overlap) and the card's busy share over one ChunkedLoader epoch
    (torch.profiler).
 10. Checks 5' (kernel 5 under its custom VJP, ops.unet_fused.
-   make_trainable_fused_block) at every fused chain shape of the unet_v5
-   training step, B = 16 and 1024: the forward within GN_TOL of the plain
-   forward (the float32 control must fail), every gradient bit-equal to
-   autograd of the plain chain (cuDNN off in that phase only: its
-   convolutions are not reproducible), one kernel-5 launch a call; times
-   forward + backward at B = 1024.
+   make_trainable_fused_block, its backward the kernel
+   fused_gn_silu_conv3_bwd) at every fused chain shape of the unet_v5
+   training step, GN_RAGGED and GN_STEPPED, B = 16 and 1024: the forward
+   within GN_TOL of the plain forward (the float32 control must fail),
+   every gradient within GN_BWD_TOL (rel-L2 and cosine) of autograd of the
+   plain chain (cuDNN off in that check only: its convolutions are not
+   reproducible), the control without the bf16 roundings of g, dxn and dw
+   failing on dx and dw, dw with its taps swapped (planted) failing, two
+   runs of the backward kernel bit-equal, one launch of each kernel a
+   call; then, at B = 1024 and each chain shape, the backward kernel timed
+   beside its bound, its plain version, autograd of the plain chain with
+   cuDNN on (the recompute it replaced) and aten.convolution_backward on
+   bf16 operands (a cuDNN yardstick of the conv part alone), and forward
+   + backward beside autograd of the plain chain.
 11. This slice's main path: trains the full-width U-Net v5 (the unet_v5
    preset with fused_gn_conv=True, flax-layout weights from --seed moved
    across by port_flax_unet) through unet_trainer and
    DeviceResidentLoader at B = 1024 for UNET_EPOCHS epochs
    (bench_unet_train's core).  The first loss on 16 rows must match the
    CPU's within UNET_FIRST_LOSS_TOL, the loss be finite and fall, and kernels
-   1 and 5 have been launched once a step and once a fused chain a step
-   (twice under remat_blocks); then the plain arm is timed beside it, a
-   step of each is split by torch.profiler, peak memory is read, and 30
-   steps through the kernel (at UNET_CURVE_BATCH rows) follow the same
-   trainer with the plain chain forward: the losses within
+   1 and 5 and 5''s backward kernel have been launched once a step and
+   once a fused chain a step (kernel 5 twice under remat_blocks); then the
+   plain arm is timed beside it, a step of each is split by torch.profiler
+   (5''s backward, under its range, apart), peak memory is read, and 30
+   steps through the kernels (at UNET_CURVE_BATCH rows) follow the same
+   trainer with the plain chain, forward and backward (autograd of it, no
+   kernel launched): the losses within
    UNET_CURVE_TOL, the parameters' moves within UNET_MOVE_TOL, which a
    planted fault (dw dropped in 5''s backward) must fail.
 12. The NeurIPS'23 zoo through python -m climsim_tpu_torch.run's
@@ -435,11 +448,6 @@ UNET_CHAINS = {
     (8, 512, 256): 5}
 GN_ROWS = (1, 7, 50, 384, 1024)
 GN_TIMED_ROWS = (384, 1024)
-# ragged shapes the plan must take: L fills no tile, Cout no 64-column box
-GN_RAGGED = ((60, 64, 48), (15, 128, 80))
-# a chain of the 256-channel unet_v5 whose first tiling overflows shared
-# memory at B = 1024 (the plan steps the samples a tile down)
-GN_STEPPED = (8, 1024, 512)
 # fused_gn_silu_conv3 against its plain version: max |kernel - plain| <=
 # GN_TOL * max|plain|.  Both round the normalized activations to bf16;
 # their float32 group statistics differ in the last bits, so a rounding
@@ -466,9 +474,11 @@ K6_SOURCES = {
         "climsim_tpu_torch/ops/csrc/fused_mlp_train_bwd.cu",
         "climsim_tpu/ops/fused_mlp_train.py:64"),
 }
-# 5': its forward is kernel 5, its backward autograd of the plain chain
-TRAINABLE_SOURCE = ("climsim_tpu_torch/ops/unet_fused.py:145",
+# 5': its forward is kernel 5, its backward the backward kernel
+TRAINABLE_SOURCE = ("climsim_tpu_torch/ops/unet_fused.py:614",
                     "climsim_tpu/ops/unet_fused.py:160")
+BWD_SOURCE = ("climsim_tpu_torch/ops/csrc/fused_gn_silu_conv3_bwd.cu",
+              "climsim_tpu/ops/unet_fused.py:194")
 V1_WIDTHS = (124, 768, 640, 512, 640, 640, 128)
 V2RH_WIDTHS = (557, 1024, 1024, 1024, 1024, 368)
 K6_ROWS = (1, 7, 384, 32768)
@@ -543,6 +553,7 @@ GN_TOL = 5e-4
 GN_OFFSET_TOL = 2e-2
 # 5' (kernel 5 under its custom VJP) and the U-Net v5 trainer
 TRAINABLE_ROWS = (16, 1024)
+GRADS5 = ("dx", "dgamma", "dbeta", "dw", "db")
 UNET_BATCH = 1024         # the unet_v5 preset's (climsim_tpu/config.py:163)
 UNET_POOL = 4             # batches on the card
 UNET_EPOCHS = 2
@@ -557,19 +568,21 @@ UNET_FIRST_BATCHES = 4
 # the roundings apart.  This check catches gross faults; the 5' checks
 # decide the roundings.
 UNET_FIRST_LOSS_TOL = 1e-4
-# 30 steps through kernel 5 against the same trainer with the plain chain
-# forward, at UNET_CURVE_BATCH rows a step (a step at B = 1024 takes 1.6 s
-# on an H100).  The losses, relative, a step at a time: UNET_CURVE_TOL[0]
-# over the first UNET_CURVE_EARLY steps, UNET_CURVE_TOL[1] after.  The
-# loss hardly depends on the fused chains' parameters in 30 steps: on an
-# H100 the kernel's curve was 1.0e-5 / 2.3e-5 from the plain forward's,
-# and with the chains' weight gradients dropped only 1.4e-4 / 9.5e-5.  So
-# the parameters' moves over the 30 steps are compared too, rel-L2 over
-# all of them, within UNET_MOVE_TOL: the kernel's were 3.7e-3 from the
-# plain forward's, and the planted fault's, dw dropped in 5''s backward
-# (the 82 chains' conv kernels do not learn), 0.83.  2e-2 also catches a
-# fault as small as the norms' scales frozen, about (20k / 21M) ** 0.5 of
-# the moves.
+# 30 steps through kernel 5 and 5''s backward kernel against the same
+# trainer with the plain chain, forward and autograd of it (no kernel), at
+# UNET_CURVE_BATCH rows a step (a plain step at B = 1024 takes 1.6 s on an
+# H100).  The losses, relative, a step at a time: UNET_CURVE_TOL[0] over
+# the first UNET_CURVE_EARLY steps, UNET_CURVE_TOL[1] after.  The loss
+# hardly depends on the fused chains' parameters in 30 steps: on an H100
+# the kernels' curve was 1.3e-5 / 1.0e-5 from the plain chain's (1.0e-5 /
+# 2.3e-5 with kernel 5 alone), and with the chains' weight gradients
+# dropped only 1.5e-4 / 1.0e-4.  So the parameters' moves over the 30
+# steps are compared too, rel-L2 over all of them, within UNET_MOVE_TOL:
+# the kernels' were 3.7e-3 from the plain chain's (3.6e-3 with kernel 5
+# alone), and the planted fault's, dw dropped in 5''s backward (the 82
+# chains' conv kernels do not learn), 0.83.  2e-2 also catches a fault as
+# small as the norms' scales frozen, about (20k / 21M) ** 0.5 of the
+# moves.
 UNET_CURVE_STEPS = 30
 UNET_CURVE_EARLY = 10
 UNET_CURVE_BATCH = 256
@@ -1007,7 +1020,8 @@ def gn_checks(torch, PU, seed):
     shape timed at GN_TIMED_ROWS beside its bound, kernel against plain in
     turns, each from a replayed CUDA graph (device time, no host time a
     call), and the 82-chain sums."""
-    from climsim_tpu_torch.bench_gn_conv3 import (chain_args,
+    from climsim_tpu_torch.bench_gn_conv3 import (GN_RAGGED, GN_STEPPED,
+                                                  chain_args,
                                                   chain_bound_ms)
     from climsim_tpu_torch.bench_gn_conv3 import time_ms as graph_ms
 
@@ -2683,100 +2697,184 @@ def train_v1(torch, K, seed):
 
 def trainable_checks(torch, K, PU, seed):
     """5' (kernel 5 under its custom VJP) at every fused chain shape of the
-    unet_v5 step and B in TRAINABLE_ROWS: the forward against the plain
-    forward on the bf16-rounded weight within GN_TOL (the float32 control
-    must fail), every gradient bit-equal to autograd of the plain chain at
-    the same inputs and cotangent (cuDNN off here only), one
-    launch a call; then forward + backward timed at B = 1024 against that
-    autograd, weighted by each shape's count in a step."""
-    from climsim_tpu_torch.bench_gn_conv3 import chain_args
+    unet_v5 step, GN_RAGGED and GN_STEPPED, B in TRAINABLE_ROWS: the
+    forward against the plain forward on the bf16-rounded weight within
+    GN_TOL (the float32 control must fail); every gradient of its
+    backward kernel against autograd of the plain chain (cuDNN off here
+    only) within GN_BWD_TOL, the control without the bf16 roundings of g,
+    dxn and dw failing on dx and dw, dw's taps swapped (a planted fault)
+    failing, two runs of the kernel bit-equal; one launch of each kernel a
+    call.  Then, at B = 1024 and each chain shape, the backward timed
+    beside its bound, its plain version, autograd of the plain chain with
+    cuDNN on (the path the kernel replaced) and aten.convolution_backward
+    on bf16 operands (cuDNN: a yardstick of the conv part alone, not the
+    same function), and forward + backward beside autograd of the plain
+    chain, weighted by each shape's count in a step."""
+    from climsim_tpu_torch.bench_gn_conv3 import (GN_BWD_TOL, GN_RAGGED,
+                                                  GN_STEPPED, autograd_plain,
+                                                  chain_args,
+                                                  chain_bwd_bound_ms,
+                                                  conv_yardstick)
 
     g = torch.Generator(device="cuda").manual_seed(seed + 4)
-    res = {"max_abs_err": 0.0, "max_err_rel": 0.0, "control_min_rel": 1e9}
-    names = ("dx", "dgamma", "dbeta", "dw", "db")
+    res = {"max_abs_err": 0.0, "max_err_rel": 0.0, "control_min_rel": 1e9,
+           "bwd_max_abs_err": 0.0,
+           "bwd_max_rel_l2": dict.fromkeys(GRADS5, 0.0),
+           "bwd_min_cos": dict.fromkeys(GRADS5, 1.0),
+           "control_min_rel_l2": {"dx": 1e9, "dw": 1e9},
+           "fault_min_rel_l2": 1e9}
     bf16 = torch.bfloat16
-    # Bit-equality needs reproducible convolutions.  cuDNN's were not on
-    # an H100, even with deterministic set: two runs of the plain chain's
+    # Reproducible convolutions for the reference: cuDNN's were not on an
+    # H100, even with deterministic set (two runs of the plain chain's
     # autograd gave different weight gradients at L=64 C=256 Cout=128
-    # B=1024.  So this phase sets deterministic and turns cuDNN off, and
+    # B=1024), so this check sets deterministic and turns cuDNN off, and
     # the convolutions run as PyTorch's own im2col and cuBLAS products.
     cudnn = torch.backends.cudnn
     saved = cudnn.deterministic, cudnn.enabled
     cudnn.deterministic, cudnn.enabled = True, False
     try:
         K.reset_launches()
-        calls = 0
-        for (l, c, cout) in UNET_CHAINS:
+        calls = bwd_calls = 0
+        for (l, c, cout) in (*UNET_CHAINS, *GN_RAGGED, GN_STEPPED):
             f = PU.make_trainable_fused_block(PU._num_groups(c))
             for b in TRAINABLE_ROWS:
+                at = f"5' L={l} C={c} Cout={cout} B={b}"
                 a = chain_args(torch, g, b, l, c, cout, wdtype=torch.float32)
                 cot = torch.randn(b, l, cout, device="cuda", generator=g)
                 ins = [t.clone().requires_grad_() for t in a]
                 y = f(*ins)
-                calls += 1
                 got = torch.autograd.grad(y, ins, cot)
+                calls += 1
+                bwd_calls += 1
                 ref_ins = [t.clone().requires_grad_() for t in a]
                 want = torch.autograd.grad(PU.xla_gn_silu_conv3_plain(
                     *ref_ins, bf16, f32_accum=False), ref_ins, cot)
-                for name, x, w in zip(names, got, want):
+                for name, x, w in zip(GRADS5, got, want):
                     require(x.dtype == torch.float32 and x.shape == w.shape
-                            and x.stride() == w.stride(),
-                            f"5' {name}: {x.dtype} {tuple(x.shape)} "
+                            and x.is_contiguous(),
+                            f"{at} {name}: {x.dtype} {tuple(x.shape)} "
                             f"{x.stride()}")
-                    require(torch.equal(x, w), f"5' L={l} C={c} Cout={cout} "
-                            f"B={b}: {name} differs from autograd of the "
-                            f"plain chain (rel-L2 {rel_l2(x, w):.3e})")
-                plain = PU.xla_gn_silu_conv3_plain(*a[:3], a[3].to(bf16),
-                                                   a[4])
+                    r, cs = rel_l2(x, w), cosine(x, w)
+                    res["bwd_max_rel_l2"][name] = max(
+                        res["bwd_max_rel_l2"][name], r)
+                    res["bwd_min_cos"][name] = min(res["bwd_min_cos"][name],
+                                                   cs)
+                    res["bwd_max_abs_err"] = max(
+                        res["bwd_max_abs_err"], float((x - w).abs().max()))
+                    require(r <= GN_BWD_TOL[0] and cs >= GN_BWD_TOL[1],
+                            f"{at}: {name} rel-L2 {r:.3e} cosine {cs:.9f} "
+                            f"from autograd of the plain chain (bound "
+                            f"{GN_BWD_TOL})")
+                wb = a[3].to(bf16)
+                again = PU.fused_gn_silu_conv3_bwd(*a[:3], wb, a[4], cot)
+                bwd_calls += 1
+                require(all(torch.equal(x, z) for x, z in zip(got, again)),
+                        f"{at}: two runs of the backward kernel differ")
+                ctl = PU.fused_gn_silu_conv3_bwd_plain(*a[:3], wb, a[4], cot,
+                                                       rounded=False)
+                for i, name in ((0, "dx"), (3, "dw")):
+                    r = rel_l2(ctl[i], want[i])
+                    res["control_min_rel_l2"][name] = min(
+                        res["control_min_rel_l2"][name], r)
+                    require(r > GN_BWD_TOL[0], f"{at}: the control without "
+                            f"the bf16 roundings passes on {name} ({r:.3e})")
+                r = rel_l2(got[3].flip(0), want[3])
+                res["fault_min_rel_l2"] = min(res["fault_min_rel_l2"], r)
+                require(r > GN_BWD_TOL[0], f"{at}: dw with its taps swapped "
+                        f"passes ({r:.3e})")
+                plain = PU.xla_gn_silu_conv3_plain(*a[:3], wb, a[4])
                 scale = float(plain.abs().max())
                 err = float((y.detach() - plain).abs().max())
                 ctl = float((PU.xla_gn_silu_conv3_plain(*a) - plain).abs()
                             .max())
-                require(err <= GN_TOL * scale, f"5' L={l} C={c} B={b}: "
-                        f"forward {err / scale:.3e} of max|y|")
-                require(ctl > GN_TOL * scale, f"5' L={l} C={c} B={b}: the "
-                        "float32 control passes")
+                require(err <= GN_TOL * scale, f"{at}: forward "
+                        f"{err / scale:.3e} of max|y|")
+                require(ctl > GN_TOL * scale, f"{at}: the float32 control "
+                        "passes")
                 res["max_abs_err"] = max(res["max_abs_err"], err)
                 res["max_err_rel"] = max(res["max_err_rel"], err / scale)
                 res["control_min_rel"] = min(res["control_min_rel"],
                                              ctl / scale)
         torch.cuda.synchronize()
         res["launches"] = K.LAUNCHES["fused_gn_silu_conv3"]
+        res["bwd_launches"] = K.LAUNCHES["fused_gn_silu_conv3_bwd"]
         require(res["launches"] == calls, f"5': {res['launches']} launches "
                 f"in {calls} calls")
+        require(res["bwd_launches"] == bwd_calls, f"5' backward: "
+                f"{res['bwd_launches']} launches in {bwd_calls} calls")
     finally:
         cudnn.deterministic, cudnn.enabled = saved
-    print(f"  5' at {len(UNET_CHAINS)} shapes x B={TRAINABLE_ROWS}: forward "
-          f"max {res['max_err_rel']:.3e} of max|y| (control min "
-          f"{res['control_min_rel']:.3e}); dx, dgamma, dbeta, dw, db "
-          f"bit-equal to autograd of the plain chain; {calls} launches",
-          flush=True)
-    ms = plain_ms = 0.0
+    n_shapes = len(UNET_CHAINS) + len(GN_RAGGED) + 1
+    print(f"  5' at {n_shapes} shapes x B={TRAINABLE_ROWS}: forward max "
+          f"{res['max_err_rel']:.3e} of max|y| (control min "
+          f"{res['control_min_rel']:.3e}); backward kernel against autograd "
+          f"of the plain chain (bound {GN_BWD_TOL}): rel-L2 " + ", ".join(
+              f"{n} {v:.3e}" for n, v in res["bwd_max_rel_l2"].items())
+          + "; cosine " + ", ".join(
+              f"{n} {v:.9f}" for n, v in res["bwd_min_cos"].items())
+          + f"; the control without the roundings at least "
+          f"{res['control_min_rel_l2']['dx']:.3e} (dx) "
+          f"{res['control_min_rel_l2']['dw']:.3e} (dw); dw's taps swapped "
+          f"at least {res['fault_min_rel_l2']:.3e}; two runs bit-equal; "
+          f"{calls} forward and {bwd_calls} backward launches", flush=True)
+
+    keys = ("bwd", "bwd_plain", "bwd_autograd", "yardstick", "bound",
+            "fwd_bwd", "fwd_bwd_autograd")
+    tot, per_shape = dict.fromkeys(keys, 0.0), {}
     for (l, c, cout), n in UNET_CHAINS.items():
-        f = PU.make_trainable_fused_block(PU._num_groups(c))
-        a = [t.requires_grad_() for t in chain_args(
-            torch, g, UNET_BATCH, l, c, cout, wdtype=torch.float32)]
+        a = chain_args(torch, g, UNET_BATCH, l, c, cout)
         cot = torch.randn(UNET_BATCH, l, cout, device="cuda", generator=g)
-
-        def fwd_bwd(fn):
-            return lambda: torch.autograd.grad(fn(*a), a, cot)
-
-        k, p = compare_timed(torch, fwd_bwd(f), fwd_bwd(
-            lambda *t: PU.xla_gn_silu_conv3_plain(*t, bf16, f32_accum=False)),
-            5)
-        ms, plain_ms = ms + n * k, plain_ms + n * p
-    res["ms"], res["plain_ms"] = ms, plain_ms
-    print(f"  5' forward + backward, the 82 chains of a B={UNET_BATCH} step: "
-          f"{ms:.3f} ms; autograd of the plain chain {plain_ms:.3f} ms",
-          flush=True)
+        af = [t.detach().clone().requires_grad_()
+              for t in (*a[:3], a[3].float(), a[4])]
+        f = PU.make_trainable_fused_block(PU._num_groups(c))
+        t = {"bwd_plain": time_ms(
+                 torch, lambda: PU.fused_gn_silu_conv3_bwd_plain(*a, cot),
+                 3),
+             "bwd": time_ms(torch, lambda: PU.fused_gn_silu_conv3_bwd(
+                 *a, cot), 10),
+             "bwd_autograd": time_ms(
+                 torch, lambda: autograd_plain(torch, PU, *a, cot), 2),
+             "yardstick": time_ms(torch, conv_yardstick(
+                 torch, PU, *a[:4], cot), 10),
+             "bound": chain_bwd_bound_ms(UNET_BATCH, l, c, cout)[0]}
+        t["fwd_bwd"], t["fwd_bwd_autograd"] = compare_timed(
+            torch, lambda: torch.autograd.grad(f(*af), af, cot),
+            lambda: torch.autograd.grad(PU.xla_gn_silu_conv3_plain(
+                *af, bf16, f32_accum=False), af, cot), 2)
+        per_shape[f"L={l} C={c} Cout={cout}"] = {"calls": n, **t}
+        for k in keys:
+            tot[k] += n * t[k]
+        del a, af, cot
+    ops = sum(n * 2 * 2 * UNET_BATCH * l * 3 * c * cout
+              for (l, c, cout), n in UNET_CHAINS.items())
+    res.update({"bwd_ms": tot["bwd"], "bwd_plain_ms": tot["bwd_plain"],
+                "bwd_autograd_plain_ms": tot["bwd_autograd"],
+                "cudnn_bf16_yardstick_ms": tot["yardstick"],
+                "bwd_bound_ms": tot["bound"],
+                "bwd_bound_by": "bytes" if tot["bound"] > 1e3 * ops / (
+                    PEAK_OPS_S["bf16"]) else "operations",
+                "ms": tot["fwd_bwd"], "plain_ms": tot["fwd_bwd_autograd"],
+                "bwd_per_shape": per_shape})
+    print(f"  5' backward, the 82 chains of a B={UNET_BATCH} step: kernel "
+          f"{tot['bwd']:.3f} ms (bound {tot['bound']:.3f} ms, "
+          f"{res['bwd_bound_by']}; kernel at {tot['bound'] / tot['bwd']:.1%}"
+          f"); plain version {tot['bwd_plain']:.3f} ms; autograd of the "
+          f"plain chain, cuDNN on {tot['bwd_autograd']:.3f} ms; "
+          f"aten.convolution_backward on bf16 (yardstick) "
+          f"{tot['yardstick']:.3f} ms; forward + backward {tot['fwd_bwd']:.3f}"
+          f" ms against autograd of the plain chain "
+          f"{tot['fwd_bwd_autograd']:.3f} ms", flush=True)
+    for k, v in per_shape.items():
+        print(f"    {k} x{v['calls']}: " + " ".join(
+            f"{n} {v[n]:.4f}" for n in keys) + " ms", flush=True)
     return res
 
 
 def unet_split(torch, PU, tr, batches, steps=2):
     """torch.profiler over ``steps`` train steps: device time a step by
-    part -- kernel 5, the 5' backward's recompute (everything under its
-    range), convs and GEMMs outside it, Adam, kernel 1, the rest -- and
-    the busy share."""
+    part -- kernel 5, the 5' backward (everything under its range: the
+    backward kernel on the fused arm), convs and GEMMs outside it, Adam,
+    kernel 1, the rest -- and the busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
@@ -2809,6 +2907,8 @@ def unet_split(torch, PU, tr, batches, steps=2):
         key = name.lower()
         if "gn_silu_conv3_kernel" in key:
             return "kernel 5"
+        if "gn_bwd_" in key:
+            return "5' backward"
         if "transform_kernel" in key:
             return "kernel 1"
         if "adam" in key or "multi_tensor" in key:
@@ -2821,9 +2921,9 @@ def unet_split(torch, PU, tr, batches, steps=2):
 
     # every kernel and copy from the device's own events (kernels 1 and 5
     # are launched through ctypes, under no torch op), not the ranges that
-    # mirror record_function on the device's timeline; the recompute is
-    # what ran under 5''s backward range, taken out of its parts
-    parts = dict.fromkeys(("kernel 5", "5' backward recompute",
+    # mirror record_function on the device's timeline; 5''s backward is
+    # what ran under its range, taken out of the other parts
+    parts = dict.fromkeys(("kernel 5", "5' backward",
                            "convs and GEMMs", "Adam", "kernel 1", "other"),
                           0.0)
     by_name: dict = {}
@@ -2838,7 +2938,7 @@ def unet_split(torch, PU, tr, batches, steps=2):
             for kern in ev.kernels:
                 t = kern.duration / 1e3
                 parts[part(kern.name)] -= t
-                parts["5' backward recompute"] += t
+                parts["5' backward"] += t
     busy = sum(parts.values())
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  device {t / steps:9.3f} ms/step {name[:100]}")
@@ -2848,12 +2948,25 @@ def unet_split(torch, PU, tr, batches, steps=2):
     return {k: v / steps for k, v in parts.items()}, busy / wall_ms
 
 
+def plain_chain_bwd(torch, PU):
+    """A stand-in for ``PU.fused_gn_silu_conv3_bwd`` that launches no
+    kernel: 5''s backward as autograd of the plain chain
+    (``bench_gn_conv3.autograd_plain``), the reference of an all-plain
+    run."""
+    from climsim_tpu_torch.bench_gn_conv3 import autograd_plain
+
+    def bwd(x, gamma, beta, w, b, g):
+        with torch.enable_grad():
+            return autograd_plain(torch, PU, x, gamma, beta, w, b, g)
+    return bwd
+
+
 def train_unet(torch, K, PU, unet_flax_tree_fn, seed):
     """The slice's main path: the full-width U-Net v5 (unet_v5 preset,
     fused_gn_conv=True) through unet_trainer and DeviceResidentLoader at
     B = 1024 (bench_unet_train's core), its first loss on 16 rows against
-    the CPU's, UNET_CURVE_STEPS steps against the plain chain forward and
-    a planted fault, the plain arm timed beside it, a profile of a step,
+    the CPU's, UNET_CURVE_STEPS steps against the plain chain (forward
+    and backward) and a planted fault, the plain arm timed beside it, a profile of a step,
     and peak memory."""
     from climsim_tpu_torch import bench_unet_train as BU
     from climsim_tpu_torch.models.unet import ClimSimUNet
@@ -2934,6 +3047,10 @@ def train_unet(torch, K, PU, unet_flax_tree_fn, seed):
     require(launches["fused_gn_silu_conv3"] == n_chains * steps,
             f"kernel 5 launched {launches['fused_gn_silu_conv3']} times in "
             f"{steps} steps of {n_chains} fused chains")
+    require(launches["fused_gn_silu_conv3_bwd"] == n_chains * steps,
+            f"5''s backward kernel launched "
+            f"{launches['fused_gn_silu_conv3_bwd']} times in {steps} steps "
+            f"of {n_chains} fused chains")
     require(launches["fused_input_transform"] == steps,
             "fused_input_transform was not launched once a step")
     require(all(np.isfinite(losses)), f"non-finite U-Net loss: {losses}")
@@ -2955,6 +3072,9 @@ def train_unet(torch, K, PU, unet_flax_tree_fn, seed):
     remat_launches = K.LAUNCHES["fused_gn_silu_conv3"]
     require(remat_launches == 2 * n_chains, f"remat step: kernel 5 launched "
             f"{remat_launches} times, want {2 * n_chains}")
+    require(K.LAUNCHES["fused_gn_silu_conv3_bwd"] == n_chains,
+            f"remat step: the backward kernel launched "
+            f"{K.LAUNCHES['fused_gn_silu_conv3_bwd']} times, want {n_chains}")
 
     # the plain arm beside it, in turns: plain, fused, fused, plain
     run = {"fused": loader.make_epoch_runner(tr.train_step),
@@ -2992,8 +3112,9 @@ def train_unet(torch, K, PU, unet_flax_tree_fn, seed):
     del plain_tr, trainers, run
 
     # UNET_CURVE_STEPS steps from the same weights on the same batches:
-    # the kernel, the plain chain forward, and the planted fault (dw
-    # dropped in 5''s backward), which must fail the curve bound
+    # the kernels, the plain chain (its forward and autograd of it, no
+    # kernel 5 and no backward kernel), and the planted fault (dw dropped
+    # in 5''s backward), which must fail the curve bound
     def curve():
         """(the losses, every parameter's move over the steps)."""
         t, ld = BU.build("cuda", "fused", data, seed, UNET_CURVE_BATCH,
@@ -3009,16 +3130,23 @@ def train_unet(torch, K, PU, unet_flax_tree_fn, seed):
     K.reset_launches()
     got, move_k = curve()
     torch.cuda.synchronize()
-    require(K.LAUNCHES["fused_gn_silu_conv3"] == n_chains * UNET_CURVE_STEPS,
-            "the kernel curve did not launch kernel 5 in every chain")
+    require(K.LAUNCHES["fused_gn_silu_conv3"] == n_chains * UNET_CURVE_STEPS
+            and K.LAUNCHES["fused_gn_silu_conv3_bwd"]
+            == n_chains * UNET_CURVE_STEPS,
+            "the kernel curve did not launch kernel 5 and the backward "
+            "kernel in every chain")
     backward = PU._TrainableBlock.backward
+    real_bwd = PU.fused_gn_silu_conv3_bwd
     try:
         PU.fused_gn_silu_conv3 = PU.xla_gn_silu_conv3_plain
+        PU.fused_gn_silu_conv3_bwd = plain_chain_bwd(torch, PU)
         K.reset_launches()
         want, move_p = curve()
-        require(K.LAUNCHES["fused_gn_silu_conv3"] == 0,
-                "the plain-forward curve launched kernel 5")
+        require(K.LAUNCHES["fused_gn_silu_conv3"] == 0
+                and K.LAUNCHES["fused_gn_silu_conv3_bwd"] == 0,
+                "the plain curve launched kernel 5 or the backward kernel")
         PU.fused_gn_silu_conv3 = kernel_fn
+        PU.fused_gn_silu_conv3_bwd = real_bwd
 
         def no_dw(ctx, g):
             dx, dgamma, dbeta, _, *rest = backward(ctx, g)
@@ -3028,6 +3156,7 @@ def train_unet(torch, K, PU, unet_flax_tree_fn, seed):
         fault, move_f = curve()
     finally:
         PU.fused_gn_silu_conv3 = kernel_fn
+        PU.fused_gn_silu_conv3_bwd = real_bwd
         PU._TrainableBlock.backward = backward
 
     def gaps(c):
@@ -3038,11 +3167,11 @@ def train_unet(torch, K, PU, unet_flax_tree_fn, seed):
     upd_k, upd_f = rel_l2(move_k, move_p), rel_l2(move_f, move_p)
     print(f"U-Net v5 curve, {UNET_CURVE_STEPS} Adam steps at "
           f"B={UNET_CURVE_BATCH}: kernel {got[0]:.6f} -> {got[-1]:.6f}, plain "
-          f"forward {want[0]:.6f} -> {want[-1]:.6f}; largest gap to the "
+          f"chain {want[0]:.6f} -> {want[-1]:.6f}; largest gap to the "
           f"plain curve in the first {UNET_CURVE_EARLY} steps and after "
           f"(tolerance {UNET_CURVE_TOL}): kernel {gap_k[0]:.3e} "
           f"{gap_k[1]:.3e}, dw dropped {gap_f[0]:.3e} {gap_f[1]:.3e}; the "
-          f"parameters' moves against the plain forward's, rel-L2 "
+          f"parameters' moves against the plain chain's, rel-L2 "
           f"(tolerance {UNET_MOVE_TOL}): kernel {upd_k:.3e}, dw dropped "
           f"{upd_f:.3e}", flush=True)
     print("  curves: " + json.dumps({"kernel": got, "plain": want,
@@ -3050,11 +3179,11 @@ def train_unet(torch, K, PU, unet_flax_tree_fn, seed):
     require(all(np.isfinite(got)) and got[-1] < got[0],
             f"the kernel curve did not fall: {got}")
     require(gap_k[0] <= UNET_CURVE_TOL[0] and gap_k[1] <= UNET_CURVE_TOL[1],
-            f"the kernel's curve is {gap_k} from the plain forward's")
+            f"the kernel's curve is {gap_k} from the plain chain's")
     require(upd_k <= UNET_MOVE_TOL, f"the kernel's parameters moved "
-            f"{upd_k:.3e} (rel-L2) from the plain forward's")
+            f"{upd_k:.3e} (rel-L2) from the plain chain's")
     require(upd_f > UNET_MOVE_TOL, f"with dw dropped the parameters moved "
-            f"within {UNET_MOVE_TOL} of the plain forward's ({upd_f:.3e})")
+            f"within {UNET_MOVE_TOL} of the plain chain's ({upd_f:.3e})")
     return {"samples_per_s": sps, "step_ms": step_ms, "epoch_walls": walls,
             "main_path_epoch_s": res["call_s"], "epoch_loss": losses,
             "first_loss_gaps": first_gaps, "peak_mem_bytes": peak,
@@ -3710,8 +3839,9 @@ def finetune_phase(torch, card, K, PU, T, PW, physics, stats5, grid, seed):
              torch.are_deterministic_algorithms_enabled())
     cudnn.deterministic, cudnn.enabled = True, False
     torch.use_deterministic_algorithms(True, warn_only=True)
-    real_k5 = PU.fused_gn_silu_conv3
+    real_k5, real_bwd = PU.fused_gn_silu_conv3, PU.fused_gn_silu_conv3_bwd
     real_fns = (K._InputTransformGrad.apply, K._ConstraintHeadGrad.apply)
+    plain_bwd = plain_chain_bwd(torch, PU)
     res, by_seed = {}, {}
     # --seed last: the updates below start from its weights and IC
     try:
@@ -3725,17 +3855,20 @@ def finetune_phase(torch, card, K, PU, T, PW, physics, stats5, grid, seed):
                     f"K={FT_CHECK_K}: remat=True and remat=False differ "
                     f"(gradient rel-L2 {rel_all(g1, g0):.3e})")
                 del g0
-            # kernels 1 and 4 as plain versions, kernel 5 kept: their
-            # forwards are bit-equal and their backward is the plain
-            # chain's, so the gradients must be too
+            # kernels 1 and 4 as plain versions, kernel 5 and 5''s
+            # backward kernel kept: their forwards are bit-equal and their
+            # backward is the plain chain's, so the gradients must be too
             lk, gk, _ = grads_at(plain, True)
-            try:  # the all-plain path: kernel 5 as its plain version too
+            try:  # the all-plain path: kernel 5 as its plain version too,
+                # and 5''s backward autograd of the plain chain
                 PU.fused_gn_silu_conv3 = (
                     lambda x, gm, bt, w, b: PU.xla_gn_silu_conv3_plain(
                         x, gm, bt, w, b))
+                PU.fused_gn_silu_conv3_bwd = plain_bwd
                 lp, gp, _ = grads_at(plain, True)
             finally:
                 PU.fused_gn_silu_conv3 = real_k5
+                PU.fused_gn_silu_conv3_bwd = real_bwd
             try:    # F4 planted: kernels 1 and 4 as bare launches
                 K._InputTransformGrad.apply = (
                     lambda x, c: K._transform_launch(x, c, c.device))
@@ -3798,8 +3931,21 @@ def finetune_phase(torch, card, K, PU, T, PW, physics, stats5, grid, seed):
                                     total_steps=FT_UPDATES)
     per_update = {"fused_input_transform": 2 * FT_K,
                   "fused_constraint_head": 2 * FT_K,
-                  "fused_gn_silu_conv3": 82 * 2 * FT_K}
+                  "fused_gn_silu_conv3": 82 * 2 * FT_K,
+                  "fused_gn_silu_conv3_bwd": 82 * FT_K}
     ups, launches_all = [], dict.fromkeys(K.LAUNCHES, 0)
+    # 5''s backward timed inside the updates: CUDA events around each call
+    # of the kernel on the one stream, added up after the update
+    bwd_events = []
+
+    def timed_bwd(*a):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real_bwd(*a)
+        ev[1].record()
+        bwd_events.append(ev)
+        return out
+
     for i in range(FT_UPDATES):
         before = [p.detach().clone() for p in params]
         torch.cuda.synchronize()
@@ -3807,14 +3953,20 @@ def finetune_phase(torch, card, K, PU, T, PW, physics, stats5, grid, seed):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         K.reset_launches()
-        start.record()
-        loss = step_fn(s0, FT_SPIN + 8 * i)
-        end.record()
-        end.synchronize()
+        bwd_events.clear()
+        PU.fused_gn_silu_conv3_bwd = timed_bwd
+        try:
+            start.record()
+            loss = step_fn(s0, FT_SPIN + 8 * i)
+            end.record()
+            end.synchronize()
+        finally:
+            PU.fused_gn_silu_conv3_bwd = real_bwd
+        bwd_ms = sum(a.elapsed_time(b) for a, b in bwd_events)
         launches = dict(K.LAUNCHES)
         for k, v in launches.items():
             launches_all[k] += v
-        for name in KERNEL_NAMES:
+        for name in (*KERNEL_NAMES, "fused_gn_silu_conv3_bwd"):
             want = per_update.get(name, 0)
             require(launches[name] == want, f"fine-tune update {i}: {name} "
                     f"launched {launches[name]} times, want {want}")
@@ -3827,18 +3979,22 @@ def finetune_phase(torch, card, K, PU, T, PW, physics, stats5, grid, seed):
                 f"{sum(v == 0 for v in leaf)} leaves with no gradient")
         moved = sum(not torch.equal(p, q) for p, q in zip(params, before))
         ups.append({"loss": float(loss), "grad_norm": norm,
-                    "ms": start.elapsed_time(end),
+                    "ms": start.elapsed_time(end), "bwd_5p_ms": bwd_ms,
                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                     "leaves_moved": moved, "launches": {
                         k: v for k, v in launches.items() if v}})
         print(f"{card}: fine-tune update {i} (K={FT_K}, {FT_COLS} columns, "
               f"remat): {ups[-1]['ms']:.1f} ms, peak "
-              f"{ups[-1]['peak_gb']:.2f} GB, loss {float(loss):.6e}, "
+              f"{ups[-1]['peak_gb']:.2f} GB, 5' backward {bwd_ms:.1f} ms "
+              f"({bwd_ms / ups[-1]['ms']:.1%} of the update), loss "
+              f"{float(loss):.6e}, "
               f"gradient norm {norm:.4e}, {moved} of {len(params)} leaves "
               f"moved; launches {ups[-1]['launches']}", flush=True)
     res.update({"k": FT_K, "columns": FT_COLS, "parameters": n_params,
                 "updates": ups,
                 "ms_an_update": float(np.median([u["ms"] for u in ups])),
+                "bwd_5p_share": float(np.median([u["bwd_5p_ms"] / u["ms"]
+                                                 for u in ups])),
                 "peak_gb": max(u["peak_gb"] for u in ups),
                 "launches_an_update": per_update})
     return res, launches_all
@@ -6126,6 +6282,14 @@ def main(argv=None) -> int:
                   f"{log[i + 2].split('ptxas info    :')[-1].strip()}")
             require(" 0 bytes spill stores" in log[i + 1],
                     f"{kname} spills")
+        # 5''s backward: dgrad <NB, Cout % 64 == 0, blocks an SM>, wgrad
+        # <Cout boxes>
+        if "Function properties for" in line and "gn_bwd_" in line:
+            kname = "gn_bwd_" + line.split("gn_bwd_")[1].split("EEv")[0]
+            print(f"  ptxas: {kname}: {log[i + 1].strip()}; "
+                  f"{log[i + 2].split('ptxas info    :')[-1].strip()}")
+            require(" 0 bytes spill stores" in log[i + 1],
+                    f"{kname} spills")
         if "C75" in line:   # wgmma serialized by ptxas
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
 
@@ -6483,14 +6647,36 @@ def main(argv=None) -> int:
         "max_abs_err": k5t["max_abs_err"],
         "max_err_of_max_y": k5t["max_err_rel"],
         "control_min_err_of_max_y": k5t["control_min_rel"],
-        "gradients": "bit-equal to autograd of the plain chain",
+        "gradients": "fused_gn_silu_conv3_bwd's, within GN_BWD_TOL of "
+                     "autograd of the plain chain",
         "ms": k5t["ms"], "plain_ms": k5t["plain_ms"],
         "ms_is": f"forward + backward, the 82 chains of a B={UNET_BATCH} "
-                 "step"})
+                 "step, against autograd of the plain chain (cuDNN on)"})
+    kernels.append({
+        "name": "fused_gn_silu_conv3_bwd", "route": "cuda",
+        "source": BWD_SOURCE[0], "replaces": BWD_SOURCE[1],
+        "launches": unet_train["launches"]["fused_gn_silu_conv3_bwd"]
+        + sum(n.get("fused_gn_silu_conv3_bwd", 0) for n in slice_launches),
+        "max_abs_err": k5t["bwd_max_abs_err"],
+        "max_rel_l2": k5t["bwd_max_rel_l2"],
+        "min_cosine": k5t["bwd_min_cos"],
+        "control_min_rel_l2": k5t["control_min_rel_l2"],
+        "dw_taps_swapped_min_rel_l2": k5t["fault_min_rel_l2"],
+        "two_runs_bit_equal": True,
+        "ms": k5t["bwd_ms"], "plain_ms": k5t["bwd_plain_ms"],
+        "autograd_plain_ms": k5t["bwd_autograd_plain_ms"],
+        "cudnn_bf16_yardstick_ms": k5t["cudnn_bf16_yardstick_ms"],
+        "bound_ms": k5t["bwd_bound_ms"], "bound_by": k5t["bwd_bound_by"],
+        "ms_is": f"the 82 chains of a B={UNET_BATCH} step's backward (CUDA "
+                 "events, back-to-back calls); plain_ms its plain version, "
+                 "autograd_plain_ms the recompute it replaced (cuDNN on)",
+        "per_shape": k5t["bwd_per_shape"]})
     for k in kernels:
         if "bound_ms" not in k:
             k["bound_ms"], k["bound_by"] = bounds[k["name"]]
-        k["library_ms"] = None     # no one PyTorch call computes any of them
+        # no one PyTorch call computes any of them (the backward's cuDNN
+        # yardstick is the conv's part alone)
+        k["library_ms"] = None
     print(json.dumps({"kernels": kernels, "card": card,
                       "training": {
                           "samples_per_s": train["samples_per_s"],

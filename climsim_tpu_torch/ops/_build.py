@@ -61,6 +61,11 @@ _SIGNATURES = {
     "cst_fused_gn_silu_conv3": (
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
         _I),
+    # x, gamma, beta, w, g, dx, dgamma, dbeta, dw, db, xn scratch, gb
+    # scratch, dw partials, row-tile partials, batch, L, C, Cout, G, eps,
+    # plan (GnBwdPlan.args), stream
+    "cst_fused_gn_silu_conv3_bwd": (
+        [*[_P] * 14, _I, _I, _I, _I, _I, _F, ctypes.POINTER(_I), _P], _I),
     # w[], b[], widths, n_layers, packed w, packed b, stream
     "cst_fused_mlp_train_pack": (
         [_PP, _PP, ctypes.POINTER(_I), _I, _P, _P, _P], _I),

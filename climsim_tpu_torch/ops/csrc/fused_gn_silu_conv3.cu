@@ -58,6 +58,7 @@
 //  * Epilogue: float32 accumulators + the float32 bias, float2 stores of
 //    the valid rows straight from the registers.
 #include "common.cuh"
+#include "gn_stats.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -72,10 +73,6 @@ constexpr int kMaxStages = 8;
 
 constexpr int kThreads = 256;   // two warpgroups
 constexpr int kBatch = 8;       // rows a slab thread has in flight
-// x a thread keeps in registers from the first statistics pass to the
-// second: its first kCacheRows rows' first kCacheQ4 float4s
-constexpr int kCacheRows = 8;
-constexpr int kCacheQ4 = 2;
 
 struct Layout {
   size_t slab, stats, rows, bars, total;
@@ -234,73 +231,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int R = sv * L;              // valid rows of the tile
   const int W = C / 4;               // float4s a row
   const int cpg = C / G;
-  const int q4 = cpg / 4;            // float4s a group has on one row
-  const int gshift = 31 - __clz(G);  // G is 16 or 32
   for (int r = t; r < R; r += kConsumers) row_sample[r] = r / L;
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 
-  // 1. group statistics, two passes over x: thread t takes group g =
-  // t % G of rows t / G, t / G + rstep, ...; the first kCacheRows of them
-  // (their first kCacheQ4 float4s) stay in registers for the second pass,
-  // the rest is read again.  A float32 partial sum per (row, group), then
-  // a double sum per (sample, group) over the rows in order: neither
-  // order depends on B or on the plan.
-  const int g = t & (G - 1);
-  const int rstep = kConsumers >> gshift;
-  const int rt = t >> gshift;
-  const float4* xg = reinterpret_cast<const float4*>(xs + g * cpg);
-  float4 xc[kCacheRows][kCacheQ4];
-  auto add = [](float sum, float4 v, bool centred, float m) {
-    if (!centred) return sum + ((v.x + v.y) + (v.z + v.w));
-    const float a = v.x - m, b = v.y - m, c = v.z - m, d = v.w - m;
-    return sum + ((a * a + b * b) + (c * c + d * d));
-  };
-  auto row_group_sums = [&](bool centred) {
-#pragma unroll
-    for (int k = 0; k < kCacheRows; ++k) {
-      const int r = rt + k * rstep;
-      if (r < R) {
-        const float4* p = xg + static_cast<size_t>(r) * W;
-        const float m = centred ? stats[2 * (row_sample[r] * G + g)] : 0.0f;
-        float sum = 0.0f;
-#pragma unroll
-        for (int j = 0; j < kCacheQ4; ++j) {
-          if (j < q4) {
-            if (!centred) xc[k][j] = __ldg(p + j);
-            sum = add(sum, xc[k][j], centred, m);
-          }
-        }
-        for (int j = kCacheQ4; j < q4; ++j)
-          sum = add(sum, __ldg(p + j), centred, m);
-        part[r * G + g] = sum;
-      }
-    }
-    for (int r = rt + kCacheRows * rstep; r < R; r += rstep) {
-      const float4* p = xg + static_cast<size_t>(r) * W;
-      const float m = centred ? stats[2 * (row_sample[r] * G + g)] : 0.0f;
-      float sum = 0.0f;
-      for (int j = 0; j < q4; ++j) sum = add(sum, __ldg(p + j), centred, m);
-      part[r * G + g] = sum;
-    }
-  };
-  auto sample_sums = [&](int slot) {
-    for (int it = t; it < sv * G; it += kConsumers) {
-      const float* ps = part + (it >> gshift) * L * G + (it & (G - 1));
-      double acc = 0.0;
-#pragma unroll 8
-      for (int l = 0; l < L; ++l) acc += ps[l * G];
-      const float v = static_cast<float>(acc / (L * cpg));
-      stats[2 * it + slot] = slot ? rsqrtf(fmaxf(v, 0.0f) + eps) : v;
-    }
-  };
-  row_group_sums(false);
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-  sample_sums(0);
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-  row_group_sums(true);
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-  sample_sums(1);
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+  // 1. group statistics, two passes over x (gn_stats.cuh; the backward
+  // takes the same)
+  static_assert(kConsumers == kStatsThreads, "the statistics' block");
+  gn_statistics(xs, part, stats, row_sample, R, sv, L, C, G, eps);
 
   // 2. the normalized, silu'd bf16 slab: sample s, level l at slab row
   // s (L + 2) + l + 1 (tile row r = s L + l at r + 2s + 1); rows s (L + 2)

@@ -47,7 +47,8 @@ from . import _build
 
 LAUNCHES = {"fused_input_transform": 0, "fused_mlp_forward": 0,
             "fused_mlp_forward_int8": 0, "fused_constraint_head": 0,
-            "fused_gn_silu_conv3": 0, "fused_mlp_train_pack": 0,
+            "fused_gn_silu_conv3": 0, "fused_gn_silu_conv3_bwd": 0,
+            "fused_mlp_train_pack": 0,
             "fused_mlp_train_fwd": 0, "fused_mlp_train_bwd": 0}
 
 
