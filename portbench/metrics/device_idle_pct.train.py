@@ -1,0 +1,11 @@
+"""device_idle_pct.train: the share of the traced stretch of a training
+window in which no operation ran on the card: 1 - the union of the device
+operations' intervals / the stretch."""
+
+from portbench.metrics._common import idle_pct
+
+UNIT = "%"
+
+
+def read(data: dict):
+    return idle_pct(data, "train")
