@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import BATCH, CHUNK, ENSEMBLE_BATCH
+from ..utils.profiling import span
 
 
 def _epoch_seed(seed: int, epoch: int) -> int:
@@ -476,11 +477,18 @@ class DeviceResidentLoader:
         return self.x, self.y
 
     def __iter__(self):
-        xp, yp = self._permuted()
-        b = self.batch_size
-        for s in range(self.steps_per_epoch):
-            yield tuple(BATCH.local(a[s * b:(s + 1) * b], self.pidx,
-                                    self.pcount) for a in (xp, yp))
+        """The epoch's batches, each drawn in a span ``train.batch`` whose
+        ``step`` counts the batches drawn before it (the epoch's
+        permutation in one more, with its first batch's ``step``)."""
+        spe, b = self.steps_per_epoch, self.batch_size
+        first = self._epoch * spe
+        with span("train.batch", step=first):
+            xp, yp = self._permuted()
+        for s in range(spe):
+            with span("train.batch", step=first + s):
+                batch = tuple(BATCH.local(a[s * b:(s + 1) * b], self.pidx,
+                                          self.pcount) for a in (xp, yp))
+            yield batch
 
     def make_epoch_runner(self, train_step):
         """``run(state, num_epochs) -> (state, metrics)``: whole epochs of

@@ -28,6 +28,7 @@ clients (``CouplingClient``, ``runtime/climclient.c``) talk to either.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import queue
 import socket
@@ -39,6 +40,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..utils.profiling import record_span, span
 
 MAGIC = 0x434C4D54  # "CLMT"
 _HDR = struct.Struct("<III")
@@ -61,12 +64,17 @@ def _send_array(sock: socket.socket, arr: np.ndarray) -> None:
                  arr.tobytes())
 
 
-def _recv_array(sock: socket.socket) -> np.ndarray:
-    magic, rows, feats = _HDR.unpack(_recv_exact(sock, _HDR.size))
+def _recv_payload(sock: socket.socket, header: bytes) -> np.ndarray:
+    """The array a received ``header`` announces, read from ``sock``."""
+    magic, rows, feats = _HDR.unpack(header)
     if magic != MAGIC:
         raise ValueError(f"bad magic {magic:#x}")
     data = _recv_exact(sock, rows * feats * 4)
     return np.frombuffer(data, dtype="<f4").reshape(rows, feats)
+
+
+def _recv_array(sock: socket.socket) -> np.ndarray:
+    return _recv_payload(sock, _recv_exact(sock, _HDR.size))
 
 
 @dataclass
@@ -202,7 +210,12 @@ class CouplingServer:
         self.buckets.append(max_batch)
         self.max_batch = max_batch
         self.stats = ServerStats()
+        self._requests_lock = threading.Lock()   # stats.requests
         self._q: queue.Queue = queue.Queue()
+        # spans' ids: a request as its header arrives, a device call as
+        # the dispatcher starts to gather it
+        self._req_ids = itertools.count()
+        self._call_ids = itertools.count()
         self._stop = threading.Event()
         # tests (and drain-style maintenance) can hold the dispatcher to
         # force deterministic coalescing of queued requests
@@ -216,9 +229,11 @@ class CouplingServer:
         if warmup:
             self._warmup()
 
-    def _run(self, x: np.ndarray) -> np.ndarray:
+    def _run(self, x: np.ndarray, call: int | None = None) -> np.ndarray:
         """One device call: host (B, n_features) float32 -> host output;
-        with ``rules``, one call on every rank, B / world_size rows each."""
+        with ``rules``, one call on every rank, B / world_size rows each.
+        Spans ``server.h2d``, ``server.wrapper`` and ``server.d2h`` (the
+        copy back, which waits for the card)."""
         if not x.flags.writeable:  # a received frame is a read-only buffer
             x = x.copy()
         xt = torch.from_numpy(x)
@@ -228,7 +243,12 @@ class CouplingServer:
             sh.header(_CALL, rows, x.shape[1])
             xt = sh.scatter(xt, rows, x.shape[1])
         with torch.inference_mode():
-            y = self._wrapper(xt.to(self.device)).cpu()
+            with span("server.h2d", call=call):
+                xt = xt.to(self.device)
+            with span("server.wrapper", call=call):
+                y = self._wrapper(xt)
+            with span("server.d2h", call=call):
+                y = y.cpu()
         if sh is not None:
             y = sh.gather(y, True)
         return y.numpy()
@@ -245,21 +265,37 @@ class CouplingServer:
         return self.buckets[-1]
 
     # -- dispatcher: drain queue, one device call per drained group ------
+    # A queued request is (rows, reply queue, its req id, the time_ns it
+    # was queued).  Spans: server.dispatch, a turn of the loop (the time
+    # between its stages is the dispatcher's own Python, and its waits for
+    # the GIL), holding server.wait (blocked on the queue),
+    # server.coalesce (drain, concatenate, pad; a server.queued per
+    # request taken, from its queueing to its taking), server.call (with
+    # _run's children) and server.reply.
     def _dispatch_loop(self) -> None:
         carry = None  # request that would have overflowed the last group
         while not self._stop.is_set():
             if self.dispatch_paused.is_set():
                 time.sleep(0.005)
                 continue
-            if carry is not None:
-                first, carry = carry, None
-            else:
+            with span("server.dispatch"):
+                carry = self._dispatch(carry)
+
+    def _dispatch(self, carry):
+        """One turn: wait for a request unless ``carry`` holds one, answer
+        the group it heads with one device call; returns the request that
+        would have overflowed the group, or None."""
+        if carry is None:
+            with span("server.wait"):
                 try:
-                    first = self._q.get(timeout=0.05)
+                    carry = self._q.get(timeout=0.05)
                 except queue.Empty:
-                    continue
-            group = [first]
-            rows = first[0].shape[0]
+                    return None
+        call = next(self._call_ids)
+        with span("server.coalesce", call=call):
+            group, taken = [carry], [time.time_ns()]
+            carry = None
+            rows = group[0][0].shape[0]
             # coalesce whatever is already queued, never beyond max_batch
             # (the largest bucket)
             while rows < self.max_batch:
@@ -271,7 +307,11 @@ class CouplingServer:
                     carry = nxt  # heads the next group
                     break
                 group.append(nxt)
+                taken.append(time.time_ns())
                 rows += nxt[0].shape[0]
+            for (_, _, req, queued_ns), t in zip(group, taken):
+                record_span("server.queued", queued_ns, t, req=req,
+                            call=call)
             x = np.concatenate([g[0] for g in group], axis=0) \
                 if len(group) > 1 else group[0][0]
             n = x.shape[0]
@@ -279,51 +319,64 @@ class CouplingServer:
             if n < bucket:
                 x = np.concatenate(
                     [x, np.zeros((bucket - n, x.shape[1]), x.dtype)], axis=0)
-            t0 = time.perf_counter()
+        with span("server.call", call=call, timed=True) as timer:
             try:
-                y = self._run(x)
+                y = self._run(x, call)
             except Exception as e:  # noqa: BLE001 -- reply, don't die:
                 # a dead dispatcher would hang every pending+future client
                 _log.exception("device call failed for %d rows", n)
-                for _, reply in group:
-                    reply.put(e)
-                continue
-            dt = (time.perf_counter() - t0) * 1e3
+                for g in group:
+                    g[1].put(e)
+                return carry
+        with span("server.reply", call=call):
             self.stats.batches += 1
             self.stats.rows += n
             self.stats.padded_rows += bucket - n
-            self.stats.latencies_ms.append(dt)
+            self.stats.latencies_ms.append(timer.ns / 1e6)
             if len(self.stats.latencies_ms) > 10000:  # bound memory
                 del self.stats.latencies_ms[:5000]
             off = 0
-            for xb, reply in group:
+            for xb, reply, _, _ in group:
                 reply.put(y[off:off + xb.shape[0]])
                 off += xb.shape[0]
+        return carry
 
     # -- per-connection reader -------------------------------------------
+    # Spans: server.request, from the header's arrival to the reply's last
+    # byte sent (the wait for the client's next header is the client's,
+    # outside it), with server.read (to the parsed array) and server.send.
     def _client_loop(self, conn: socket.socket) -> None:
         try:
             while not self._stop.is_set():
                 try:
-                    x = _recv_array(conn)
+                    header = _recv_exact(conn, _HDR.size)
                 except (ConnectionError, OSError):
                     return
-                if x.shape[1] != self.n_features:
-                    conn.close()
-                    return
-                if x.shape[0] > self.max_batch:
-                    conn.close()
-                    return
-                self.stats.requests += 1
-                reply: queue.Queue = queue.Queue(maxsize=1)
-                self._q.put((x, reply))
-                out = reply.get()
-                if isinstance(out, Exception):
-                    # error sentinel: a 0-row frame (requests are always
-                    # >= 1 row, so unambiguous); the client raises
-                    _send_array(conn, np.zeros((0, 1), np.float32))
-                    continue
-                _send_array(conn, out)
+                req = next(self._req_ids)
+                with span("server.request", req=req):
+                    with span("server.read", req=req):
+                        try:
+                            x = _recv_payload(conn, header)
+                        except (ConnectionError, OSError):
+                            return
+                    if x.shape[1] != self.n_features:
+                        conn.close()
+                        return
+                    if x.shape[0] > self.max_batch:
+                        conn.close()
+                        return
+                    reply: queue.Queue = queue.Queue(maxsize=1)
+                    with self._requests_lock:
+                        self.stats.requests += 1
+                    self._q.put((x, reply, req, time.time_ns()))
+                    out = reply.get()
+                    if isinstance(out, Exception):
+                        # error sentinel: a 0-row frame (requests are
+                        # always >= 1 row, so unambiguous); the client
+                        # raises
+                        out = np.zeros((0, 1), np.float32)
+                    with span("server.send", req=req):
+                        _send_array(conn, out)
         finally:
             conn.close()
 

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from .. import physics
+from ..utils.profiling import profiler_range
 from ..varspec import NUM_LEVELS
 from . import _build
 
@@ -319,9 +320,10 @@ def _transform_launch(x: torch.Tensor, consts: torch.Tensor,
         args = (x.data_ptr(), consts.data_ptr(), out.data_ptr(),
                 _transform_args(rows, d, idx))
         # _launch_on's common case, written out: this runs once a request
-        code = (fn(*args, torch._C._cuda_getCurrentRawStream(idx))
-                if torch._C._cuda_getDevice() == idx
-                else _launch_on(dev, fn, *args))
+        with profiler_range("fused_input_transform"):
+            code = (fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+                    if torch._C._cuda_getDevice() == idx
+                    else _launch_on(dev, fn, *args))
         if code:
             _build.check(code, "fused_input_transform")
         LAUNCHES["fused_input_transform"] += 1
@@ -537,9 +539,10 @@ def _head_launch(y_norm, t, qc, qi, consts, dt: float, lds: tuple,
                 qi.data_ptr(), consts.data_ptr(), out.data_ptr(),
                 _head_args(rows, lds, idx), dt)
         # _launch_on's common case, written out: this runs once a request
-        code = (fn(*args, torch._C._cuda_getCurrentRawStream(idx))
-                if torch._C._cuda_getDevice() == idx
-                else _launch_on(dev, fn, *args))
+        with profiler_range("fused_constraint_head"):
+            code = (fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+                    if torch._C._cuda_getDevice() == idx
+                    else _launch_on(dev, fn, *args))
         if code:
             _build.check(code, "fused_constraint_head")
         LAUNCHES["fused_constraint_head"] += 1

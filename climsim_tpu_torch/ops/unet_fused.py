@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from ..models.unet import _num_groups
+from ..utils.profiling import profiler_range
 from . import _build
 from .kernels import (LAUNCHES, OPS_NAMESPACE, _check, _launch_on,
                       _on_cuda)
@@ -48,6 +49,10 @@ EPS = 1e-6
 MAX_LEVELS = 64   # a sample fits one warpgroup's 64 rows
 # the profiler range around the custom VJP's backward (the kernel)
 BACKWARD_RANGE = "fused_gn_silu_conv3 backward"
+# the profiler range around the forward's launch (a `cuLaunchKernel` of
+# the kernel library: no aten op holds it, so without the range it has no
+# host event)
+FORWARD_RANGE = "fused_gn_silu_conv3 forward"
 
 
 def xla_gn_silu_conv3_plain(x: torch.Tensor, gamma: torch.Tensor,
@@ -524,7 +529,8 @@ def fused_gn_silu_conv3(x: torch.Tensor, gamma: torch.Tensor,
     out = torch.empty((bsz, l, cout), dtype=torch.float32, device=dev)
     if bsz == 0:
         return out
-    _launch(x, gamma, beta, w, b, out, plan)
+    with profiler_range(FORWARD_RANGE):
+        _launch(x, gamma, beta, w, b, out, plan)
     LAUNCHES["fused_gn_silu_conv3"] += 1
     return out
 

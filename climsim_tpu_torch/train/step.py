@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import pad_to_multiple
+from ..utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -143,21 +144,31 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, rules=None,
     and the metrics are the ranks' means.  ``unused_parameters`` says that
     the loss leaves some parameters without a gradient
     (``ShardingRules.ddp``); it matters only under ``rules``.
+
+    Spans (``utils.profiling``), each with ``step`` = the updates made
+    before it: ``train.forward`` (``loss_fn``), ``train.backward``
+    (``loss.backward()``; its kernels are launched by the autograd
+    engine's thread) and ``train.optimizer`` (clip, learning rate,
+    ``opt.step()``).
     """
 
     def step(state: TrainState, xb, yb):
         model = state.params
+        n = state.step
         state.opt_state.zero_grad(set_to_none=True)
         seed = _step_seed(state, rules)
         net = model if rules is None else rules.ddp(model,
                                                     unused_parameters)
-        loss, aux = loss_fn(net, seed, xb, yb)
-        loss.backward()
-        _fill_missing_grads(model)
+        with span("train.forward", step=n):
+            loss, aux = loss_fn(net, seed, xb, yb)
+        with span("train.backward", step=n):
+            loss.backward()
+            _fill_missing_grads(model)
         metrics = {k: v.detach() for k, v in (("loss", loss), *aux.items())}
         if rules is not None:
             metrics = rules.mean_metrics(metrics)
-        _apply_update(optimizer, state)
+        with span("train.optimizer", step=n):
+            _apply_update(optimizer, state)
         return state, metrics
 
     return step
