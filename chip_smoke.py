@@ -9,7 +9,8 @@ zoo's first-loss gaps of phase 12 at those seeds, and exits;
 with no bound on its float32 gaps, prints them, and exits;
 --distribution-only runs phase 14 alone; --model-axis-seeds and
 --shrink-gap-seeds read 14a's and 14b (iii)'s gaps at several seeds;
---scripts-only runs phase 15 alone.)
+--ft-gap-seeds reads 6f's K = 2 gaps at several seeds, the gates held
+and not, with no bound; --scripts-only runs phase 15 alone.)
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from climsim_tpu_torch/ops/csrc (nvcc, sm_90a)
@@ -146,8 +147,10 @@ with no bound on its float32 gaps, prints them, and exits;
    those with kernels 1 and 4 as their plain versions (kernel 5 and 5''s
    backward kernel kept), which F4 planted in kernel 1 alone must fail,
    and within FT_GRAD_TOL (rel-L2 over all parameters) of the all-plain
-   path's (kernel 5 plain too, 5''s backward autograd of the plain chain),
-   which F4 planted in both kernels must fail; then FT_UPDATES
+   path's (kernel 5 plain too, 5''s backward autograd of the plain chain)
+   with the rollout's gates held to the kernel path's and out_conv.bias's
+   gradient taken before its bf16 rounding, which F4 planted in both
+   kernels must fail; then FT_UPDATES
    make_finetune_step updates at K = FT_K through HybridDriver(remat=True):
    ms an update (CUDA events), peak memory, 5''s backward's share of the
    update (CUDA events around each of its calls), the losses, the
@@ -446,6 +449,9 @@ UNET_CHAINS = {
     (32, 256, 256): 13, (32, 384, 256): 1, (32, 512, 256): 4,
     (16, 256, 256): 15, (16, 512, 256): 5, (8, 256, 256): 18,
     (8, 512, 256): 5}
+# the plain Conv1d calls of that forward (8 k = 3, 33 1x1), on bf16
+# tensor cores on the card (models.unet.CONV_CALLS)
+UNET_PLAIN_CONVS = 41
 GN_ROWS = (1, 7, 50, 384, 1024)
 GN_TIMED_ROWS = (384, 1024)
 # fused_gn_silu_conv3 against its plain version: max |kernel - plain| <=
@@ -2915,7 +2921,7 @@ def unet_split(torch, PU, tr, batches, steps=2):
             return "Adam"
         if any(s in key for s in ("gemm", "conv", "cutlass", "xmma", "cudnn",
                                   "fft", "region_transform", "sm90",
-                                  "implicit", "grad")):
+                                  "implicit", "grad", "nvjet")):
             return "convs and GEMMs"
         return "other"
 
@@ -2969,6 +2975,7 @@ def train_unet(torch, K, PU, unet_flax_tree_fn, seed):
     and backward) and a planted fault, the plain arm timed beside it, a profile of a step,
     and peak memory."""
     from climsim_tpu_torch import bench_unet_train as BU
+    from climsim_tpu_torch.models import unet
     from climsim_tpu_torch.models.unet import ClimSimUNet
     from climsim_tpu_torch.train import recipes
     from climsim_tpu_torch.utils.migrate import port_flax_unet
@@ -3036,14 +3043,19 @@ def train_unet(torch, K, PU, unet_flax_tree_fn, seed):
 
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
+    unet.reset_conv_calls()
     res = throughput(tr, loader, 1, UNET_EPOCHS - 1)
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
+    convs = dict(unet.CONV_CALLS)
     steps = UNET_EPOCHS * loader.steps_per_epoch
     losses = res["epoch_loss"]
     peak = {"fused": torch.cuda.max_memory_allocated()}
-    print(f"  launches in the training run ({steps} steps): {launches}",
-          flush=True)
+    print(f"  launches in the training run ({steps} steps): {launches}; "
+          f"Conv1d calls by path: {convs}", flush=True)
+    require(convs == {"tensor_core": UNET_PLAIN_CONVS * steps, "float32": 0},
+            f"Conv1d calls by path in {steps} steps: {convs}, want "
+            f"{UNET_PLAIN_CONVS} a step on tensor cores")
     require(launches["fused_gn_silu_conv3"] == n_chains * steps,
             f"kernel 5 launched {launches['fused_gn_silu_conv3']} times in "
             f"{steps} steps of {n_chains} fused chains")
@@ -3187,7 +3199,7 @@ def train_unet(torch, K, PU, unet_flax_tree_fn, seed):
     return {"samples_per_s": sps, "step_ms": step_ms, "epoch_walls": walls,
             "main_path_epoch_s": res["call_s"], "epoch_loss": losses,
             "first_loss_gaps": first_gaps, "peak_mem_bytes": peak,
-            "launches": launches, "steps": steps,
+            "launches": launches, "conv_calls": convs, "steps": steps,
             "remat_step_k5_launches": remat_launches,
             "split_ms": {a: s[0] for a, s in split.items()},
             "busy": {a: s[1] for a, s in split.items()},
@@ -3247,14 +3259,24 @@ FT_CHECK_SEEDS = 4        # the K = 2 checks at --seed and the 3 after it
 # the kernel path's gradients against the all-plain path's, rel-L2 over
 # all parameters at K = FT_CHECK_K: kernel 5's forward rounds to bf16 as
 # the plain chain does, but its float32 statistics differ in the last
-# bits, so a rounding flips now and then and moves the gradients.  On an
-# H100 (cuDNN off, deterministic: the same bits every run) they were
-# 5.6e-4, 1.7e-4, 2.9e-4 and 5.8e-4 apart at seeds 1, 2, 3 and 0; F4
-# planted in both kernels 1.0.  F4 planted in kernel 1 alone reads
-# 9.6e-4-2.0e-3 (the gradient through the state's features is a small
-# share at K = 2), too near to be told apart here: the check against
-# kernels 1 and 4's plain versions with kernel 5 kept, bit-equal, is the
-# one it fails.
+# bits, so a rounding flips now and then and moves the gradients.  Two
+# such flips are discrete, and the measure takes them out: a gate of the
+# rollout (a species' floor at 0, the liquid fraction's ramp) that passes
+# the gradient in one path and not the other, so the all-plain path runs
+# with the kernel path's gates held (RolloutGates); and the bf16 rounding
+# of out_conv.bias's gradient, which carries 23-45% of the squared
+# gradient, so one rounding step of one of its 13 elements alone reads
+# ~1.8e-3, so out_conv.bias's gradient is taken before that rounding (its
+# float64 sum of the gradient at out_conv's output, which autograd's
+# rounded one equals bit for bit).  On an H100 (cuDNN off, deterministic:
+# the same bits every run) seeds 0-7 read 2.7e-4-7.0e-4 so (7.0e-4 at
+# seed 0); as autograd gives them 2.5e-4-1.8e-3, the 1.8e-3 (seed 0) one
+# rounding step of out_conv.bias's and the 1.3e-3 (seed 4) three floors
+# flipped.  F4 planted in both kernels reads 1.0.  F4 planted in kernel 1
+# alone reads 8.0e-4-2.6e-3 (the gradient through the state's features
+# is a small share at K = 2), too near to be told apart here: the check
+# against kernels 1 and 4's plain versions with kernel 5 kept, bit-equal,
+# is the one it fails.
 FT_GRAD_TOL = 1.2e-3
 # the wrappers' host cost a call at B = 384 read when kernels 1 and 4 were
 # redesigned for Hopper (PERF.md section 6): the no-grad path must keep it
@@ -3754,11 +3776,114 @@ def kernel_grad_checks(torch, K, T, PW, stats5, grid, seed, io, head):
     return res
 
 
-def finetune_phase(torch, card, K, PU, T, PW, physics, stats5, grid, seed):
+class RolloutGates:
+    """The rollout's gates: every ``physics.maximum`` and ``physics.clip``
+    call outside the model's forward (the species' floors in
+    ``HybridDriver._advance``, the liquid fraction's ramp in the
+    constraint head and in RH, the input transform's clip, the oracle's).
+    While ``on``, each call's gradient mask (1 where x passes, 0.5 at a
+    tie, 0 where the bound holds; the product of both ends for a clip) is
+    appended to ``masks`` with the caller's name; with ``held`` set to
+    another run's masks, each call keeps its value and takes the gradient
+    of the held mask, call by call.  Installed by ``install``, taken out
+    by ``remove``; the model's own calls (GroupNorm's variance floor) pass
+    through while ``in_model``."""
+
+    def __init__(self, torch, physics):
+        self.torch, self.physics = torch, physics
+        self.real = (physics.maximum, physics.clip)
+        self.on = self.in_model = False
+        self.masks, self.sites, self.held = [], [], None
+
+        class Held(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x, out, g):
+                ctx.save_for_backward(g)
+                return out.clone()
+
+            @staticmethod
+            def backward(ctx, dy):
+                g, = ctx.saved_tensors
+                return dy * g, None, None
+
+        self.Held = Held
+
+    def _gate(self, x, out, g, site):
+        if not self.on or self.in_model:
+            return out
+        self.sites.append(site)
+        self.masks.append(g.detach())
+        if self.held is None:
+            return out
+        i = len(self.masks) - 1
+        require(i < len(self.held) and self.held[i].shape == g.shape,
+                f"gate {i} ({site}): the held run has no such gate")
+        return self.Held.apply(x, out.detach(), self.held[i])
+
+    def _pass(self, x, b):
+        return (x > b).to(x.dtype) + 0.5 * (x == b).to(x.dtype)
+
+    def maximum(self, x, v):
+        b = self.physics._bound(x, v)
+        out = self.torch.maximum(x, b)
+        if not self.on or self.in_model:
+            return out
+        return self._gate(x, out, self._pass(x, b),
+                          sys._getframe(1).f_code.co_name)
+
+    def clip(self, x, lo, hi):
+        t, bound = self.torch, self.physics._bound
+        m = t.maximum(x, bound(x, lo))
+        out = t.minimum(m, bound(x, hi))
+        if not self.on or self.in_model:
+            return out
+        return self._gate(x, out, self._pass(x, bound(x, lo))
+                          * self._pass(-m, -bound(x, hi)),
+                          sys._getframe(1).f_code.co_name)
+
+    def install(self):
+        self.physics.maximum, self.physics.clip = self.maximum, self.clip
+
+    def remove(self):
+        self.physics.maximum, self.physics.clip = self.real
+
+    def model(self, model, xn):
+        self.in_model = True
+        try:
+            return model(xn)
+        finally:
+            self.in_model = False
+
+    def run(self, fn, held=None):
+        """fn() with the gates recorded (and held to ``held``); returns
+        (fn's result, the masks, their callers)."""
+        self.masks, self.sites, self.held, self.on = [], [], held, True
+        try:
+            out = fn()
+        finally:
+            self.on, self.held = False, None
+        return out, self.masks, self.sites
+
+
+def gate_flips(torch, got, want, sites):
+    """{caller: elements whose gradient mask differs} between two runs'
+    gates, call by call (the callers of ``want``'s run)."""
+    require(len(got) == len(want), f"{len(got)} gates against {len(want)}")
+    out = {}
+    for a, b, site in zip(got, want, sites):
+        n = int((a != b).sum())
+        if n:
+            out[site] = out.get(site, 0) + n
+    return out
+
+
+def finetune_phase(torch, card, K, PU, T, PW, physics, stats5, grid, seed,
+                   check_seeds=None, check_only=False):
     """6f: the full-width U-Net v5 (unet_v5, fused_gn_conv=True) fine-tuned
     through HybridDriver(remat=True) against online_eval's oracle: the
-    K = FT_CHECK_K checks (remat on / off bit-equal, the kernel path
-    against the all-plain path, F4 planted), then FT_UPDATES
+    K = FT_CHECK_K checks at ``check_seeds`` (remat on / off bit-equal,
+    the kernel path against the all-plain path with the rollout's gates
+    held, F4 planted), then, unless ``check_only``, FT_UPDATES
     make_finetune_step updates at K = FT_K, counted and timed."""
     from climsim_tpu_torch import get_varspec
     from climsim_tpu_torch import online_eval as OE
@@ -3779,11 +3904,13 @@ def finetune_phase(torch, card, K, PU, T, PW, physics, stats5, grid, seed):
     n_chains = sum(model.fused_chains(FT_COLS).values())
     require(n_chains == 82, f"{n_chains} fused chains at B={FT_COLS}")
     params = list(model.parameters())
+    bias_i = [n for n, _ in model.named_parameters()].index("out_conv.bias")
+    gates = RolloutGates(torch, physics)
     wrap = PW.make_wrapper(lambda xn: model(xn), stats5,
                            PW.WrapperConfig(input_version="v4"),
                            device="cuda")
-    plain = plain_v5_path(torch, K, T, PW, physics, lambda xn: model(xn),
-                          spec5, stats5)
+    plain = plain_v5_path(torch, K, T, PW, physics,
+                          lambda xn: gates.model(model, xn), spec5, stats5)
     oracle_wrap, _, fit_std, mean_prof = OE.make_oracle_wrapper(
         spec5, spec4, tend_scale=0.1, gain=64.0, mean_gain=3.0,
         device="cuda")
@@ -3827,11 +3954,57 @@ def finetune_phase(torch, card, K, PU, T, PW, physics, stats5, grid, seed):
         torch.cuda.synchronize()
         return loss.detach(), grads, torch.cuda.max_memory_allocated()
 
+    def gated(wrapper, held=None):
+        """(loss, gradients, the gradients at out_conv's output a step),
+        the gates' masks and their callers, of the K = FT_CHECK_K loss
+        without remat (a recomputed step would meet the gates again), the
+        gates recorded, or held to ``held``."""
+        outs = []
+        hook = model.out_conv.register_forward_hook(
+            lambda m, a, out: outs.append(out) if out.requires_grad else None)
+        hyb = PD.HybridDriver(wrapper, grid, dyn_forcing=forcing,
+                              remat=False)
+        try:
+            loss, masks, sites = gates.run(lambda: make_rollout_loss(
+                hyb, oracle, FT_CHECK_K, stds)(s0, FT_SPIN), held)
+        finally:
+            hook.remove()
+        got = torch.autograd.grad(loss, params + outs, allow_unused=True,
+                                  materialize_grads=True)
+        return (loss.detach(), got[:len(params)], got[len(params):]), \
+            masks, sites
+
+    def bias_f64(dh, rounded=True):
+        """out_conv.bias's gradient summed in float64 from the gradients
+        at out_conv's output: a step's sum of them rounded to bf16 (the
+        output's rounding), rounded to bf16 (the bias's; not where
+        ``rounded`` is False), then the steps' sum."""
+        def one(g):
+            s = g.bfloat16().double().sum((0, 1))
+            return s.float().bfloat16().double() if rounded else s
+        return sum(one(g) for g in dh)
+
+    def unrounded_bias(grads, dh):
+        """The gradients with out_conv.bias's taken before its rounding
+        to bf16 (``bias_f64(dh, rounded=False)``)."""
+        return [bias_f64(dh, False) if i == bias_i else g
+                for i, g in enumerate(grads)]
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
     def rel_all(got, want):
         num = sum(float(((a - b).double() ** 2).sum())
                   for a, b in zip(got, want))
         den = sum(float((b.double() ** 2).sum()) for b in want)
         return (num / den) ** 0.5
+
+    def bias_share(got, want):
+        """out_conv.bias's share of rel_all(got, want) ** 2."""
+        num = sum(float(((a - b).double() ** 2).sum())
+                  for a, b in zip(got, want))
+        d = float(((got[bias_i] - want[bias_i]).double() ** 2).sum())
+        return d / num if num else 0.0
 
     # -- K = FT_CHECK_K: reproducible convolutions and index sums --------
     cudnn = torch.backends.cudnn
@@ -3843,9 +4016,26 @@ def finetune_phase(torch, card, K, PU, T, PW, physics, stats5, grid, seed):
     real_fns = (K._InputTransformGrad.apply, K._ConstraintHeadGrad.apply)
     plain_bwd = plain_chain_bwd(torch, PU)
     res, by_seed = {}, {}
-    # --seed last: the updates below start from its weights and IC
+
+    def all_plain(fn):
+        """fn() on the all-plain path: kernel 5 as its plain version
+        too, and 5''s backward autograd of the plain chain."""
+        PU.fused_gn_silu_conv3 = (
+            lambda x, gm, bt, w, b: PU.xla_gn_silu_conv3_plain(
+                x, gm, bt, w, b))
+        PU.fused_gn_silu_conv3_bwd = plain_bwd
+        try:
+            return fn()
+        finally:
+            PU.fused_gn_silu_conv3 = real_k5
+            PU.fused_gn_silu_conv3_bwd = real_bwd
+
+    if check_seeds is None:
+        # --seed last: the updates below start from its weights and IC
+        check_seeds = [seed + i for i in range(1, FT_CHECK_SEEDS)] + [seed]
+    gates.install()
     try:
-        for sd in [seed + i for i in range(1, FT_CHECK_SEEDS)] + [seed]:
+        for sd in check_seeds:
             forcing, oracle, s0, stds = at_seed(sd)
             l1, g1, peak1 = grads_at(wrap, True)
             if sd == seed:
@@ -3859,16 +4049,17 @@ def finetune_phase(torch, card, K, PU, T, PW, physics, stats5, grid, seed):
             # backward kernel kept: their forwards are bit-equal and their
             # backward is the plain chain's, so the gradients must be too
             lk, gk, _ = grads_at(plain, True)
-            try:  # the all-plain path: kernel 5 as its plain version too,
-                # and 5''s backward autograd of the plain chain
-                PU.fused_gn_silu_conv3 = (
-                    lambda x, gm, bt, w, b: PU.xla_gn_silu_conv3_plain(
-                        x, gm, bt, w, b))
-                PU.fused_gn_silu_conv3_bwd = plain_bwd
-                lp, gp, _ = grads_at(plain, True)
-            finally:
-                PU.fused_gn_silu_conv3 = real_k5
-                PU.fused_gn_silu_conv3_bwd = real_bwd
+            lp, gp, _ = all_plain(lambda: grads_at(plain, True))
+            # the rollout's gates: those of the kernel path (kernels 1 and
+            # 4 as plain versions, as lk) and of the all-plain path, each
+            # recorded without remat; then the all-plain path with the
+            # kernel path's gates held, the check's measure
+            (lk0, gk0, dhk), mk, sites = gated(plain)
+            (lp0, gp0, dhp), mp, _ = all_plain(lambda: gated(plain))
+            (_, gh, dhh), _, _ = all_plain(lambda: gated(plain, mk))
+            wk, wp, wh = bias_f64(dhk), bias_f64(dhp), bias_f64(dhh)
+            uk, up, uh = (unrounded_bias(g, dh) for g, dh in (
+                (gk0, dhk), (gp0, dhp), (gh, dhh)))
             try:    # F4 planted: kernels 1 and 4 as bare launches
                 K._InputTransformGrad.apply = (
                     lambda x, c: K._transform_launch(x, c, c.device))
@@ -3885,13 +4076,50 @@ def finetune_phase(torch, card, K, PU, T, PW, physics, stats5, grid, seed):
                 "loss": float(l1), "plain_loss": float(lp),
                 "k14_plain_rel_l2": rel_all(g1, gk),
                 "grad_rel_l2_to_plain": rel_all(g1, gp),
+                "grad_rel_l2_held": rel_all(uk, uh),
+                "grad_rel_l2_gates_held": rel_all(gk0, gh),
+                "grad_rel_l2_bias_unrounded": rel_all(uk, up),
+                "gates": len(mk), "gate_flips": gate_flips(torch, mp, mk,
+                                                           sites),
+                "kernel_remat_bit_equal": bool(torch.equal(lk0, lk) and all(
+                    torch.equal(a, b) for a, b in zip(gk0, gk))),
+                "plain_remat_bit_equal": bool(torch.equal(lp0, lp) and all(
+                    torch.equal(a, b) for a, b in zip(gp0, gp))),
+                "bias_share": bias_share(g1, gp),
+                "bias_share_gates_held": bias_share(gk0, gh),
+                "bias_f64_of_autograd": [rel(gk0[bias_i], wk),
+                                         rel(gp0[bias_i], wp),
+                                         rel(gh[bias_i], wh)],
+                "bias_f64_to_plain": rel(wk, wp),
+                "bias_f64_gates_held": rel(wk, wh),
+                "bias_unrounded_to_plain": rel(uk[bias_i], up[bias_i]),
+                "bias_unrounded_gates_held": rel(uk[bias_i], uh[bias_i]),
+                "bias_norm_share": float((gk0[bias_i].double() ** 2).sum())
+                / sum(float((g.double() ** 2).sum()) for g in gk0),
                 "f4_planted_rel_l2": rel_all(gf, gp),
                 "f4_planted_k14_rel_l2": rel_all(gf, gk),
                 "f4_kernel1_only_k14_rel_l2": rel_all(gf1, gk)}
             print(f"  K={FT_CHECK_K} (cuDNN off), seed {sd}: gradients "
                   f"{r['k14_plain_rel_l2']:.3e} (rel-L2) from kernels 1 and "
-                  f"4's plain versions', {r['grad_rel_l2_to_plain']:.3e} "
-                  f"from the all-plain path's (bound {FT_GRAD_TOL:g}); F4 "
+                  f"4's plain versions', from the all-plain path's "
+                  f"{r['grad_rel_l2_held']:.3e} with the {r['gates']} gates "
+                  f"held and out_conv.bias's unrounded (bound "
+                  f"{FT_GRAD_TOL:g}); as autograd gives them "
+                  f"{r['grad_rel_l2_to_plain']:.3e}, the gates held "
+                  f"{r['grad_rel_l2_gates_held']:.3e}, out_conv.bias's "
+                  f"unrounded {r['grad_rel_l2_bias_unrounded']:.3e} "
+                  f"(gradient masks flipped by caller: {r['gate_flips']}; "
+                  f"out_conv.bias {r['bias_norm_share']:.1%} of the "
+                  f"squared gradient, {r['bias_share']:.1%} of the squared "
+                  f"gap, {r['bias_share_gates_held']:.1%} with the gates "
+                  f"held); out_conv.bias in float64 from the gradient at "
+                  f"its output: autograd's within "
+                  + " / ".join(f"{v:.2e}" for v in r['bias_f64_of_autograd'])
+                  + f" (kernel, all-plain, held), kernel against all-plain "
+                  f"{r['bias_f64_to_plain']:.3e} rounded (held "
+                  f"{r['bias_f64_gates_held']:.3e}), "
+                  f"{r['bias_unrounded_to_plain']:.3e} unrounded (held "
+                  f"{r['bias_unrounded_gates_held']:.3e}); F4 "
                   f"planted {r['f4_planted_rel_l2']:.3e} from the all-plain "
                   f"path's, {r['f4_planted_k14_rel_l2']:.3e} from kernels 1 "
                   f"and 4's plain versions', kernel 1's alone "
@@ -3903,14 +4131,22 @@ def finetune_phase(torch, card, K, PU, T, PW, physics, stats5, grid, seed):
             require(not all(torch.equal(a, b) for a, b in zip(gf1, gk)),
                     f"K={FT_CHECK_K}, seed {sd}: F4 planted in kernel 1 "
                     "alone passes")
-            del g1, gk, gp, gf, gf1
+            del g1, gk, gp, gf, gf1, gk0, gp0, gh, dhk, dhp, dhh, mk, mp, \
+                uk, up, uh
     finally:
+        gates.remove()
         cudnn.deterministic, cudnn.enabled = saved[:2]
         torch.use_deterministic_algorithms(saved[2])
-    gap = max(r["grad_rel_l2_to_plain"] for r in by_seed.values())
+    if check_only:
+        return {"by_seed": by_seed}, {}
+    require(all(r["kernel_remat_bit_equal"] for r in by_seed.values()),
+            f"K={FT_CHECK_K}: remat=False differs from remat=True with "
+            "kernels 1 and 4 as plain versions (the gates' run)")
+    gap = max(r["grad_rel_l2_held"] for r in by_seed.values())
     gap_f4 = min(r["f4_planted_rel_l2"] for r in by_seed.values())
     require(gap <= FT_GRAD_TOL, f"K={FT_CHECK_K}: the kernel path's "
-            f"gradients {gap:.3e} (rel-L2) from the all-plain path's")
+            f"gradients {gap:.3e} (rel-L2) from the all-plain path's with "
+            "the rollout's gates held and out_conv.bias's unrounded")
     require(gap_f4 > FT_GRAD_TOL, f"F4 planted passes: {gap_f4:.3e}")
     res["check_k"] = {
         "k": FT_CHECK_K, **by_seed[seed], "remat_bit_equal": True,
@@ -3921,8 +4157,9 @@ def finetune_phase(torch, card, K, PU, T, PW, physics, stats5, grid, seed):
           f"bit-equal (loss {float(l1):.6e}), peak {peak1 / 1e9:.2f} / "
           f"{peak0 / 1e9:.2f} GB; over {FT_CHECK_SEEDS} seeds bit-equal to "
           f"kernels 1 and 4's plain versions, at most {gap:.3e} from the "
-          f"all-plain path's, F4 planted at least {gap_f4:.3e} (bound "
-          f"{FT_GRAD_TOL:g})", flush=True)
+          f"all-plain path's with the gates held and out_conv.bias's "
+          f"unrounded, F4 planted at least "
+          f"{gap_f4:.3e} (bound {FT_GRAD_TOL:g})", flush=True)
 
     # -- FT_UPDATES updates at K = FT_K ------------------------------------
     ft = PD.HybridDriver(wrap, grid, dyn_forcing=forcing, remat=True)
@@ -6107,6 +6344,11 @@ def main(argv=None) -> int:
                     help="only run 13b at these seeds, read its float32 "
                     "gaps to 1 process (the readings DP_RUN_RTOL rests on), "
                     "print them and exit")
+    ap.add_argument("--ft-gap-seeds", metavar="S,S,...",
+                    help="only run 6f's K = 2 check at these seeds, read "
+                    "the kernel path's gradients against the all-plain "
+                    "path's with the rollout's gates held and not (the "
+                    "readings FT_GRAD_TOL rests on), print them and exit")
     ap.add_argument("--data-parallel-only", action="store_true",
                     help="build the kernels, run phase 13 alone, exit")
     ap.add_argument("--distribution-only", action="store_true",
@@ -6193,6 +6435,14 @@ def main(argv=None) -> int:
         gaps = dp_gap_seeds(torch, K, card, [int(v) for v in
                                              args.dp_gap_seeds.split(",")])
         print(json.dumps({"card": card, "dp_gaps": gaps}))
+        return 0
+    if args.ft_gap_seeds:
+        finetune, _ = finetune_phase(
+            torch, card, K, PU, T, PW, physics, load_asset_norms("v5"),
+            load_default_grid(),
+            args.seed, [int(v) for v in args.ft_gap_seeds.split(",")],
+            check_only=True)
+        print(json.dumps({"card": card, "ft_gaps": finetune["by_seed"]}))
         return 0
     if args.data_parallel_only:
         t0 = time.perf_counter()

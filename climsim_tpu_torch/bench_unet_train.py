@@ -28,8 +28,16 @@ Without a CUDA device it exits non-zero.  ``--flops`` prints the model's
 forward operations a sample (counted from its shapes on the meta device)
 and exits; it needs no card.
 
+``--convs`` times instead the fused arm's plain ``Conv1d`` calls (the
+convolutions kernel 5 does not take: 8 k = 3 and 33 1x1 a forward) shape
+by shape at --batch: the device ms of the forward, dgrad and wgrad
+(torch.profiler) of ``conv_tensor_core``, the card's path, and of
+``conv_widened`` at bf16 compute (float32 products of the rounded
+operands), beside the bf16 bound; one JSON line a shape, then the step's
+totals.
+
   python -m climsim_tpu_torch.bench_unet_train [--arms plain,fused]
-      [--batch 1024] [--pool 16] [--epochs 2] [--reps 3]
+      [--batch 1024] [--pool 16] [--epochs 2] [--reps 3] [--convs]
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ POOL = 16         # batches in the pool
 BLOCK = 128       # block_shuffle rows
 EPOCHS = 2        # a call
 REPS = 3
+CONV_ITERS = 20   # calls a timed pass of --convs
 ARMS = {
     "plain": {},
     "fused": dict(fused_gn_conv=True),
@@ -123,6 +132,102 @@ def forward_flops_per_sample() -> dict:
                       in counter.get_flop_counts()["Global"].items()}}
 
 
+def conv_shapes(model_channels: int | None = None) -> dict:
+    """{(L, Cin, Cout, K): calls} of the plain ``Conv1d`` calls in one
+    forward of the fused arm (kernel 5's chains are not among them), by a
+    pre-hook on each, at 16 rows on the CPU; the same at any batch that is
+    a multiple of 16.  ``model_channels`` replaces the preset's width."""
+    import torch
+
+    from .models.unet import ClimSimUNet, Conv1d
+    from .varspec import get_varspec
+
+    spec = get_varspec("v5")
+    kw = model_kw("fused")
+    if model_channels is not None:
+        kw["model_channels"] = model_channels
+    m = ClimSimUNet(spec, **kw)
+    shapes: dict = {}
+
+    def count(mod, args):
+        cout, cin, k = mod.weight.shape
+        key = (args[0].shape[1], cin, cout, k)
+        shapes[key] = shapes.get(key, 0) + 1
+
+    for mod in m.modules():
+        if isinstance(mod, Conv1d):
+            mod.register_forward_pre_hook(count)
+    with torch.no_grad():
+        m(torch.zeros(16, spec.input_len))
+    return shapes
+
+
+def conv_times(shapes: dict, batch: int) -> list[dict]:
+    """One row a shape of ``conv_shapes``: device ms a call of the forward,
+    dgrad and wgrad of both paths at ``batch`` rows (every kernel a pass
+    launches, casts included, summed from torch.profiler's device events:
+    back-to-back calls here wait on the host), the tensor-core pass's
+    longest kernel, and the bound of each pass: its products at the bf16
+    rate, or its bf16 operands read and its bf16 result written once, the
+    larger."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from .bench_gn_conv3 import BF16_OPS_S, HBM_BYTES_S
+    from .models import unet
+
+    paths = {"tensor_core": unet.conv_tensor_core,
+             "float32": lambda x, w, b: unet.conv_widened(x, w, b,
+                                                          torch.bfloat16)}
+
+    def device_ms(fn):
+        """(device ms a call, the name of the kernel that took longest)"""
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(CONV_ITERS):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation:
+                by_name[ev.name] = (by_name.get(ev.name, 0.0)
+                                    + ev.device_time_total)
+        return (sum(by_name.values()) / CONV_ITERS / 1e3,
+                max(by_name, key=by_name.get)[:80])
+
+    rows = []
+    for (l, cin, cout, k), calls in sorted(shapes.items(),
+                                           key=lambda kv: (-kv[0][3], kv[0])):
+        x = torch.randn(batch, l, cin, device="cuda")
+        w = torch.randn(cout, cin, k, device="cuda") / (cin * k) ** 0.5
+        b = 0.1 * torch.randn(cout, device="cuda")
+        dy = torch.randn(batch, l, cout, device="cuda")
+        row = dict(L=l, Cin=cin, Cout=cout, K=k, calls=calls)
+        for name, fn in paths.items():
+            with torch.no_grad():
+                timed = {"forward": device_ms(lambda: fn(x, w, b))}
+            for part, arg in (("dgrad", 0), ("wgrad", 1)):
+                ins = [x, w]
+                ins[arg] = ins[arg].detach().requires_grad_()
+                y = fn(ins[0], ins[1], b)
+                timed[part] = device_ms(lambda: torch.autograd.grad(
+                    y, ins[arg], dy, retain_graph=True))
+                del y
+            for part, (t, kernel) in timed.items():
+                row[f"{name}_{part}_ms"] = t
+                if name == "tensor_core":
+                    row[f"{part}_kernel"] = kernel
+        ops = 2 * batch * l * cin * cout * k
+        nbytes = 2 * (batch * l * (cin + cout) + cout * cin * k)
+        row["bound_ms"] = 1e3 * max(ops / BF16_OPS_S, nbytes / HBM_BYTES_S)
+        rows.append(row)
+    return rows
+
+
 def run_arm(arm: str, data, batch: int, epochs: int, reps: int,
             seed: int = 0) -> dict:
     """Build ``arm`` on the card, time it, and return its JSON row."""
@@ -158,6 +263,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--flops", action="store_true",
                     help="print the forward operations a sample and exit")
+    ap.add_argument("--convs", action="store_true",
+                    help="time the plain convolutions shape by shape")
     args = ap.parse_args(argv)
     arms = [a.strip() for a in args.arms.split(",") if a.strip()]
     unknown = set(arms) - set(ARMS)
@@ -174,6 +281,21 @@ def main(argv=None) -> int:
         print("bench_unet_train: no CUDA device; this benchmark runs on the "
               "GPU", file=sys.stderr)
         return 1
+    if args.convs:
+        print(f"[bench_unet_train] {torch.cuda.get_device_name(0)}, plain "
+              f"Conv1d calls at B={args.batch}", file=sys.stderr)
+        rows = conv_times(conv_shapes(), args.batch)
+        for row in rows:
+            print(json.dumps(row), flush=True)
+        parts = ("forward", "dgrad", "wgrad")
+        print(json.dumps({"metric": "unet_conv_ms_a_step", "batch": args.batch,
+                          **{f"{path}_ms": sum(
+                              r["calls"] * r[f"{path}_{p}_ms"]
+                              for r in rows for p in parts)
+                             for path in ("tensor_core", "float32")},
+                          "bound_ms": sum(3 * r["calls"] * r["bound_ms"]
+                                          for r in rows)}))
+        return 0
     data = pool(args.batch * args.pool, args.seed)
     print(f"[bench_unet_train] {torch.cuda.get_device_name(0)}, "
           f"{data[0].shape[0]} rows", file=sys.stderr)

@@ -13,7 +13,10 @@ Importing this module sets ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` to False: a float32 product or
 convolution on the card then runs in full float32, as the reference's
 does, instead of TF32 with about three decimal digits (cuDNN's default
-for convolutions is TF32).
+for convolutions is TF32).  It also sets
+``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction`` to
+False: a bf16 GEMM (``models.unet.Conv1d``'s 1x1 convolutions on the card)
+then adds its split-K partial sums in float32, not in bf16.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from ..physics import maximum
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def out_dtype(compute_dtype: torch.dtype) -> torch.dtype:

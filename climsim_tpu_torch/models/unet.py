@@ -14,9 +14,15 @@ casts follow flax's, one by one:
   * ``Conv1d`` is flax ``nn.Conv(dtype=compute_dtype)``: x and w rounded
     to bf16, the product accumulated in float32 and rounded to bf16, the
     bias rounded to bf16 and added, the sum rounded again, then widened
-    to float32 (``climsim_tpu/models/unet.py:66-69``).  The rounded
-    operands are widened back to float32 before the product, where bf16
-    products are exact (the idiom of ``models.common.Dense``).
+    to float32 (``climsim_tpu/models/unet.py:66-69``).  On a CUDA device
+    at bf16 compute the products run on bf16 tensor cores (cuDNN's bf16
+    convolution, cuBLAS's bf16 GEMM for 1x1), which sum in float32 and
+    round once to bf16, as do their dgrad and wgrad: the same arithmetic
+    but for the order of the float32 sums (``conv_tensor_core``).
+    Elsewhere the rounded operands are widened back to float32 before the
+    product, where bf16 products are exact (the idiom of
+    ``models.common.Dense``; ``conv_widened``), and so is a k = 3 conv
+    with cuDNN off.  ``CONV_CALLS`` counts the calls of each path.
   * ``GroupNorm`` is flax ``nn.GroupNorm(dtype=norm_dtype)``: statistics
     in float32 by E[x^2] - E[x]^2 clipped at 0, the scale folded into
     rsqrt(var + eps), the result stored in ``norm_dtype`` (float32, or
@@ -98,6 +104,40 @@ def _round(t: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
     return t.to(cd).to(out_dtype(cd))
 
 
+# ``Conv1d`` calls by path: ``tensor_core`` (``conv_tensor_core``) and
+# ``float32`` (``conv_widened``; its sums are float64 at float64 compute)
+CONV_CALLS = {"tensor_core": 0, "float32": 0}
+
+
+def reset_conv_calls() -> None:
+    for k in CONV_CALLS:
+        CONV_CALLS[k] = 0
+
+
+def conv_widened(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 cd: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Conv(dtype=cd)`` on x (B, L, Cin), w (Cout, Cin, K), b
+    (Cout,): the operands rounded to ``cd`` and widened, one widened
+    convolution, then the bias as flax adds it; ``out_dtype(cd)``."""
+    y = conv_nlc(_round(x, cd), _round(w, cd))
+    if cd == out_dtype(cd):   # float32 compute: one float32 conv + bias
+        return y + b.to(y.dtype)
+    return _round(_round(y, cd) + _round(b, cd), cd)
+
+
+def conv_tensor_core(x: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor) -> torch.Tensor:
+    """``conv_widened`` at bf16 compute with bf16 operands: the backend's
+    bf16 convolution or GEMM sums the products in float32 and rounds the
+    result to bf16 once, where ``conv_widened`` rounds its float32 sum;
+    dx and dw are rounded once likewise.  The bias is added as there: two
+    roundings, not one in the convolution's epilogue.  A bf16 add sums in
+    float32 and rounds once, so ``y + b`` in bf16 is round(round(y) +
+    round(b)) in fewer launches."""
+    cd = torch.bfloat16
+    return (conv_nlc(x.to(cd), w.to(cd)) + b.to(cd)).float()
+
+
 class Conv1d(nn.Module):
     """flax Conv1d: xavier-uniform weight (scaled by 1e-5 for
     ``zero_init``, as the reference's init_weight=1e-5), zero bias."""
@@ -119,10 +159,16 @@ class Conv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
-        y = conv_nlc(_round(x, cd), _round(self.weight, cd))
-        if cd == out_dtype(cd):   # float32 compute: one float32 conv + bias
-            return y + self.bias.to(y.dtype)
-        return _round(_round(y, cd) + _round(self.bias, cd), cd)
+        # a k = 3 conv reaches tensor cores through cuDNN: without it,
+        # torch's own bf16 conv sums dw over the batch and dx over the taps
+        # in bf16, which is not this arithmetic
+        if (x.is_cuda and cd == torch.bfloat16
+                and (self.weight.shape[2] == 1
+                     or torch.backends.cudnn.enabled)):
+            CONV_CALLS["tensor_core"] += 1
+            return conv_tensor_core(x, self.weight, self.bias)
+        CONV_CALLS["float32"] += 1
+        return conv_widened(x, self.weight, self.bias, cd)
 
 
 class IdentityConv(Conv1d):

@@ -13,6 +13,11 @@
   JAX fused model, rel-L2 <= 1e-4 at float32 compute; at bf16 the JAX
   test's own bound against its reference (rel < 0.15, forward < 5e-2 *
   max|y|).
+* ``Conv1d``'s two paths: on the CPU ``conv_widened`` (the widened
+  float32 conv of the rounded operands) at every compute dtype; the bf16
+  tensor-core path's function, run here on the CPU's bf16 convolution,
+  within one bf16 rounding of it (a control without the rounding of the
+  conv's sum fails); the 41 plain convolutions of a unet_v5 forward.
 * ``remat_blocks``, dropout and ``norm_dtype``; the energy and water
   losses (rtol 1e-6); ``classifier_labels`` (bit-equal); ``unet_trainer``
   and ``unet_classifier_trainer`` at tests/test_recipes_full.py's widths,
@@ -36,6 +41,7 @@ from climsim_tpu.ops import unet_fused as JU
 from climsim_tpu.train import losses as JL
 from climsim_tpu.train import recipes as JR
 from climsim_tpu.varspec import get_varspec
+from climsim_tpu_torch.models import unet as PM
 from climsim_tpu_torch.models.unet import ClimSimUNet, GroupNorm, _dropout
 from climsim_tpu_torch.ops import kernels as PK
 from climsim_tpu_torch.ops import unet_fused as PU
@@ -191,6 +197,120 @@ def test_kernel_shapes_checked_before_the_first_step(monkeypatch):
     with pytest.raises(ValueError, match="shared memory"):
         PU.check_kernel_shapes({(64, 2048, 64): 1}, "cuda")
     assert m.fused_chains(1000) == {}          # B % 16 != 0: nothing fused
+
+
+# --------------------------------------------------------------------------
+# Conv1d: the widened float32 path and the bf16 tensor-core path
+# --------------------------------------------------------------------------
+CONV_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32,
+               "f64": torch.float64}
+
+
+def _conv_case(k, dtype=torch.float32, seed=5):
+    """x (8, 16, 40), w (24, 40, k) at variance 1 / fan-in, b ~ 0.1 N, and
+    a cotangent, in ``dtype``."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(8, 16, 40, generator=g, dtype=dtype)
+    w = torch.randn(24, 40, k, generator=g, dtype=dtype) / (40 * k) ** 0.5
+    b = 0.1 * torch.randn(24, generator=g, dtype=dtype)
+    dy = torch.randn(8, 16, 24, generator=g, dtype=dtype)
+    return x, w, b, dy
+
+
+def _conv_grads(fn, x, w, b, dy):
+    """{"y", "dx", "dw", "db"} of ``fn(x, w, b)`` with the cotangent dy."""
+    ins = [t.clone().requires_grad_() for t in (x, w, b)]
+    y = fn(*ins)
+    return dict(zip(("y", "dx", "dw", "db"),
+                    (y.detach(), *torch.autograd.grad(y, ins, dy))))
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("dtype", sorted(CONV_DTYPES))
+def test_conv1d_on_the_cpu_is_the_widened_conv(dtype, k):
+    """On a CPU tensor ``Conv1d`` takes the widened conv at every compute
+    dtype (the JAX parity tests hold that conv to flax's): the output and
+    every gradient bit-equal to ``conv_widened``'s; the call counts as
+    float32."""
+    cd = CONV_DTYPES[dtype]
+    x, w, b, dy = _conv_case(k, PM.out_dtype(cd))
+    m = PM.Conv1d(40, 24, k, compute_dtype=cd)
+    with torch.no_grad():
+        m.weight.copy_(w)
+        m.bias.copy_(b)
+    PM.reset_conv_calls()
+    xr = x.clone().requires_grad_()
+    y = m(xr)
+    assert PM.CONV_CALLS == {"tensor_core": 0, "float32": 1}
+    y.backward(dy)
+    got = dict(y=y.detach(), dx=xr.grad, dw=m.weight.grad, db=m.bias.grad)
+    want = _conv_grads(lambda *a: PM.conv_widened(*a, cd), x,
+                       m.weight.detach(), m.bias.detach(), dy)
+    for name in want:
+        assert got[name].dtype == want[name].dtype, name
+        assert torch.equal(got[name], want[name]), name
+
+
+def _one_rounding_misses(got, want, pre):
+    """What sets the tensor-core path apart from the widened one beyond
+    the order of its float32 sums.  Both round the same float32 sum to
+    bf16 once, and the two sums differ by float32 round-off alone, so:
+    every result is a bf16 value; each element is within one bf16 rounding
+    of the widened one, 2^-7 of its magnitude (the output's of the conv's
+    sum ``pre`` too, which the bias is added to after its rounding), plus
+    1e-6 of the largest for sums that cancel; and at most 1% of the
+    elements differ at all (the sums straddle a rounding boundary)."""
+    misses = []
+    for name in ("y", "dx", "dw", "db"):
+        g, w = got[name].double(), want[name].double()
+        mag = w.abs() + (pre.abs() if name == "y" else 0)
+        if not torch.equal(got[name], got[name].bfloat16().float()):
+            misses.append(f"{name} not bf16")
+        if ((g - w).abs() > 2.0 ** -7 * mag + 1e-6 * w.abs().max()).any():
+            misses.append(f"{name} beyond one rounding")
+        if (g != w).double().mean() > 0.01:
+            misses.append(f"{name} differs in over 1% of its elements")
+    return misses
+
+
+@pytest.mark.parametrize("fault", [None, "sum_unrounded"])
+@pytest.mark.parametrize("k", [1, 3])
+def test_tensor_core_conv_within_one_rounding(k, fault):
+    """``conv_tensor_core`` (its bf16 convolution or GEMM run by the CPU
+    here) against ``conv_widened`` at bf16 compute.  The control drops
+    the rounding of the conv's sum before the bias (the widened float32
+    product carried into the bias add): it must be caught."""
+    bf = torch.bfloat16
+    x, w, b, dy = _conv_case(k)
+    fn = PM.conv_tensor_core
+    if fault == "sum_unrounded":
+        def fn(x_, w_, b_):
+            y = PM.conv_nlc(PM._round(x_, bf), PM._round(w_, bf))
+            return PM._round(y + PM._round(b_, bf), bf)
+    got = _conv_grads(fn, x, w, b, dy)
+    want = _conv_grads(lambda *a: PM.conv_widened(*a, bf), x, w, b, dy)
+    pre = PM.conv_nlc(PM._round(x, bf), PM._round(w, bf)).double()
+    misses = _one_rounding_misses(got, want, pre)
+    if fault is None:
+        assert misses == []
+    else:
+        assert misses == ["y differs in over 1% of its elements"]
+
+
+def test_unet_v5_plain_convs_a_forward():
+    """The fused unet_v5 forward makes 41 plain ``Conv1d`` calls: 8 k = 3
+    (7 shapes) and 33 1x1 (9 shapes), the ones the card runs on tensor
+    cores; counted at 16 channels, whose topology is the preset's."""
+    from climsim_tpu_torch import bench_unet_train as BU
+
+    PM.reset_conv_calls()
+    shapes = BU.conv_shapes(model_channels=16)
+    assert PM.CONV_CALLS == {"tensor_core": 0, "float32": 41}
+    calls = {k: sum(n for s, n in shapes.items() if s[3] == k) for k in (1, 3)}
+    assert calls == {1: 33, 3: 8}
+    assert sorted(sum(s[3] == k for s in shapes) for k in (1, 3)) == [7, 9]
+    assert shapes[(64, 55, 16, 3)] == 1        # enc64_conv
+    assert shapes[(64, 16, 13, 3)] == 1        # out_conv
 
 
 # --------------------------------------------------------------------------
@@ -582,6 +702,7 @@ def test_bench_unet_train_setup(monkeypatch, capsys):
     assert flops["total"] == 896_073_728 == sum(flops["by_op"].values())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert BU.main(["--arms", "plain"]) == 1
+    assert BU.main(["--convs"]) == 1
     assert capsys.readouterr().out == ""
     with pytest.raises(SystemExit):
         BU.main(["--arms", "xla"])
