@@ -198,14 +198,19 @@ def learning_rate(sched: dict, step: int) -> float:
     raise ValueError(f"schedule {sched['name']!r}")
 
 
-def follow_steps(forward, params: dict, batches, train: dict, in_t, tgt_t
-                 ) -> dict:
+def follow_steps(forward, params: dict, batches, train: dict, in_t, tgt_t,
+                 rows=None) -> dict:
     """Follow the program's first training steps: for each raw batch (xb,
     yb), the loss of ``forward(in_t(xb))`` against ``tgt_t(yb)``, its
     gradients, and Adam (betas 0.9, 0.999, eps 1e-8 outside the root, bias
-    corrected) at ``train``'s schedule.  ``params`` ({name: leaf}) change in
-    place.  Returns {"loss": [each step's], "grad": {name: the first
-    step's gradient}, "change": {name: the change over all steps}}."""
+    corrected) at ``train``'s schedule.  Where ``rows`` is given, a step's
+    loss and gradients are summed over blocks of ``rows`` rows, each
+    block's mean weighted by its rows over the batch's: the losses are
+    means of per-sample terms and the model mixes no rows, so the blocks
+    change only the float32 summation order.  ``params`` ({name: leaf})
+    change in place.  Returns {"loss": [each step's], "grad": {name: the
+    first step's gradient}, "change": {name: the change over all
+    steps}}."""
     b1, b2, eps = 0.9, 0.999, 1e-8
     loss_of = loss_fn(train["loss"])
     start = {n: p.detach().clone() for n, p in params.items()}
@@ -215,9 +220,13 @@ def follow_steps(forward, params: dict, batches, train: dict, in_t, tgt_t
     for t, (xb, yb) in enumerate(batches):
         for p in params.values():
             p.grad = None
-        loss = loss_of(forward(in_t(xb)), tgt_t(yb))
-        loss.backward()
-        losses.append(float(loss.detach()))
+        loss, block = 0.0, rows or len(xb)
+        for i in range(0, len(xb), block):
+            xs, ys = xb[i:i + block], yb[i:i + block]
+            part = loss_of(forward(in_t(xs)), tgt_t(ys)) * (len(xs) / len(xb))
+            part.backward()
+            loss += float(part.detach())
+        losses.append(loss)
         with torch.no_grad():
             if first is None:
                 first = {n: p.grad.clone() for n, p in params.items()}

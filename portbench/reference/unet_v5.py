@@ -34,6 +34,30 @@ def groups(c: int, cap: int = 32) -> int:
     return g
 
 
+class ConvK(torch.autograd.Function):
+    """``F.conv1d`` with SAME padding, K odd: x (B, C, L), w (Cout, C, K).
+    The forward and the input's gradient are cuDNN's; the weight's
+    gradient is one float32 product of the cotangent with the K shifted
+    copies of the input: the same sums in another order, where cuDNN's
+    float32 weight gradient (an FFT) takes ~9 times as long at the
+    training cell's sizes."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return F.conv1d(x, w, padding=w.shape[-1] // 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        k, l = w.shape[-1], x.shape[-1]
+        dx = (torch.nn.grad.conv1d_input(x.shape, w, g, padding=k // 2)
+              if ctx.needs_input_grad[0] else None)
+        xp = F.pad(x, (k // 2, k // 2))
+        cols = torch.stack([xp[:, :, j:j + l] for j in range(k)], dim=-1)
+        return dx, torch.einsum("bol,bclk->ock", g, cols)
+
+
 class Conv(nn.Module):
     """A convolution over the levels with SAME padding, K odd."""
 
@@ -48,8 +72,7 @@ class Conv(nn.Module):
         if k == 1:
             y = cast(x) @ w[:, :, 0].t()
         else:
-            y = F.conv1d(cast(x).transpose(1, 2), w,
-                         padding=k // 2).transpose(1, 2)
+            y = ConvK.apply(cast(x).transpose(1, 2), w).transpose(1, 2)
         return cast(cast(y) + cast(self.bias))
 
 
@@ -303,9 +326,17 @@ def serve(cfg: dict, weights: dict, norms: dict, x_raw: torch.Tensor,
     return torch.cat(out)
 
 
+# the row block the reference follows a training step in, so that its
+# float32 activations at the training cell's B = 8192 hold a small share
+# of the card; a batch of ROWS rows or fewer is one block, the whole-batch
+# path bit for bit
+ROWS = 1024
+
+
 def train(cfg: dict, weights: dict, norms: dict, batches, cast=common.exact
           ) -> dict:
-    """``common.follow_steps`` over the raw (xb, yb) ``batches``."""
+    """``common.follow_steps`` over the raw (xb, yb) ``batches``, in blocks
+    of ``ROWS`` rows."""
     dev = batches[0][0].device
     model = build(cfg, weights)
     lay = Layout(cfg["varspec"])
@@ -315,7 +346,7 @@ def train(cfg: dict, weights: dict, norms: dict, batches, cast=common.exact
     params = dict(model.named_parameters())
     with common.no_tf32():
         return common.follow_steps(lambda x: model(x, cast), params, batches,
-                                   tr, in_t, tgt_t)
+                                   tr, in_t, tgt_t, ROWS)
 
 
 def wire_scale(norms: dict) -> torch.Tensor:

@@ -13,7 +13,7 @@ from portbench.drivers import serve as S
 from portbench.drivers import train as T
 from portbench.tests.conftest import cpu_context, tiny_cell
 
-TRAIN = ["unet_v5.train_b1024", "mlp_v1.train_b32768"]
+TRAIN = ["unet_v5.train_b8192", "mlp_v1.train_b32768"]
 
 
 def fails(readings: dict, limits: dict) -> list:

@@ -12,21 +12,23 @@ import pytest
 
 from portbench import harness
 
-CELLS = ["mlp_v1.train_b32768", "unet_v5.serve_c8", "unet_v5.train_b1024"]
+CELLS = ["mlp_v1.train_b32768", "unet_v5.serve_c8", "unet_v5.train_b8192"]
 
 
 def test_names_come_from_the_files():
     assert harness.names("workloads") == CELLS
     assert harness.names("configs") == ["mlp_v1", "unet_v5"]
-    assert harness.names("mixes") == ["serve_c8", "train_b1024",
-                                      "train_b32768"]
+    assert harness.names("mixes") == ["serve_c8", "train_b32768",
+                                      "train_b8192"]
     assert harness.names("drivers") == ["serve", "train"]
     assert harness.names("reference") == ["common", "mlp_v1", "unet_v5"]
     assert set(harness.names("metrics")) == {
         "rows_per_call.serve", "device_call_p95_ms.serve", "mfu.serve",
         "mfu.train", "k5_roofline.serve", "k5bwd_roofline.train",
         "device_idle_pct.train", "device_idle_pct.serve", "peak_gib.train",
-        "round_trip_p95_ms.serve"}
+        "round_trip_p95_ms.serve", "queue_wait_p95_ms.serve",
+        "idle_in_server_pct.serve", "forward_ms.train", "backward_ms.train",
+        "optimizer_ms.train"}
 
 
 @pytest.mark.parametrize("name", CELLS)
